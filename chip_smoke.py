@@ -18,14 +18,34 @@ Phases (each asserted; any failure exits non-zero):
 3. K5, the fused GEGLU feed-forward, against its plain version at
    N = 20384, D 512, inner 1365, bf16; the yardstick is the
    matmul -> gelu -> matmul chain.
-4. the slice: ``EmbeddingService`` at TCGA_config1 width (dim 512,
-   depth 5, 8 x 64 heads, T 2548, bf16, max_batch 8) on the GPU with
-   weights from a fixed seed answers ``embed`` (20 rows, three
+4. K2 (fused backward) and K3a + K3b (split backward) against the
+   plain backward at K1's shapes and inputs with a random ``do``:
+   dq, dk, dv within bf16 tolerance entry by entry and in relative L2
+   per gradient, dead-row dq and padded-key dk / dv exactly 0, the two
+   routes against each other; a planted fault (the plain backward with
+   one partly masked tile dropped) must fail the relative-L2 check.
+   Times: each kernel,
+   the plain backward, and the backward alone of
+   ``F.scaled_dot_product_attention`` with the same mask as a yardstick.
+5. the serving slice: ``EmbeddingService`` at TCGA_config1 width (dim
+   512, depth 5, 8 x 64 heads, T 2548, bf16, max_batch 8) on the GPU
+   with weights from a fixed seed answers ``embed`` (20 rows, three
    pipelined chunks), ``submit`` from several threads and ``POST
-   /embed`` over localhost HTTP; the three agree; each kernel launched
-   5 times per forward; the embeddings agree with the same weights run
-   in fp32 on the CPU through the plain versions.
-5. one ``{"kernels": [...]}`` line, then the last line
+   /embed`` over localhost HTTP; the three agree; K1 and K5 each
+   launched 5 times per forward; the embeddings agree with the same
+   weights run in fp32 on the CPU through the plain versions.
+6. the training slice: the TCGA_config1 model (same widths and depth,
+   bf16 compute, fp32 params, seed 0) takes 6 steps on a synthetic
+   batch of 8 TCGA-shaped rows through ``mca_tpu_torch.train``, first
+   with the fused backward (the main path: K1 and K2 5 times per step,
+   K5 never), then with the split one (K3a and K3b 5 times per step);
+   finite metrics, per-step losses of the two agree; from the same
+   weights, the first step's q / kv-projection gradients of the two
+   routes agree leaf by leaf (and a planted dq error fails that check),
+   and the first step's loss, whole gradient and attention-projection
+   gradients agree with fp32 on the CPU.  Prints the host, the ms of
+   each step and training tokens/s.
+7. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
@@ -35,6 +55,7 @@ Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -47,12 +68,22 @@ import torch
 
 import mca_tpu_torch
 from mca_tpu_torch import _build
-from mca_tpu_torch.config import training_config
+from mca_tpu_torch.config import get_model_config, training_config
+from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.synthetic import tabular_rows
 from mca_tpu_torch.masks import build_masks
+from mca_tpu_torch.models import build_model
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
 from mca_tpu_torch.serve import EmbeddingService, make_server
+from mca_tpu_torch.tools import host_description, host_probe_ms
+from mca_tpu_torch.train import (
+    build_trainer,
+    forward_backward,
+    synthetic_rows,
+    to_device,
+    train_step,
+)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "tcga_mca.yaml"
@@ -63,11 +94,61 @@ PEAK_BYTES = 3.35e12  # bytes/s
 BF16_RTOL = 2.0**-6
 FLASH_ATOL = 4e-3  # p is rounded to bf16 against different running maxima
 FF_ATOL = 1e-3
+# backward: kernel and plain version round p and ds to bf16 before the
+# products that take them, but from fp32 values computed in another
+# order (exp2 against exp, other running sums), so a few of those
+# roundings land one unit (2^-8) apart; K2 also adds dq's fp32
+# partials in an atomic order that changes from run to run; the
+# gradients sum hundreds of such terms, so the gap is bounded by a
+# fraction of the gradient's own largest entry: 1% of max |plain|, on
+# top of BF16_RTOL
+BWD_ATOL = 1e-2
+# the same, over a whole gradient: relative L2 of kernel against plain.
+# The few one-unit roundings apart give ~1.2e-4 (measured on an H100,
+# fused and split alike); one partly masked 64 x 64 tile dropped from
+# the plain backward (the tile with the median live count), the planted
+# fault, gives ~2.9e-2, and must exceed the bound; 2e-3 sits ~15x from
+# each, and also catches a dropped tile with 1-3% of that live count
+# (6-7e-3 at these shapes)
+BWD_REL_L2 = 2e-3
 # embeddings, bf16 on the GPU vs fp32 on the CPU: relative L2 gap per key
 # (bf16 rounds each activation to 8 significant bits, ~2e-3 relative;
 # the final fp32 norm and pool average much of it out)
 SLICE_REL_L2 = 1e-2
 AGREE_ATOL = 1e-3  # embed vs submit vs HTTP: same kernels, batch-mates differ
+TRAIN_STEPS = 6
+TRAIN_WARMUP = 2  # lr is 0 at step 0 (as in the JAX schedule), then rises
+# fused vs split backward, per-step total_loss: the two routes compute
+# the same bf16 products and differ only in the order of dq's fp32 sums
+# (step 0 agrees exactly), but one bf16 unit of dq moves near-zero
+# gradient entries across 0, AdamW's early updates are about lr in size
+# whatever the gradient's size, and the loss falls fourfold in these 6
+# steps: the trajectories part by up to ~1% (measured 8.9e-3 at step 5
+# on an H100), so 3e-2 relative.  AdamW's normalised updates also hide
+# a dq that is off by a few percent here; the first-step gradient check
+# (TRAIN_ROUTE_GRAD_REL_L2) is the one that tells the routes apart
+TRAIN_SPLIT_RTOL = 3e-2
+# first step, bf16 on the GPU vs fp32 on the CPU: the loss is an average
+# of log-softmax terms of O(1) logits, which bf16 activations (8
+# significant bits) move by well under 1%; the gradient carries the
+# bf16 rounding of every activation and product through 5 blocks and the
+# backward, so its relative L2 gap is a few percent at most
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
+# leaf by leaf for the attention projections (to_q, to_kv, to_out of
+# every block), which the flash backward feeds, so that a fault there
+# cannot hide under the larger leaves of the flat vector: each leaf
+# carries about the flat vector's gap (measured 8.0e-3 to 1.0e-2 on an
+# H100), so 2e-2; the planted dq fault below must exceed it too
+TRAIN_ATTN_GRAD_REL_L2 = 2e-2
+# fused against split backward from the same weights, q / kv-projection
+# gradients leaf by leaf: the routes differ only in the order of dq's
+# fp32 sums, which moves a few bf16 roundings (measured at most 1.6e-3,
+# in the first block, on an H100); dq wrong by a factor (1 + e) moves
+# every block's to_q gradient by about e, so the planted fault (K3a's
+# dq scaled by PLANTED_DQ_SCALE, measured 5.0e-2) must exceed the bound
+TRAIN_ROUTE_GRAD_REL_L2 = 1e-2
+PLANTED_DQ_SCALE = 1.05
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -88,6 +169,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_BF16
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
+    x, ref = x.float(), ref.float()
+    return float((x - ref).norm() / ref.norm())
 
 
 def bf16_err(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> float:
@@ -176,6 +262,162 @@ def check_flash(device) -> dict:
         "bound_by": by,
         "library_ms": lib_ms,
     }
+
+
+def planted_tile(mask: np.ndarray, pad: torch.Tensor):
+    """The (q tile, kv tile) that the planted fault drops, and its live
+    entries over the batch: of the tiles that the static mask leaves
+    partly blocked (off the ragged edge) and the padding leaves some
+    entry live, the one with the median count of live entries."""
+    row_ptr, col_idx, full = flash.tile_schedule(mask)
+    bl, nt = flash.BLOCK, len(row_ptr) - 1
+    live = ~torch.from_numpy(mask)[None] & ~pad.cpu()[:, None, :]
+    tiles = []
+    for i in range(nt - 1):
+        for n in range(row_ptr[i], row_ptr[i + 1]):
+            j = int(col_idx[n])
+            if not full[n] and j < nt - 1:
+                cnt = int(live[:, i * bl : (i + 1) * bl, j * bl : (j + 1) * bl].sum())
+                if cnt:
+                    tiles.append((cnt, i, j))
+    cnt, i, j = sorted(tiles)[len(tiles) // 2]
+    return i, j, cnt
+
+
+def check_flash_bwd(device) -> list:
+    """K2 (fused) and K3a + K3b (split) against the plain backward and
+    against each other, at the shapes and mask of ``check_flash``."""
+    mask, q, k, v, pad = flash_inputs(device)
+    b, h, t, d = q.shape
+    scale = d**-0.5
+    g = torch.Generator(device=device).manual_seed(1)
+    do = torch.randn(q.shape, generator=g, device=device).to(torch.bfloat16)
+    with torch.inference_mode():
+        out, lse = flash.flash_attention(q, k, v, mask, pad, scale)
+        delta = flash.attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, mask, pad, scale)
+        ref = flash.flash_attention_bwd_reference(q, k, v, mask, pad, out, lse, do, scale)
+        fused = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "fused")
+        split = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "split")
+        torch.cuda.synchronize()
+        blocked = torch.from_numpy(mask).to(device)[None] | pad[:, None, :]
+        dead = blocked.all(dim=2)[:, None, :].expand(b, h, t)  # dead query rows
+        padded = pad[:, None, :].expand(b, h, t)  # padded keys
+        # the planted fault: the plain backward with one tile dropped
+        qi, kj, n_live = planted_tile(mask, pad)
+        faulty_mask = mask.copy()
+        tq, tk = (slice(x * flash.BLOCK, (x + 1) * flash.BLOCK) for x in (qi, kj))
+        faulty_mask[tq, tk] = True
+        faulty = flash.flash_attention_bwd_reference(
+            q, k, v, faulty_mask, pad, out, lse, do, scale
+        )
+        names = ("dq", "dk", "dv")
+        for name, r, f in zip(names, ref, faulty):
+            a = r.float().abs()
+            atol = BWD_ATOL * float(a.max())
+            flagged = int(((f.float() - r.float()).abs() > atol + BF16_RTOL * a).sum())
+            print(
+                f"backward {name}: max |plain| {float(a.max()):.4e}, median "
+                f"|plain| {float(a.median()):.4e}, entry tolerance {atol:.3e} + "
+                f"2^-6 relative; planted fault (tile q{qi} x kv{kj}, {n_live} live "
+                f"entries over the batch, dropped): "
+                f"relative L2 {rel_l2(f, r):.3e}, {flagged} entries past the "
+                f"entry tolerance",
+                flush=True,
+            )
+            assert rel_l2(f, r) > BWD_REL_L2, (name, "planted fault passes", rel_l2(f, r))
+        errs, rels = {}, {}
+        for impl, grads in (("fused", fused), ("split", split)):
+            for name, x, r in zip(names, grads, ref):
+                rels[impl, name] = rel_l2(x, r)
+            print(
+                f"backward {impl}: relative L2 against plain "
+                + ", ".join(f"{n} {rels[impl, n]:.3e}" for n in names),
+                flush=True,
+            )
+            for name, x, r in zip(names, grads, ref):
+                errs[impl, name] = bf16_err(x, r, BWD_ATOL * float(r.abs().max()))
+                assert rels[impl, name] <= BWD_REL_L2, (impl, name, rels[impl, name])
+            assert bool((grads[0][dead] == 0).all()), f"{impl}: dead-row dq is not 0"
+            assert bool((grads[1][padded] == 0).all()), f"{impl}: padded-key dk is not 0"
+            assert bool((grads[2][padded] == 0).all()), f"{impl}: padded-key dv is not 0"
+        assert int(dead.sum()) > 0 and int(padded.sum()) > 0  # both were covered
+        # K2 against K3a + K3b: dk and dv come from the same kernel body;
+        # dq sums the same bf16 products, in fp32, in another order
+        fused_vs_split = max(
+            bf16_err(x, y, BWD_ATOL * float(y.abs().max())) for x, y in zip(fused, split)
+        )
+        route_rel = max(rel_l2(x, y) for x, y in zip(fused, split))
+        assert route_rel <= BWD_REL_L2, route_rel
+        del faulty
+
+        dq_acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=device)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        ms = {
+            "flash_bwd": cuda_ms(lambda: flash.flash_bwd(*args, dq_acc, dk, dv), 10),
+            "flash_bwd_dq": cuda_ms(lambda: flash.flash_bwd_dq(*args, dq), 10),
+            "flash_bwd_dkv": cuda_ms(lambda: flash.flash_bwd_dkv(*args, dk, dv), 10),
+        }
+        plain_ms = cuda_ms(
+            lambda: flash.flash_attention_bwd_reference(q, k, v, mask, pad, out, lse, do, scale),
+            3, 1,
+        )
+    # the yardstick: the backward alone of SDPA with the same boolean mask
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=~blocked[:, None], scale=scale
+    )
+    lib_ms = cuda_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True), 10
+    )
+    del sdpa_out
+
+    # this run's work: every live (query, key) pair, over all heads;
+    # products of depth 64: K2 five (s, dp, dv, dk, dq), K3a three (s,
+    # dp, dq), K3b four (s, dp, dv, dk); bytes: the inputs read once
+    # (q, k, v, do bf16; lse, delta fp32; mask; padding), the outputs
+    # written once (bf16)
+    pairs = float((~blocked).sum()) * h
+    n_in = 4 * q.numel() * 2 + 2 * lse.numel() * 4 + mask.size + pad.numel()
+    work = {
+        "flash_bwd": (5, n_in + 3 * q.numel() * 2, "_fused_bwd_kernel", 337, "flash_bwd.cu"),
+        "flash_bwd_dq": (3, n_in + q.numel() * 2, "_dq_kernel", 281, "flash_bwd_dq.cu"),
+        "flash_bwd_dkv": (4, n_in + 2 * q.numel() * 2, "_dkv_kernel", 523, "flash_bwd_dkv.cu"),
+    }
+    entries = []
+    for name, (products, n_bytes, tpu_name, line, src) in work.items():
+        bms, by = bound_ms(n_bytes, 2.0 * d * products * pairs)
+        impl = "fused" if name == "flash_bwd" else "split"
+        outs = {"flash_bwd": ("dq", "dk", "dv"), "flash_bwd_dq": ("dq",),
+                "flash_bwd_dkv": ("dk", "dv")}[name]
+        err = max(errs[impl, o] for o in outs)
+        print(
+            f"{name} ({tpu_name}): max_abs_err {err:.3e} "
+            f"({', '.join(f'{o} {errs[impl, o]:.3e}' for o in outs)}), "
+            f"{ms[name]:.4f} ms kernel, {plain_ms:.4f} ms plain (dq, dk, dv), "
+            f"{lib_ms:.4f} ms sdpa backward, bound {bms:.4f} ms ({by})",
+            flush=True,
+        )
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"mca_tpu_torch/csrc/{src}",
+            "replaces": f"mca_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err,
+            "ms": ms[name],
+            "plain_ms": plain_ms,
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": lib_ms,
+        })
+    print(
+        f"backward: fused vs split max abs gap {fused_vs_split:.3e}, "
+        f"relative L2 {route_rel:.3e}; "
+        f"{int(dead.sum())} dead query rows, {int(padded.sum())} padded keys "
+        f"(all heads); {pairs:.4g} live score entries",
+        flush=True,
+    )
+    return entries
 
 
 def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
@@ -328,6 +570,160 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20) -> dict:
     return counts
 
 
+def attention_leaves(grads: dict, projections=("to_q", "to_kv", "to_out")) -> list:
+    """Names of the transformer blocks' attention-projection weights."""
+    return [n for n in grads if n.startswith("layers.")
+            and n.split(".")[-2] in projections]
+
+
+def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
+    """The training slice: TCGA_config1 at full width and depth on the
+    GPU, ``steps`` steps through the fused backward (the main path) and
+    again through the split one from the same weights; from those
+    weights, the first step's gradients of the two routes against each
+    other, and its loss and gradients against fp32 on the CPU."""
+    config = type(config)(config)
+    config.num_warmup_steps = TRAIN_WARMUP
+    print(
+        f"train: num_warmup_steps set to {TRAIN_WARMUP} (the config's "
+        f"{training_config(str(CONFIG)).num_warmup_steps} would keep lr near 0 "
+        f"for these {steps} steps)",
+        flush=True,
+    )
+    rows = synthetic_rows(config, int(config.batch_size))
+    collated = MultimodalCollator(config.modality_config.to_plain())(rows)
+    init = build_model(get_model_config(config), fused_ff=False)
+    init.init_weights(torch.Generator().manual_seed(0))
+    params = {k: v.clone() for k, v in init.state_dict().items()}
+    depth, tokens = len(init.layers), int(config.batch_size) * init.mask_set.seq_len
+
+    print(host_description(), flush=True)
+    runs, counts = {}, {}
+    for impl in ("fused", "split"):
+        flash.default_bwd_impl = impl
+        model, opt, sched = build_trainer(
+            config, device, num_training_steps=steps, params=params
+        )
+        batch = to_device(collated, device)
+        # each path with every launch count at 0 just before it
+        flash.launches = 0
+        ff.launches = 0
+        flash.bwd_launches.update(dict.fromkeys(flash.bwd_launches, 0))
+        history, step_s, step_cpu_s = [], [], []
+        probe = host_probe_ms()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            history.append(train_step(model, opt, sched, batch, clip=float(config.clip)))
+            step_s.append(time.perf_counter() - t0)  # train_step ends in a sync
+            step_cpu_s.append(time.process_time() - c0)
+        counts[impl] = {
+            "flash_fwd": flash.launches, "geglu_ff": ff.launches, **flash.bwd_launches,
+        }
+        runs[impl] = (history, step_s, step_cpu_s, probe)
+        print(f"train ({impl} backward): launches {counts[impl]}", flush=True)
+        del model, opt, sched
+    flash.default_bwd_impl = "fused"
+
+    fused_c, split_c = counts["fused"], counts["split"]
+    n = depth * steps
+    assert fused_c == {"flash_fwd": n, "geglu_ff": 0, "flash_bwd": n,
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, fused_c
+    assert split_c == {"flash_fwd": n, "geglu_ff": 0, "flash_bwd": 0,
+                       "flash_bwd_dq": n, "flash_bwd_dkv": n}, split_c
+    for impl, (history, *_) in runs.items():
+        for m in history:
+            for k in ("total_loss", "fcl_loss", "no-fcl_loss", "param_norm", "grad_norm"):
+                assert math.isfinite(m[k]), (impl, k, m)
+            # a pair whose presence mask is empty in this batch is NaN by
+            # design (excluded from total_loss); nothing may be infinite
+            assert not any(math.isinf(v) for v in m.values()), (impl, m)
+    fused_loss = [m["total_loss"] for m in runs["fused"][0]]
+    split_loss = [m["total_loss"] for m in runs["split"][0]]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(fused_loss, split_loss))
+    assert gap <= TRAIN_SPLIT_RTOL, (fused_loss, split_loss)
+    assert runs["fused"][0][-1]["lr"] > 0
+
+    # the first step from the same weights: the loss and every gradient
+    # (on the CPU, fp32), through each route on the GPU, through the
+    # split route with a planted dq fault, and in fp32 on the CPU
+    # through the plain versions
+    def first_step(cfg, dev, impl="fused"):
+        flash.default_bwd_impl = impl
+        model = build_trainer(cfg, dev, params=params)[0]
+        loss = float(forward_backward(model, to_device(collated, dev))["loss"].detach())
+        flash.default_bwd_impl = "fused"
+        return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    gpu_loss, gpu = first_step(config, device, "fused")
+    _, split = first_step(config, device, "split")
+    real_dq = flash.flash_bwd_dq
+    flash.flash_bwd_dq = lambda *a: (real_dq(*a), a[-1].mul_(PLANTED_DQ_SCALE))
+    _, planted = first_step(config, device, "split")
+    flash.flash_bwd_dq = real_dq
+    cfg32 = type(config)(config)
+    cfg32.precision = "fp32"
+    t0 = time.perf_counter()
+    cpu_loss, cpu = first_step(cfg32, cpu_device)
+    cpu_step_s = time.perf_counter() - t0
+
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = rel_l2(torch.cat([g.reshape(-1) for g in gpu.values()]),
+                      torch.cat([g.reshape(-1) for g in cpu.values()]))
+    attn = attention_leaves(gpu)
+    qkv = attention_leaves(gpu, ("to_q", "to_kv"))
+    attn_rel = {n: rel_l2(gpu[n], cpu[n]) for n in attn}
+    route_rel = {n: rel_l2(split[n], gpu[n]) for n in qkv}
+    planted_rel = {n: rel_l2(planted[n], gpu[n]) for n in qkv}
+    planted_cpu = max(rel_l2(planted[n], cpu[n]) for n in qkv)
+    print(
+        "train: first-step gradients, relative L2 per leaf; bf16 GPU vs fp32 "
+        f"CPU: {', '.join(f'{n} {x:.3e}' for n, x in attn_rel.items())}; "
+        f"split vs fused: {', '.join(f'{n} {x:.3e}' for n, x in route_rel.items())}; "
+        f"split with dq x {PLANTED_DQ_SCALE} vs fused: "
+        f"{', '.join(f'{n} {x:.3e}' for n, x in planted_rel.items())}",
+        flush=True,
+    )
+    assert loss_rel <= TRAIN_LOSS_RTOL, (gpu_loss, cpu_loss)
+    assert grad_rel <= TRAIN_GRAD_REL_L2, grad_rel
+    assert max(attn_rel.values()) <= TRAIN_ATTN_GRAD_REL_L2, attn_rel
+    assert max(route_rel.values()) <= TRAIN_ROUTE_GRAD_REL_L2, route_rel
+    assert max(planted_rel.values()) > TRAIN_ROUTE_GRAD_REL_L2, planted_rel
+    assert planted_cpu > TRAIN_ATTN_GRAD_REL_L2, planted_cpu
+
+    step_ms = 1e3 * float(np.mean(runs["fused"][1][1:]))
+    split_ms = 1e3 * float(np.mean(runs["split"][1][1:]))
+    def each(xs):
+        return ", ".join(f"{1e3 * x:.3f}" for x in xs)
+
+    print(
+        f"train: total_loss fused {['%.5f' % x for x in fused_loss]}, "
+        f"split {['%.5f' % x for x in split_loss]} (max relative gap {gap:.3e}); "
+        f"first step bf16 GPU vs fp32 CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f} "
+        f"(relative {loss_rel:.3e}), gradient relative L2 {grad_rel:.3e}, "
+        f"attention projections at most {max(attn_rel.values()):.3e}; split vs "
+        f"fused q / kv projections at most {max(route_rel.values()):.3e}, planted "
+        f"dq fault {max(planted_rel.values()):.3e} (against fp32 CPU "
+        f"{planted_cpu:.3e}) (CPU step {cpu_step_s:.1f} s, depth {depth})",
+        flush=True,
+    )
+    for impl, (_, step_s, step_cpu_s, probe) in runs.items():
+        print(
+            f"train ({impl}): wall ms per step {each(step_s)}; process CPU ms "
+            f"{each(step_cpu_s)}; Python loop probe before the run {probe:.1f} ms",
+            flush=True,
+        )
+    print(host_description(), flush=True)
+    print(
+        f"train: {step_ms:.3f} ms per step with the fused backward, {split_ms:.3f} ms "
+        f"with the split one (mean of steps 2-{steps}, host clock, synchronised); "
+        f"{tokens / step_ms * 1e3:.1f} training tokens/s ({tokens} tokens per step)",
+        flush=True,
+    )
+    return {"flash_bwd": fused_c["flash_bwd"], "flash_bwd_dq": split_c["flash_bwd_dq"],
+            "flash_bwd_dkv": split_c["flash_bwd_dkv"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -337,6 +733,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    print(host_description(), flush=True)
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"mca_tpu_torch {mca_tpu_torch.__version__}",
@@ -353,8 +750,10 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     device = torch.device("cuda")
-    kernels = [check_flash(device), check_ff(device)]
-    counts = check_slice(training_config(str(CONFIG)), device)
+    kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]
+    config = training_config(str(CONFIG))
+    counts = check_slice(config, device)
+    counts.update(check_train(config, device))
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("flash_fwd", "geglu_ff")
+KERNELS = ("flash_fwd", "geglu_ff", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}

@@ -49,99 +49,12 @@
 // plain loads, so it runs far from either; wgmma and TMA are later
 // work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;                 // head dim (compile-time)
-constexpr int kBlock = 64;             // q rows and kv columns per tile
-constexpr int kWarps = 4;              // each warp owns 16 q rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kLdh = kD + 8;           // bf16 row stride of the q, k, v^T tiles
-constexpr int kLdm = kBlock + 4;       // byte row stride of the mask tile
-constexpr float kNegInf = -1e30f;
-constexpr float kDeadClamp = -1e29f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr size_t kTileH = size_t(kBlock) * kLdh * sizeof(__nv_bfloat16);
 // q, k and v^T tiles (bf16) + the mask tile and the per-column flags
-constexpr size_t kSmemBytes = 3 * kTileH + kBlock * kLdm + kBlock;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats -> one register of two bf16 (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-// Fragments (PTX ISA, mma.m16n8k16), g = lane / 4, c = lane % 4:
-//   a0: A[g][2c..2c+1]  a1: A[g+8][2c..]  a2: A[g][2c+8..]  a3: A[g+8][2c+8..]
-//   b0: B[2c..2c+1][g]  b1: B[2c+8..2c+9][g]
-//   d0, d1: D[g][2c], D[g][2c+1]   d2, d3: D[g+8][2c], D[g+8][2c+1]
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Rows [row0, row0 + 64) of a [t, 64] bf16 matrix into shared memory
-// (row stride kLdh), 16 bytes per thread and step; rows at or past t are
-// zero.  With `scale` != 1 each value is multiplied and rounded to bf16,
-// as the TPU kernel's q * scale in the input dtype.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int t, float scale) {
-  for (int i = threadIdx.x; i < kBlock * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * kD + c);
-      if (scale != 1.f) {
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h[j]);
-          h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = val;
-  }
-}
-
-// The same rows of v stored transposed, dst[d][key] (row stride kLdh);
-// neighbouring threads take neighbouring keys, so the stores do not
-// conflict.
-__device__ __forceinline__ void load_tile_transposed(__nv_bfloat16* dst,
-                                                     const __nv_bfloat16* src, int row0,
-                                                     int t) {
-  for (int i = threadIdx.x; i < kBlock * (kD / 8); i += kThreads) {
-    const int r = i % kBlock, c = (i / kBlock) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t) val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * kD + c);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * kLdh + r] = h[j];
-  }
-}
+constexpr size_t kSmemBytes = 3 * kTileH + kMaskBytes + kBlock;
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -155,7 +68,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __nv_bfloat16* ks = qs + kBlock * kLdh;
   __nv_bfloat16* vt = ks + kBlock * kLdh;  // v^T: [d][key]
   uint8_t* mask_s = reinterpret_cast<uint8_t*>(vt + kD * kLdh);
-  uint8_t* colblk = mask_s + kBlock * kLdm;
+  uint8_t* colblk = mask_s + kMaskBytes;
 
   const int qb = blockIdx.x, bh = blockIdx.y;
   const int q0 = qb * kBlock;
@@ -168,21 +81,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   load_tile(qs, q + head_off, q0, t, scale);
   __syncthreads();
   uint32_t qa[kD / 16][4];  // this warp's q as A fragments, one per 16-wide k step
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const __nv_bfloat16* p = qs + (r0 + g) * kLdh + kk * 16 + c2;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * kLdh);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * kLdh + 8);
-  }
+  load_a_frags(qa, qs, r0, g, c2);
 
   // rows g and g + 8 of the warp: running max, this thread's share of
   // the running sum, and O (8 column blocks of 8, d0..d3 layout)
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
   float o[kD / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  zero_acc(o);
 
   for (int it = row_ptr[qb]; it < row_ptr[qb + 1]; ++it) {
     const int k0 = col_idx[it] * kBlock;
@@ -197,25 +102,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       const int j = k0 + threadIdx.x;
       colblk[threadIdx.x] = j >= t || (pad_b != nullptr && pad_b[j] != 0);
     }
-    if (!tile_full) {
-      for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
-        const int r = i / kBlock, c = i % kBlock, qrow = q0 + r, j = k0 + c;
-        mask_s[r * kLdm + c] = (qrow >= t || j >= t) ? 1 : mask[size_t(qrow) * t + j];
-      }
-    }
+    if (!tile_full) load_mask_tile(mask_s, mask, q0, k0, t);
     __syncthreads();
 
     // S = (scale q) k^T: 8 blocks of 8 keys
     float s[kBlock / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < kBlock / 8; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const __nv_bfloat16* p = ks + (nb * 8 + g) * kLdh + kk * 16 + c2;
-        mma16816(s[nb], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], ld32(p), ld32(p + 8));
-      }
-    }
+    zero_acc(s);
+    mma_a_bt(s, qa, ks, g, c2);
 
     // masks, then the online softmax on the accumulators in place
     float mx[2] = {kNegInf, kNegInf};
@@ -252,18 +145,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
     // O += p v: the probabilities of key blocks 2j and 2j + 1, rounded
     // to bf16, are the A fragment of the j-th 16-key step
-#pragma unroll
-    for (int j = 0; j < kBlock / 16; ++j) {
-      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int nb = 0; nb < kD / 8; ++nb) {
-        const __nv_bfloat16* p = vt + (nb * 8 + g) * kLdh + j * 16 + c2;
-        mma16816(o[nb], a0, a1, a2, a3, ld32(p), ld32(p + 8));
-      }
-    }
+    mma_acc_b(o, s, vt, g, c2);
   }
 
 #pragma unroll

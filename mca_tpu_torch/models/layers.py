@@ -2,9 +2,13 @@
 
 - :class:`LayerNorm` — bias-less (learnable ``gamma``), fp32, eps 1e-6.
 - :class:`FeedForward` — GEGLU MLP, ``inner = int(dim * mult * 2/3)``,
-  bias-free, exact (erf) GELU, always through the fused op
-  (:func:`mca_tpu_torch.ops.fused_ff.geglu_ff`: the Hopper kernel on
-  CUDA, its plain version on the CPU).
+  bias-free, exact (erf) GELU.  ``fused=True`` (the forward-only entry
+  points, as the JAX package's ``MCA_FUSED_FF`` on serve / infer) goes
+  through the fused op (:func:`mca_tpu_torch.ops.fused_ff.geglu_ff`:
+  the Hopper kernel on CUDA, its plain version on the CPU) and refuses
+  to run where autograd would need its weights' gradients;
+  ``fused=False`` (training) is the differentiable linear -> gelu ->
+  linear chain.
 - :class:`Attention` — MHA with a fused ``to_kv`` projection (k the
   first half), cross-attention through ``context`` (the attentive
   pool), and the static / dynamic mask pair.
@@ -46,13 +50,15 @@ class LayerNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward through the fused op.
+    """GEGLU feed-forward, fused (forward only) or unfused.
 
     ``feedforward.0`` is W1 ``[2*inner, dim]`` (u half first),
     ``feedforward.2`` is W2 ``[dim, inner]``; index 1 stands for the
-    reference's parameter-free GEGLU, which runs inside the fused op.
-    The split, padded, compute-dtype copies of the weights the op takes
-    are made once per weight version and device, not on every call.
+    reference's parameter-free GEGLU.  On the fused path the split,
+    padded, compute-dtype copies of the weights the op takes are made
+    once per weight version and device, not on every call; they are
+    detached, so that path raises when grad mode is on and a weight
+    requires grad, instead of leaving the weights without gradients.
     """
 
     def __init__(
@@ -61,6 +67,7 @@ class FeedForward(nn.Module):
         mult: float = 4,
         dtype: torch.dtype = torch.float32,
         quant: str = "none",
+        fused: bool = True,
     ):
         super().__init__()
         if quant != "none":
@@ -76,6 +83,7 @@ class FeedForward(nn.Module):
             ]
         )
         self.dtype = dtype
+        self.fused = fused
         self._prepared = None
         self._prepared_key = None
 
@@ -92,7 +100,21 @@ class FeedForward(nn.Module):
         return self._prepared
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return geglu_ff(x.to(self.dtype).contiguous(), *self._weights())
+        w1 = self.feedforward[0].weight
+        w2 = self.feedforward[2].weight
+        x = x.to(self.dtype)
+        if self.fused:
+            if torch.is_grad_enabled() and (w1.requires_grad or w2.requires_grad):
+                raise RuntimeError(
+                    "the fused GEGLU feed-forward is forward-only: build "
+                    "the model with fused_ff=False to train, or run under "
+                    "torch.no_grad() / inference_mode()"
+                )
+            return geglu_ff(x.contiguous(), *self._weights())
+        h, gate = F.linear(x, w1.to(self.dtype)).chunk(2, dim=-1)
+        return F.linear(
+            F.gelu(gate, approximate="none") * h, w2.to(self.dtype)
+        )
 
 
 class Attention(nn.Module):
@@ -172,6 +194,7 @@ class MCALayer(nn.Module):
         attn_impl: str = "dense",
         quant: str = "none",
         moe_experts: int = 0,
+        fused_ff: bool = True,
     ):
         super().__init__()
         if int(moe_experts) > 0:
@@ -182,7 +205,9 @@ class MCALayer(nn.Module):
             dim, dim_head=dim_head, heads=heads, dtype=dtype,
             impl=attn_impl, quant=quant,
         )
-        self.ff = FeedForward(dim, mult=ff_mult, dtype=dtype, quant=quant)
+        self.ff = FeedForward(
+            dim, mult=ff_mult, dtype=dtype, quant=quant, fused=fused_ff
+        )
         self.norm = LayerNorm(dim)
 
     def forward(

@@ -1,12 +1,17 @@
-"""The MCA fusion transformer's embedding forward, ported from
-``mca_tpu/models/mca.py``.
+"""The MCA fusion transformer, ported from ``mca_tpu/models/mca.py``.
 
 One packed forward: per-modality encoders -> learnable fusion tokens
 appended -> ``depth`` masked transformer blocks under the static
 zorro/MCA mask and the dynamic per-sample padding mask -> fp32 final
 norm -> attentive pooling into the return tokens -> the named
-embeddings.  ``zorro``, ``fcl`` and ``no_fusion`` only change the
-masks and the return-token layout, so they are kept.
+embeddings and, unless ``no_loss``, the contrastive loss graph
+(:class:`mca_tpu_torch.losses.MCAPretrainingLoss`).  ``zorro``,
+``fcl`` and ``no_fusion`` change the masks, the return-token layout and
+the pair list.
+
+``fused_ff`` picks the feed-forward: the fused forward-only kernel
+(default; the serving path) or the differentiable unfused chain that
+training builds with (the JAX package's ``MCA_FUSED_FF`` split).
 
 Masks are numpy constants built once (``mca_tpu_torch.masks``); the
 self-attention mask stays numpy because the flash kernel derives its
@@ -16,7 +21,7 @@ runs the transformer blocks in bf16 with fp32 norms and softmax
 statistics.
 
 Not ported yet (they raise): mean pooling, pipeline / sequence
-parallelism, int8 quantization, MoE, the loss graph (``no_loss=False``).
+parallelism, int8 quantization, MoE, rematerialisation (``remat``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def dtype_of(precision: str) -> torch.dtype:
 
 
 class MCA(nn.Module):
-    """Multimodal-contrastive-alignment fusion transformer (forward)."""
+    """Multimodal-contrastive-alignment fusion transformer."""
 
     def __init__(
         self,
@@ -48,6 +53,8 @@ class MCA(nn.Module):
         heads: int = 8,
         ff_mult: float = 4,
         num_fusion_tokens: int = 16,
+        bimodal_contrastive: bool = False,
+        non_fusion_fcl: bool = False,
         fcl: bool = False,
         fusion_combos: Sequence[int] = (4, 5),
         zorro: bool = False,
@@ -59,10 +66,16 @@ class MCA(nn.Module):
         pipeline_stages: int = 0,
         seq_shard: bool = False,
         moe_experts: int = 0,
+        remat: bool = False,
+        fused_ff: bool = True,
     ):
         super().__init__()
         if mean_pool:
             raise NotImplementedError("mean_pool is not ported yet")
+        if remat:
+            raise NotImplementedError(
+                "remat (activation rematerialisation) is not ported yet"
+            )
         if int(pipeline_stages or 0) > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline / sequence parallelism come with the "
@@ -93,7 +106,7 @@ class MCA(nn.Module):
                 MCALayer(
                     dim, dim_head, heads, ff_mult, dtype=self.dtype,
                     attn_impl=attention_impl, quant=quant,
-                    moe_experts=moe_experts,
+                    moe_experts=moe_experts, fused_ff=fused_ff,
                 )
                 for _ in range(depth)
             ]
@@ -120,12 +133,14 @@ class MCA(nn.Module):
             do_fcl=fcl and not zorro,
             fusion_combos=self.mask_set.fusion_combos,
             no_fusion=no_fusion,
+            bimodal_contrastive=bimodal_contrastive,
+            non_fusion_fcl=non_fusion_fcl,
         )
 
     def forward(
         self,
         batch: Dict[str, Dict[str, torch.Tensor]],
-        no_loss: bool = True,
+        no_loss: bool = False,
     ) -> Dict[str, Any]:
         tokens, pad_masks, sample_mask = [], [], {}
         for m in self.modality_types:

@@ -60,8 +60,11 @@ def masked_attention(
     attn_mask=None,
     key_padding_mask: Optional[torch.Tensor] = None,
     impl: str = "dense",
+    bwd_impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """Dispatch between the dense oracle and the flash kernel."""
+    """Dispatch between the dense oracle and the flash kernels; both are
+    differentiable (``bwd_impl`` picks the flash backward, ``fused`` or
+    ``split``; ``None`` takes ``flash_attention.default_bwd_impl``)."""
     if impl == "auto":
         impl = (
             "pallas"
@@ -72,7 +75,7 @@ def masked_attention(
         from mca_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(
-            q, k, v, attn_mask, key_padding_mask, scale
+            q, k, v, attn_mask, key_padding_mask, scale, bwd_impl
         )[0]
     if impl != "dense":
         raise NotImplementedError(

@@ -86,7 +86,7 @@ class EmbeddingService:
                 "device='cpu' to run the plain versions on the CPU"
             )
         self.config = config
-        self.model = build_model(get_model_config(config))
+        self.model = build_model(get_model_config(config), fused_ff=True)
         if params is None:
             self.model.init_weights(torch.Generator().manual_seed(seed))
         else:

@@ -4,6 +4,7 @@ and its kernel wrappers never fall back from the kernel to the plain
 version."""
 
 import ast
+import inspect
 import pathlib
 
 import numpy as np
@@ -15,6 +16,7 @@ from mca_tpu_torch import _build
 from mca_tpu_torch.config import training_config_from_dict
 from mca_tpu_torch.ops import flash_attention as port_flash
 from mca_tpu_torch.ops import fused_ff as port_ff
+from mca_tpu_torch import train as port_train
 from mca_tpu_torch.serve import EmbeddingService
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -50,6 +52,19 @@ def test_service_defaults_to_cuda_and_raises_without_it():
         EmbeddingService(cfg)
 
 
+def test_train_entry_point_defaults_to_cuda_and_raises_without_it():
+    for fn in (port_train.train, port_train.build_trainer):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the raise is for hosts without one")
+    cfg = training_config_from_dict(tiny_config("tcga", batch_size=2))
+    rows = port_train.synthetic_rows(cfg, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.train(cfg, steps=1, rows=rows)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main(["configs/tcga_mca.yaml", "--synthetic", "8", "--steps", "1"])
+
+
 def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -69,6 +84,15 @@ def test_wrappers_raise_where_no_kernel_can_launch():
         port_ff.geglu_ff(_meta(5, 512), _meta(512, 1408), _meta(512, 1408),
                          _meta(1408, 512))
     assert (port_flash.launches, port_ff.launches) == before
+    bwd_before = dict(port_flash.bwd_launches)
+    q = _meta(1, 2, t, 64)
+    for impl in ("fused", "split"):
+        with pytest.raises(RuntimeError, match="not meta"):
+            port_flash.flash_attention_backward(
+                q, q, q, mask, None, q, _meta(1, 2, t, dtype=torch.float32), q,
+                0.125, impl,
+            )
+    assert port_flash.bwd_launches == bwd_before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
