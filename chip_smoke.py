@@ -45,11 +45,26 @@ Phases (each asserted; any failure exits non-zero):
    and the first step's loss, whole gradient and attention-projection
    gradients agree with fp32 on the CPU.  Prints the host, the ms of
    each step and training tokens/s.
-7. one ``{"kernels": [...]}`` line, then the last line
+7. the measurement slice: K6 (roofline counter), K7 (overlap probe) and
+   K8 (its control) against their plain versions, mode by mode, every
+   block's output after a few iterations from seeded inputs under which
+   every product moves the chain, within bf16 tolerance (fp32 for the
+   fp32 chains); planted faults must fail that check: each mode's plain
+   chain one iteration (K7: one step of each chain, K8: one step) short,
+   and the plain ``bwd5`` without dq, dv or dk.  Times of each mode,
+   kernel and plain, and its bound.  Then the tools' main path, with the
+   launch counts at 0 just before it: ``tools.roofline.measure_rates``'s
+   short pass (every rate above 0 and within 105% of its published
+   ceiling, each with the SM clock) and ``tools.probe_overlap.run`` at a
+   short length (both verdicts printed; the control must read
+   OVERLAPS, or the instrument cannot see overlap).
+8. one ``{"kernels": [...]}`` line (eight kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
-3.35 TB/s HBM3); the card's power limit is printed beside them.
+67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
+clock per SM on 132 SMs at 1980 MHz, 3.35 TB/s HBM3); the card's power
+limit is printed beside them.
 """
 
 from __future__ import annotations
@@ -75,8 +90,11 @@ from mca_tpu_torch.masks import build_masks
 from mca_tpu_torch.models import build_model
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
+from mca_tpu_torch.ops import probes
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import host_description, host_probe_ms
+from mca_tpu_torch.tools import probe_overlap as overlap_tool
+from mca_tpu_torch.tools import roofline as roofline_tool
 from mca_tpu_torch.train import (
     build_trainer,
     forward_backward,
@@ -149,6 +167,28 @@ TRAIN_ATTN_GRAD_REL_L2 = 2e-2
 # dq scaled by PLANTED_DQ_SCALE, measured 5.0e-2) must exceed the bound
 TRAIN_ROUTE_GRAD_REL_L2 = 1e-2
 PLANTED_DQ_SCALE = 1.05
+PEAK_FP32 = 67e12  # FLOP/s, outside the tensor cores (an FFMA counts 2)
+PEAK_FP32_ISSUE = PEAK_FP32 / 2  # fp32 instructions/s: 128 lanes a clock per SM
+PEAK_MUFU = roofline_tool.rate_ceilings(1980.0, 132)["exp_elems_s"]  # 132 SMs at 1980 MHz
+# measurement kernels against their plain versions, from seeded inputs
+# under which every product moves the chain by several bf16 units
+# (probes.counter_check_inputs; K7's b far from the exp chain's fixed
+# point).  An entry passes within PROBE_RTOL of itself plus PROBE_RTOL of
+# the tile's largest entry.  bf16: 2^-6, as the kernels round the same
+# products to bf16 from fp32 sums taken in another order, so a few
+# entries land one unit apart and the chain carries that on (float64
+# sums in the plain chain, a stand-in for another order, reach 0.42 of
+# it in bwd5).  fp32 (the vpu and exp chains): 1e-5, as both chains
+# contract and ex2.approx is good to about 2^-22.  The planted faults
+# put 56-100% of each mode's entries outside (one iteration or step
+# short), and bwd5 without dq, dv or dk 36%, 66% and 72% (measured on
+# an H100)
+CHECK_ITERS = 4
+PROBE_RTOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
+TIMED_ITERS = 256  # iterations of each K6 mode in its timed launch
+TIMED_PROBE_ITERS = 8
+TIMED_CTL_STEPS = 64
+CTL_DOTS = 1
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -167,6 +207,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float):
+    """The larger of bytes over the HBM rate and ``n_ops`` bf16
+    tensor-core operations over their peak."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_BF16
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -724,6 +766,264 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
             "flash_bwd_dkv": split_c["flash_bwd_dkv"]}
 
 
+def probe_tol(plain: torch.Tensor) -> torch.Tensor:
+    """Tolerance of each entry of a measurement kernel's output: PROBE_RTOL
+    of the entry plus PROBE_RTOL of the largest, at its dtype's rtol."""
+    p = plain.float().abs()
+    return PROBE_RTOL[plain.dtype] * (p + p.max())
+
+
+def outside(kernel: torch.Tensor, plain: torch.Tensor) -> int:
+    """Entries of ``kernel`` outside tolerance of ``plain``."""
+    return int(((kernel.float() - plain.float()).abs() > probe_tol(plain)).sum())
+
+
+def probe_err(kernel: torch.Tensor, plain: torch.Tensor):
+    """``(max |kernel - plain|, largest share of an entry's tolerance)``;
+    asserts every entry is within tolerance."""
+    diff = (kernel.float() - plain.float()).abs()
+    share = float((diff / probe_tol(plain)).max())
+    assert share <= 1.0, (
+        f"{outside(kernel, plain)} entries outside tolerance, max abs err "
+        f"{float(diff.max())}, {share:.2f} of tolerance"
+    )
+    return float(diff.max()), share
+
+
+def planted(faults: dict) -> str:
+    """Asserts that each planted fault, ``{what: (kernel output, plain
+    version computed wrong)}``, puts entries outside tolerance; returns a
+    note."""
+    notes = []
+    for what, (kernel, fault) in faults.items():
+        n_out = outside(kernel, fault)
+        assert n_out > 0, (what, "planted fault passes")
+        notes.append(f"{what} {n_out / kernel.numel():.1%}")
+    return "planted faults outside tolerance: " + ", ".join(notes)
+
+
+def bwd5_dropped(q, kv, iters: int, eps: float, product: str):
+    """The plain bwd5 chain with one product (dq, dv or dk) left out."""
+    for _ in range(iters):
+        p = probes.bwd5_products(q, kv[: probes.TILE], kv[probes.TILE :])
+        p[product] = torch.zeros_like(p[product])
+        fold = (p["dv"] + p["dk"]).sum(dim=-2, keepdim=True)
+        q = (q.float() + (p["dq"] + fold) * eps).to(torch.bfloat16)
+    return q
+
+
+def launch_bound(n_bytes: float, bf16_ops: float = 0.0, fp32_instr: float = 0.0,
+                 mufu_ops: float = 0.0):
+    """One measurement launch's bound, ``(ms, by)``: the larger of its
+    bytes over the HBM rate and its slowest unit, which runs beside the
+    others: tensor-core operations over the bf16 peak, fp32 instructions
+    over the FP32 pipe's issue rate, MUFU operations over the MUFU rate."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = max(bf16_ops / PEAK_BF16, fp32_instr / PEAK_FP32_ISSUE, mufu_ops / PEAK_MUFU)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_entry(name, tpu_line, errs, ms, plain_ms, bounds) -> dict:
+    """The kernels-line entry of a measurement kernel: the sums over its
+    modes' timed launches; ``bounds`` holds each launch's
+    :func:`launch_bound`."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for b_ms, b_by in bounds.values():
+        by[b_by] += b_ms
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"mca_tpu_torch/csrc/{name}.cu",
+        "replaces": tpu_line,
+        "max_abs_err": max(errs.values()),
+        "ms": sum(ms.values()),
+        "plain_ms": sum(plain_ms.values()),
+        "bound_ms": sum(by.values()),
+        "bound_by": max(by, key=by.get),
+        "library_ms": None,
+        "modes_ms": ms,
+        "modes_bound_ms": {m: b[0] for m, b in bounds.items()},
+    }
+
+
+def check_counter(device) -> dict:
+    """K6, every mode on as many blocks as reside at once: the check
+    after CHECK_ITERS iterations from ``probes.counter_check_inputs``, the
+    planted faults, and one launch of TIMED_ITERS iterations at the rate
+    pass's inputs (kernel and plain); the entry sums the five launches."""
+    errs, ms, plain_ms, bounds = {}, {}, {}, {}
+    for mode in probes.COUNTER_MODES:
+        n = probes.counter_blocks(mode)
+        x0, aux, const = probes.counter_check_inputs(mode, n, seed=7)
+        x0, aux = x0.to(device), (aux.to(device) if aux is not None else None)
+        out = probes.roofline_counter(mode, x0, aux, CHECK_ITERS, const)
+        ref = probes.counter_reference(mode, x0, aux, CHECK_ITERS, const)
+        torch.cuda.synchronize()
+        errs[mode], share = probe_err(out, ref)
+        faults = {"one iteration short": (out, probes.counter_reference(
+            mode, x0, aux, CHECK_ITERS - 1, const))}
+        if mode == "bwd5":
+            for product in ("dq", "dv", "dk"):
+                faults[f"{product} dropped"] = (
+                    out, bwd5_dropped(x0, aux, CHECK_ITERS, const, product))
+        note = planted(faults)
+        work, t_const, fill = roofline_tool.COUNTER_WORK[mode]
+        xt, auxt = roofline_tool.counter_inputs(mode, n, device, fill)
+        ms[mode] = cuda_ms(
+            lambda: probes.roofline_counter(mode, xt, auxt, TIMED_ITERS, t_const), 5
+        )
+        plain_ms[mode] = cuda_ms(
+            lambda: probes.counter_reference(mode, xt, auxt, TIMED_ITERS, t_const), 1, 0
+        )
+        n_bytes = 2.0 * xt.numel() * xt.element_size() + (
+            auxt.numel() * auxt.element_size() if auxt is not None else 0
+        )
+        elems = float(xt.numel()) * TIMED_ITERS
+        if mode == "vpu":  # an FMUL and an FFMA an element
+            bounds[mode] = launch_bound(n_bytes, fp32_instr=2 * elems)
+        elif mode == "exp":  # an FFMA and a MUFU.EX2 an element
+            bounds[mode] = launch_bound(n_bytes, fp32_instr=elems, mufu_ops=elems)
+        else:
+            bounds[mode] = launch_bound(n_bytes, bf16_ops=float(n) * work * TIMED_ITERS)
+        print(
+            f"K6 roofline_counter {mode}: {n} blocks, max_abs_err {errs[mode]:.3e} "
+            f"({share:.2f} of tolerance) after {CHECK_ITERS} iterations; {note}; {TIMED_ITERS} iterations: {ms[mode]:.4f} ms "
+            f"kernel ({ms[mode] * 1e3 / TIMED_ITERS:.4f} us per iteration; bound "
+            f"{bounds[mode][0]:.4f} ms), {plain_ms[mode]:.3f} ms plain",
+            flush=True,
+        )
+    return kernel_entry("roofline_counter", "baselines/roofline.py:253", errs, ms, plain_ms,
+                        bounds)
+
+
+def check_probe(device) -> dict:
+    """K7, each mode: the check after one iteration from the tool's
+    seeded a and W and a b far from the exp chain's fixed point, the
+    planted faults (each chain one step short), and one launch of
+    TIMED_PROBE_ITERS iterations."""
+    n = probes.probe_blocks()
+    t = overlap_tool.probe_inputs(n, device, seed=3, n_chunks=1)
+    a, w = t["a"], t["w"]
+    # b <- exp(-|b|) + 1e-3 contracts by about 0.57 a step towards 0.568;
+    # from |b| in [3, 6] its 16th step is still ~1e-4 from its 15th,
+    # far above FP32_RTOL, so one iteration's output shows its step count
+    rng = np.random.default_rng(3)
+    mag = rng.uniform(3.0, 6.0, (n, *probes.EXP_SHAPE)) * rng.choice([-1.0, 1.0], (n, *probes.EXP_SHAPE))
+    b = torch.from_numpy(mag).float().to(device)
+    b_short = b
+    for _ in range(probes.EXP_CALLS - 1):
+        b_short = probes.abs_exp_step(b_short)
+    errs, ms, plain_ms, bounds = {}, {}, {}, {}
+    for mode in probes.PROBE_MODES:
+        ka, kb = probes.probe_overlap(mode, a, w, b, 1)
+        ra, rb = probes.probe_reference(mode, a, w, b, 1)
+        torch.cuda.synchronize()
+        (err_a, share_a), (err_b, share_b) = probe_err(ka, ra), probe_err(kb, rb)
+        errs[mode], share = max(err_a, err_b), max(share_a, share_b)
+        faults = {}
+        if mode != "vpu":
+            faults["product chain one step short"] = (ka, a)
+        if mode != "mxu":
+            faults["exp chain one step short"] = (kb, b_short)
+        note = planted(faults)
+        ms[mode] = cuda_ms(lambda: probes.probe_overlap(mode, a, w, b, TIMED_PROBE_ITERS), 3)
+        plain_ms[mode] = cuda_ms(
+            lambda: probes.probe_reference(mode, a, w, b, TIMED_PROBE_ITERS), 1, 0
+        )
+        n_bytes = 2.0 * (a.numel() * 2 + b.numel() * 4) + w.numel() * 2
+        products = float(n) * 2 * probes.CHAIN_ROWS * probes.CHAIN_W**2 * TIMED_PROBE_ITERS
+        exps = float(b.numel()) * probes.EXP_CALLS * TIMED_PROBE_ITERS
+        # an exp step is an FMUL, a MUFU.EX2 and an FADD an element
+        bounds[mode] = launch_bound(
+            n_bytes,
+            bf16_ops=products if mode != "vpu" else 0.0,
+            fp32_instr=2 * exps if mode != "mxu" else 0.0,
+            mufu_ops=exps if mode != "mxu" else 0.0,
+        )
+        print(
+            f"K7 probe_overlap {mode}: {n} blocks, max_abs_err {errs[mode]:.3e} "
+            f"({share:.2f} of tolerance) after 1 iteration; {note}; {TIMED_PROBE_ITERS} iterations: {ms[mode]:.4f} ms kernel "
+            f"(bound {bounds[mode][0]:.4f} ms), {plain_ms[mode]:.3f} ms plain",
+            flush=True,
+        )
+    return kernel_entry("probe_overlap", "baselines/probe_overlap.py:97", errs, ms, plain_ms,
+                        bounds)
+
+
+def check_ctl(device) -> dict:
+    """K8, each mode: the check after 3 steps of 2 products each at
+    scale 1.25 (so that a lost or repeated scaling shows), the planted
+    fault (the plain version one step short), and one launch of
+    TIMED_CTL_STEPS steps of CTL_DOTS products."""
+    n = probes.ctl_blocks()
+    t = overlap_tool.probe_inputs(n, device, seed=5)
+    x, a, w = t["x"], t["a"], t["w"]
+    chunk = float(x[0].numel())
+    errs, ms, plain_ms, bounds = {}, {}, {}, {}
+    for mode in probes.CTL_MODES:
+        ky, ka = probes.probe_overlap_ctl(mode, x, torch.zeros_like(x), a, w, 3, 2, 1.25)
+        ry, ra = probes.ctl_reference(mode, x, torch.zeros_like(x), a, w, 3, 2, 1.25)
+        torch.cuda.synchronize()
+        (err_y, share_y), (err_a, share_a) = probe_err(ky, ry), probe_err(ka, ra)
+        errs[mode], share = max(err_y, err_a), max(share_y, share_a)
+        del ry, ra
+        sy, sa = probes.ctl_reference(mode, x, torch.zeros_like(x), a, w, 2, 2, 1.25)
+        n_out = outside(ky, sy) + outside(ka, sa)
+        assert n_out > 0, (mode, "planted fault passes: one step short")
+        del ky, ka, sy, sa
+        y = torch.zeros_like(x)
+        args = (mode, x, y, a, w, TIMED_CTL_STEPS, CTL_DOTS, overlap_tool.CTL_SCALE)
+        ms[mode] = cuda_ms(lambda: probes.probe_overlap_ctl(*args), 3)
+        plain_ms[mode] = cuda_ms(lambda: probes.ctl_reference(*args), 1, 0)
+        streamed = TIMED_CTL_STEPS if mode != "ctl_mxu" else 1
+        # each step scales a chunk (an FMUL an element)
+        bounds[mode] = launch_bound(
+            2.0 * n * streamed * chunk * 4 + 2.0 * a.numel() * 2 + w.numel() * 2,
+            bf16_ops=(float(n) * 2 * probes.CHAIN_ROWS * probes.CHAIN_W**2
+                      * TIMED_CTL_STEPS * CTL_DOTS) if mode != "ctl_dma" else 0.0,
+            fp32_instr=float(n) * chunk * TIMED_CTL_STEPS,
+        )
+        print(
+            f"K8 probe_overlap_ctl {mode}: {n} blocks, max_abs_err {errs[mode]:.3e} "
+            f"({share:.2f} of tolerance) after 3 steps; planted fault (one step short) puts {n_out} entries outside; "
+            f"{TIMED_CTL_STEPS} steps of {CTL_DOTS} product(s): {ms[mode]:.4f} ms kernel "
+            f"({ms[mode] * 1e3 / TIMED_CTL_STEPS:.3f} us per step; bound "
+            f"{bounds[mode][0]:.4f} ms), {plain_ms[mode]:.3f} ms plain",
+            flush=True,
+        )
+    return kernel_entry("probe_overlap_ctl", "baselines/probe_overlap.py:194", errs, ms,
+                        plain_ms, bounds)
+
+
+def check_tools(device) -> dict:
+    """The measurement slice's main path, with the launch counts at 0
+    just before it: the roofline tool's short rate pass and the overlap
+    probe at a short length.  Every rate within (0, 105%] of its
+    published ceiling; the control must read OVERLAPS."""
+    probes.launches.update(dict.fromkeys(probes.launches, 0))
+    rates = roofline_tool.measure_rates(min_ms=2.0)
+    rec = overlap_tool.run(min_ms=2.0, ctl_dots=CTL_DOTS)
+    counts = dict(probes.launches)
+    print(f"tools: launches {counts}", flush=True)
+    for name, c in counts.items():
+        assert c >= 1, (name, c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max(roofline_tool.sm_clock_mhz("clocks.max.sm"), *rates["clocks_sm_mhz"].values())
+    of_ceiling = roofline_tool.check_rates(rates, roofline_tool.rate_ceilings(clock, sms))
+    print(f"tools: short rate pass on {sms} SMs; exp ceiling at {clock:g} MHz", flush=True)
+    roofline_tool.print_rates(rates, of_ceiling)
+    print(
+        f"tools: overlap probe us per iteration {rec['us_per_iter']}, verdict "
+        f"{rec['verdict']} (fraction {rec['overlap_fraction']}); control us per step "
+        f"{rec['control_us_per_step']} (ctl_dots {rec['ctl_dots']}), verdict "
+        f"{rec['control_verdict']} (fraction {rec['control_overlap_fraction']}); clocks.sm "
+        f"{rec['clocks_sm_mhz_before']:g} -> {rec['clocks_sm_mhz_after']:g} MHz",
+        flush=True,
+    )
+    assert rec["control_verdict"] == "OVERLAPS", rec
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -754,6 +1054,10 @@ def main() -> int:
     config = training_config(str(CONFIG))
     counts = check_slice(config, device)
     counts.update(check_train(config, device))
+    t7 = time.perf_counter()
+    kernels += [check_counter(device), check_probe(device), check_ctl(device)]
+    counts.update(check_tools(device))
+    print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,7 +28,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("flash_fwd", "geglu_ff", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = (
+    "flash_fwd", "geglu_ff", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+    "roofline_counter", "probe_overlap", "probe_overlap_ctl",
+)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
