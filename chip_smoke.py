@@ -8,16 +8,23 @@ Phases (each asserted; any failure exits non-zero):
 1. require a CUDA device; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
    build every kernel from ``mca_tpu_torch/csrc`` (one ``nvcc`` each, in
-   parallel).
+   parallel) and print ptxas's registers, spills and wgmma serialisation
+   warnings; K1's and K5's SASS (``cuobjdump``) must hold HGMMA (wgmma)
+   and UTMALDG (TMA) and no HMMA (mma.sync), with no spills.
 2. K1, the flash-attention forward, against its plain version at
    TCGA_config1 shapes (B 8, H 8, T 2548, D 64, bf16, the real MCA
    mask, ragged key padding and a missing modality): live rows within
-   bf16 tolerance, dead rows exactly 0.  Times: kernel, plain version,
-   and ``F.scaled_dot_product_attention`` with the same mask as a
-   yardstick (the port never calls it).
+   bf16 tolerance, dead rows exactly 0 with lse NEG_INF; a planted fault
+   (the plain forward with one partly masked tile dropped) must fail the
+   same check.  Times: kernel, plain version, and
+   ``F.scaled_dot_product_attention`` with the same mask as a yardstick
+   (the port never calls it).
 3. K5, the fused GEGLU feed-forward, against its plain version at
-   N = 20384, D 512, inner 1365, bf16; the yardstick is the
-   matmul -> gelu -> matmul chain.
+   N = 20384, D 512, inner 1365, bf16; a planted fault (the plain FF with
+   one 64-wide inner chunk's W2 rows zeroed) must fail the same check.
+   Yardsticks: the matmul -> gelu -> matmul chain on the unpadded W1
+   (rows of 5460 bytes, not 16-byte aligned) and on the padded halves;
+   the faster is ``library_ms``.
 4. K2 (fused backward) and K3a + K3b (split backward) against the
    plain backward at K1's shapes and inputs with a random ``do``:
    dq, dk, dv within bf16 tolerance entry by entry and in relative L2
@@ -95,6 +102,7 @@ from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import host_description, host_probe_ms
 from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
+from mca_tpu_torch.tools import sass_counts
 from mca_tpu_torch.train import (
     build_trainer,
     forward_backward,
@@ -218,16 +226,18 @@ def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float((x - ref).norm() / ref.norm())
 
 
+def outside_bf16(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> int:
+    """Entries of ``kernel`` outside bf16 tolerance of ``plain``."""
+    k, p = kernel.float(), plain.float()
+    return int(((k - p).abs() > atol + BF16_RTOL * p.abs()).sum())
+
+
 def bf16_err(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> float:
     """Max |kernel - plain|; asserts it is within bf16 tolerance."""
-    k, p = kernel.float(), plain.float()
-    diff = (k - p).abs()
-    bad = diff > atol + BF16_RTOL * p.abs()
-    assert not bool(bad.any()), (
-        f"{int(bad.sum())} entries outside tolerance, max abs err "
-        f"{float(diff.max())}"
-    )
-    return float(diff.max())
+    diff = float((kernel.float() - plain.float()).abs().max())
+    n_out = outside_bf16(kernel, plain, atol)
+    assert n_out == 0, f"{n_out} entries outside tolerance, max abs err {diff}"
+    return diff
 
 
 def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0):
@@ -251,8 +261,8 @@ def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0)
     return ms.attn_mask, q, k, v, pad.to(device)
 
 
-def check_flash(device) -> dict:
-    mask, q, k, v, pad = flash_inputs(device)
+def check_flash(device, b=8, h=8) -> dict:
+    mask, q, k, v, pad = flash_inputs(device, b=b, h=h)
     b, h, t, d = q.shape
     scale = d**-0.5
     with torch.inference_mode():
@@ -268,6 +278,16 @@ def check_flash(device) -> dict:
         lse_err = float((lse[live_bh] - ref_lse[live_bh]).abs().max())
         assert lse_err < 1e-3, lse_err
         assert int((~live).sum()) > 0  # the check covered dead rows
+        # the planted fault: the plain forward with one partly masked tile
+        # dropped must put live entries outside the same tolerance
+        qi, kj, n_live = planted_tile(mask, pad)
+        faulty_mask = mask.copy()
+        faulty_mask[qi * flash.BLOCK : (qi + 1) * flash.BLOCK,
+                    kj * flash.BLOCK : (kj + 1) * flash.BLOCK] = True
+        faulty = flash.flash_attention_reference(q, k, v, faulty_mask, pad, scale)[0]
+        flagged = outside_bf16(out[live_bh], faulty[live_bh], FLASH_ATOL)
+        del faulty
+        assert flagged > 0, "planted fault passes: a dropped tile"
 
         sdpa_mask = ~blocked[:, None]  # True = may attend
         ms = cuda_ms(lambda: flash.flash_attention(q, k, v, mask, pad, scale), 20)
@@ -289,7 +309,9 @@ def check_flash(device) -> dict:
     print(
         f"K1 flash_fwd: max_abs_err {err:.3e} (lse {lse_err:.3e}), "
         f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, "
-        f"bound {bms:.4f} ms ({by}), {pairs:.4g} live score entries",
+        f"bound {bms:.4f} ms ({by}), {pairs:.4g} live score entries; planted fault "
+        f"(tile q{qi} x kv{kj}, {n_live} live entries over the batch, dropped) puts "
+        f"{flagged} entries outside tolerance",
         flush=True,
     )
     return {
@@ -470,26 +492,41 @@ def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
     w2 = ((torch.rand((inner, dim), generator=g, device=device) * 2 - 1)
           * inner**-0.5).to(torch.bfloat16)
     prepared = ff.prepare_geglu_weights(w1, w2, torch.bfloat16)
+    # the padded halves, contiguous: rows of 2816 bytes, 16-byte aligned
+    w1u, w1g, w2p = (w.contiguous() for w in ff.split_geglu_weights(*prepared))
     with torch.inference_mode():
         out = ff.geglu_ff(x, *prepared)
         ref = ff.geglu_ff_reference(x, w1, w2)
         torch.cuda.synchronize()
         err = bf16_err(out, ref, FF_ATOL)
+        # the planted fault: the plain FF with one 64-wide inner chunk's W2
+        # rows zeroed must put entries outside the same tolerance
+        chunk = prepared[1].shape[1] // ff.INNER_MULTIPLE // 2
+        w2_fault = prepared[1].clone()
+        w2_fault[:, chunk * ff.INNER_MULTIPLE : (chunk + 1) * ff.INNER_MULTIPLE] = 0
+        flagged = outside_bf16(out, ff.geglu_ff_plain(x, prepared[0], w2_fault), FF_ATOL)
+        assert flagged > 0, "planted fault passes: a W2 chunk zeroed"
 
-        def chain():
+        def chain():  # the unpadded [512, 2730] W1: rows of 5460 bytes
             u, gate = (x @ w1).chunk(2, dim=-1)
             return (torch.nn.functional.gelu(gate) * u) @ w2
 
+        def chain_aligned():
+            return (torch.nn.functional.gelu(x @ w1g) * (x @ w1u)) @ w2p
+
         ms = cuda_ms(lambda: ff.geglu_ff(x, *prepared), 20)
         plain_ms = cuda_ms(lambda: ff.geglu_ff_reference(x, w1, w2), 5)
-        lib_ms = cuda_ms(chain, 20)
+        chain_ms = cuda_ms(chain, 20)
+        aligned_ms = cuda_ms(chain_aligned, 20)
     n_ops = 6.0 * n * dim * inner
     n_bytes = 2.0 * (x.numel() + w1.numel() + w2.numel() + out.numel())
     bms, by = bound_ms(n_bytes, n_ops)
     print(
         f"K5 geglu_ff: max_abs_err {err:.3e}, {ms:.4f} ms kernel, "
-        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms matmul-gelu-matmul, "
-        f"bound {bms:.4f} ms ({by})",
+        f"{plain_ms:.4f} ms plain, matmul-gelu-matmul {chain_ms:.4f} ms (unpadded W1) "
+        f"and {aligned_ms:.4f} ms (padded halves), bound {bms:.4f} ms ({by}); planted "
+        f"fault (W2 rows of inner chunk {chunk} zeroed) puts {flagged} entries outside "
+        f"tolerance",
         flush=True,
     )
     return {
@@ -502,7 +539,7 @@ def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bms,
         "bound_by": by,
-        "library_ms": lib_ms,
+        "library_ms": min(chain_ms, aligned_ms),
     }
 
 
@@ -1024,6 +1061,22 @@ def check_tools(device) -> dict:
     return counts
 
 
+def check_hopper_sass(reports: dict, names=("flash_fwd", "geglu_ff")) -> None:
+    """K1 and K5 are built from wgmma and TMA: their SASS holds HGMMA and
+    UTMALDG and no HMMA (mma.sync), and ptxas reports no spills."""
+    tool = sass_counts.cuobjdump_path()
+    for name in names:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        for fn, c in sass_counts.count(sass).items():
+            print(f"  {name} SASS: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, HMMA "
+                  f"{c['HMMA']}, MUFU.EX2 {c['MUFU.EX2']}, {c['lines']} lines", flush=True)
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (name, c)
+        spills = [line for line in reports[name].splitlines() if "spill" in line]
+        assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                              for line in spills), (name, spills)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1046,8 +1099,9 @@ def main() -> int:
     print(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    check_hopper_sass(reports)
 
     device = torch.device("cuda")
     kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]

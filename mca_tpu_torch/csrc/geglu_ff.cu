@@ -1,4 +1,5 @@
-// Fused GEGLU feed-forward, forward, for Hopper (sm_90a).
+// Fused GEGLU feed-forward, forward, for Hopper (sm_90a): TMA, wgmma,
+// warp specialisation, one persistent block per SM.
 //
 // Replaces the TPU kernel mca_tpu/ops/fused_ff.py::_ff_kernel
 // (launched through pl.pallas_call in _ff_local).
@@ -9,219 +10,238 @@
 //             the TPU kernel's polynomial exists only because Mosaic
 //             has no erf)
 //   out     = bf16(a) @ W2, fp32 accumulation, bf16 output.
-// x: [n, 512] bf16; W1u, W1g: [512, inner_p] bf16 (the u and gate
-// halves of W1, zero-padded from 1365 to inner_p, a multiple of 64);
-// W2: [inner_p, 512] bf16 with zero rows past the true inner width;
-// out: [n, 512] bf16.  The padding is made once when the weights are
-// loaded; the zero columns give a = 0, which meets zero W2 rows, so the
-// result is exact.
+// x: [n, 512] bf16; w1t: [2 * inner_p, 512] bf16, W1 transposed with its
+// u and gate columns interleaved in runs of 32 (every 64-wide inner chunk
+// c is rows 128c.. : u 32 | g 32 | u 32 | g 32); w2t: [512, inner_p]
+// bf16, W2 transposed; out: [n, 512] bf16 (ops/fused_ff.py
+// prepare_geglu_weights makes the layout once, zero-padding the inner
+// width from 1365 to inner_p = 1408; zero columns give a = 0, which
+// meets zero W2 columns, so the result is exact).
 //
-// Design.  The TPU kernel pins all of W1 and W2 (4.2 MB) in VMEM and
-// tiles over rows; 227 KB of shared memory cannot hold them.  Here each
-// block owns a 64-row tile of x (kept in shared memory) and streams the
-// weights through 64-wide inner chunks from L2 (all three matrices fit
-// in the 50 MB L2 many times over): per chunk it computes the u and
-// gate chunks [64, 64] on the tensor cores, gates them into a bf16
-// [64, 64] tile in shared memory, and adds that tile times the chunk's
-// 64 rows of W2 into the fp32 [64, 512] output accumulator.  The W1
-// halves of a chunk arrive in 128-row slices, copied 16 bytes at a time
-// (cp.async) into a double-buffered stage while the previous slice is
-// multiplied; fragment loads straight from global memory made this
-// product three quarters of the kernel's time.  The
-// accumulator stays in registers: 16 warps each own 32 output columns
-// (8 WMMA accumulator fragments, 64 registers a thread), so the output
-// columns are not split over blocks and the gate is never recomputed.
-// The [n, 2 * inner] activation never reaches device memory.
+// Design.  The TPU kernel pins all of W1 and W2 in VMEM and tiles over
+// rows; 227 KB of shared memory cannot hold them, so the weights (4.3 MB
+// padded, resident in the 50 MB L2) stream through shared memory per
+// 64-row tile of x.  One block per SM walks the tiles n / 64 (319 at
+// n = 20384: 2.42 waves over 132 SMs, so the last wave runs 55 of 132
+// SMs and the kernel pays up to a 3 / 2.42 tail).  Each block has three
+// warpgroups:
+//   - the producer (one thread issues every copy, as TMA boxes of
+//     64 x 64 or 64 x 256 bf16 in the 128-byte swizzle wgmma reads):
+//     the x tile, resident for the tile; per 64-wide inner chunk the 8
+//     K-slices of its 128 W1 rows through a 4-stage mbarrier ring, then
+//     its W2 chunk [512 x 64];
+//   - two consumer warpgroups, each owning 256 of the 512 output columns
+//     (a 64 x 512 fp32 accumulator would take 256 registers a thread in
+//     one warpgroup; 64 x 256 takes 128).  Per chunk each computes u and
+//     the gate of its 32 inner columns as one wgmma m64n64k16 product
+//     (A = the x tile, B = its 64 interleaved W1 rows), gates them in
+//     registers (a thread holds u and g of the same entries), writes
+//     bf16 into its half of a shared [64 x 64] gated tile (double
+//     buffered), meets the other warpgroup at a named barrier, and
+//     issues the second product, wgmma m64n256k16 over the chunk (A =
+//     the gated tile, B = its 256 rows of the W2 chunk), without waiting
+//     for it: it completes under the next chunk's first product, and the
+//     W2 buffer is released then.
+// The [n, 2 * inner] activation never reaches device memory, as in the
+// TPU kernel.  Registers: setmaxnreg gives the producer 40 and each
+// consumer 232 (128 + 32 accumulators).
 //
-// Bound on this card: 6 * n * 512 * 1365 = 85.6 GFLOP per layer at
-// n = 20384 (about 87 us at 989 TFLOP/s bf16) against 42 MB of x and
-// out (about 12 us at 3.35 TB/s): bound by operations.  This kernel
-// feeds the tensor cores through WMMA (mma.sync class), so it runs
-// well below that bound; wgmma and TMA are later work.
+// Shared memory (one block per SM): x tile 64 KB + W1 ring 4 x 16 KB +
+// W2 chunk 64 KB + gated tile 2 x 8 KB = 208 KB, + 96 bytes of
+// mbarriers + 1 KB of alignment slack, within 227 KB.  L2 traffic: every
+// row tile re-reads the padded weights, 4.33 MB x 319 = 1.38 GB a call.
+//
+// Bound on this card: 6 * n * 512 * 1365 = 85.5 GFLOP per layer at
+// n = 20384 (86 us at 989 TFLOP/s bf16) against 42 MB of x and out
+// (13 us at 3.35 TB/s): bound by operations.
+//
+// Measured (chip_smoke.py phase 3, NVIDIA H100 80GB HBM3, 700.00 W):
+// 0.2281 ms at n = 20384 (375 TFLOP/s, 2.6x its bound; the mma.sync
+// version before it took 0.98 ms); matmul -> gelu -> matmul in
+// PyTorch takes 0.7266 ms on the unpadded W1 (rows of 5460 bytes) and
+// 0.2497 ms on the padded halves.  Between it and the bound: the tail
+// wave (3 / 2.42), the gating between the two products (the tensor
+// cores wait for it: both warpgroups meet at the named barrier), and one
+// W2 buffer.  SASS (tools/sass_counts.py): 8 HGMMA, 18 UTMALDG, no
+// HMMA; ptxas: 168 registers at launch, no spills.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kD = 512;                 // model dim: x columns and out columns
-constexpr int kBM = 64;                 // rows of x per block
-constexpr int kBI = 64;                 // inner columns per chunk
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kOutCols = kD / kWarps;   // output columns owned by a warp (32)
-constexpr int kLdx = kD + 8;            // bf16 row stride of the x tile
-constexpr int kLdf = kBI + 4;           // fp32 row stride of the u, g tiles
-constexpr int kLda = kBI + 8;           // bf16 row stride of the gated tile
-constexpr int kSlice = 128;             // rows of a W1 half per staged slice
-constexpr int kSlices = kD / kSlice;    // slices per inner chunk
-constexpr int kLdw = kBI + 8;           // bf16 row stride of a staged slice
+constexpr int kD = 512;         // model dim: x columns and out columns
+constexpr int kBM = 64;         // rows of x per tile
+constexpr int kBK = 64;         // K (model dim) per TMA box and W1 stage
+constexpr int kSlices = kD / kBK;
+constexpr int kBI = 64;         // inner columns per chunk
+constexpr int kStages = 4;      // W1 ring depth
+constexpr int kThreads = 384;   // producer + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-constexpr size_t kXBytes = size_t(kBM) * kLdx * sizeof(__nv_bfloat16);
-constexpr size_t kHBytes = size_t(kBM) * kLdf * sizeof(float);
-constexpr size_t kABytes = size_t(kBM) * kLda * sizeof(__nv_bfloat16);
-constexpr size_t kStageBytes = size_t(kWarps) * 256 * sizeof(float);
-constexpr size_t kWBytes = size_t(kSlice) * kLdw * sizeof(__nv_bfloat16);
-// x tile, u and gate tiles, gated tile, epilogue stage, and two buffers
-// of the (u, gate) weight slices
-constexpr size_t kSmemBytes = kXBytes + 2 * kHBytes + kABytes + kStageBytes + 4 * kWBytes;
+constexpr uint32_t kBox = kBM * kBK * 2;              // one 64 x 64 box, 8 KB
+constexpr uint32_t kXBytes = kSlices * kBox;          // 64 KB
+constexpr uint32_t kW1Stage = 2 * kBox;               // 128 W1 rows x 64 K, 16 KB
+constexpr uint32_t kW2Bytes = kD * kBI * 2;           // 64 KB
+constexpr uint32_t kXOff = 0;
+constexpr uint32_t kW1Off = kXOff + kXBytes;
+constexpr uint32_t kW2Off = kW1Off + kStages * kW1Stage;
+constexpr uint32_t kAOff = kW2Off + kW2Bytes;
+constexpr uint32_t kBarOff = kAOff + 2 * kBox;
+constexpr uint32_t kSmemBytes = kBarOff + (4 + 2 * kStages) * 8 + 1024;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// 16 bytes global -> shared without passing through registers
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+__device__ __forceinline__ float gate(float u, float g) {
+  return 0.5f * g * (1.f + erff(g * kInvSqrt2)) * u;
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__global__ void __launch_bounds__(kThreads, 1)
+geglu_ff_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w1,
+                const __grid_constant__ CUtensorMap map_w2, __nv_bfloat16* __restrict__ out,
+                int n, int n_chunks) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* xs = smem + kXOff;
+  unsigned char* w1s = smem + kW1Off;
+  unsigned char* w2s = smem + kW2Off;
+  unsigned char* as = smem + kAOff;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* x_full = bars;
+  uint64_t* x_empty = bars + 1;
+  uint64_t* w2_full = bars + 2;
+  uint64_t* w2_empty = bars + 3;
+  uint64_t* w1_full = bars + 4;
+  uint64_t* w1_empty = bars + 4 + kStages;
 
-// waits until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__global__ void __launch_bounds__(kThreads)
-geglu_ff_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1u,
-                const __nv_bfloat16* __restrict__ w1g, const __nv_bfloat16* __restrict__ w2,
-                __nv_bfloat16* __restrict__ out, int n, int inner_p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* us = reinterpret_cast<float*>(smem + kXBytes);
-  float* gs = us + kBM * kLdf;
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(gs + kBM * kLdf);
-  float* stage = reinterpret_cast<float*>(as + kBM * kLda);
-  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(stage + kWarps * 256);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * kBM;
-  const int n_slices = inner_p / kBI * kSlices;
-
-  // start copying weight slice `slice` (chunk slice / kSlices, rows
-  // (slice % kSlices) * kSlice of both W1 halves) into buffer slice % 2
-  auto issue = [&](int slice) {
-    const int c0 = slice / kSlices * kBI, row0 = slice % kSlices * kSlice;
-    __nv_bfloat16* dst = wbuf + (slice & 1) * 2 * kSlice * kLdw;
-    for (int i = tid; i < 2 * kSlice * (kBI / 8); i += kThreads) {
-      const int mat = i / (kSlice * (kBI / 8)), rem = i % (kSlice * (kBI / 8));
-      const int r = rem / (kBI / 8), c = rem % (kBI / 8) * 8;
-      cp_async16(dst + mat * kSlice * kLdw + r * kLdw + c,
-                 (mat ? w1g : w1u) + size_t(row0 + r) * inner_p + c0 + c);
+  const int n_tiles = (n + kBM - 1) / kBM;
+  if (threadIdx.x == 0) {
+    // full barriers: the producer's one arrival plus the bytes; empty
+    // barriers: one arrival per consumer warp
+    mbar_init(x_full, 1);
+    mbar_init(x_empty, kConsumerWarps);
+    mbar_init(w2_full, 1);
+    mbar_init(w2_empty, kConsumerWarps);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(w1_full + s, 1);
+      mbar_init(w1_empty + s, kConsumerWarps);
     }
-    cp_async_commit();
-  };
-  issue(0);
-
-  // the x tile, 16 bytes per thread and step; rows at or past n are zero
-  for (int i = tid; i < kBM * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < n) val = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * kD + c);
-    *reinterpret_cast<uint4*>(xs + r * kLdx + c) = val;
+    mbar_fence_init();
   }
-
-  // first-product work split: warps 0-7 make the u chunk, 8-15 the gate
-  // chunk; each owns one 16-column fragment over two 16-row fragments,
-  // so every weight fragment it loads serves two products
-  const int h_half = warp < 8 ? 0 : 1;
-  float* hs = h_half ? gs : us;
-  const int h_cf = (warp % 8) / 2;       // column fragment 0..3
-  const int h_rf = (warp % 2) * 2;       // first of two row fragments
-  const int o_c0 = warp * kOutCols;      // first output column of this warp
-
-  FragC acc[4][2];
-#pragma unroll
-  for (int rf = 0; rf < 4; ++rf)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[rf][j], 0.f);
   __syncthreads();
 
-  int ws = 0;  // weight slice being multiplied
-  for (int c0 = 0; c0 < inner_p; c0 += kBI) {
-    // 1. u or gate chunk [64, 64] = x_tile @ W1half[:, c0:c0+64]
-    {
-      FragC h[2];
-      wmma::fill_fragment(h[0], 0.f);
-      wmma::fill_fragment(h[1], 0.f);
-      for (int sl = 0; sl < kSlices; ++sl, ++ws) {
-        if (ws + 1 < n_slices) {
-          issue(ws + 1);
-          cp_async_wait<1>();  // slice ws has landed, ws + 1 may fly
-        } else {
-          cp_async_wait<0>();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&map_x);
+      prefetch_map(&map_w1);
+      prefetch_map(&map_w2);
+      int w1_it = 0, w2_it = 0, tile_it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++tile_it) {
+        mbar_wait(x_empty, (tile_it & 1) ^ 1);
+        mbar_expect_tx(x_full, kXBytes);
+        for (int s = 0; s < kSlices; ++s)
+          tma_load_2d(xs + s * kBox, &map_x, x_full, s * kBK, tile * kBM);
+        for (int c = 0; c < n_chunks; ++c) {
+          for (int s = 0; s < kSlices; ++s, ++w1_it) {
+            const int st = w1_it % kStages;
+            mbar_wait(w1_empty + st, ((w1_it / kStages) & 1) ^ 1);
+            mbar_expect_tx(w1_full + st, kW1Stage);
+            tma_load_2d(w1s + st * kW1Stage, &map_w1, w1_full + st, s * kBK, c * 2 * kBI);
+          }
+          mbar_wait(w2_empty, (w2_it & 1) ^ 1);
+          mbar_expect_tx(w2_full, kW2Bytes);
+          tma_load_2d(w2s, &map_w2, w2_full, c * kBI, 0);
+          tma_load_2d(w2s + kW2Bytes / 2, &map_w2, w2_full, c * kBI, kD / 2);
+          ++w2_it;
         }
-        __syncthreads();  // every thread's copies of slice ws are visible
-        const __nv_bfloat16* wb = wbuf + ((ws & 1) * 2 + h_half) * kSlice * kLdw;
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;                 // output columns [256 cw, 256 cw + 256)
+    const int wl = (threadIdx.x / 32) % 4; // warp within the warpgroup: rows 16 wl..
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2, c2 = 2 * (lane & 3);
+    const uint32_t xs_a = smem_u32(xs), w1_a = smem_u32(w1s) + cw * kBox;
+    const uint32_t w2_a = smem_u32(w2s) + cw * (kW2Bytes / 2), as_a = smem_u32(as);
+
+    float acc[128];
+    float ug[32];
+    int w1_it = 0, w2_it = 0, tile_it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++tile_it) {
 #pragma unroll
-        for (int kk = 0; kk < kSlice / 16; ++kk) {
-          FragB b;
-          wmma::load_matrix_sync(b, wb + kk * 16 * kLdw + h_cf * 16, kLdw);
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      mbar_wait(x_full, tile_it & 1);
+      for (int c = 0; c < n_chunks; ++c) {
+        // 1. [u | g] of this warpgroup's 32 inner columns: 8 K-slices
+        for (int s = 0; s < kSlices; ++s, ++w1_it) {
+          const int st = w1_it % kStages;
+          mbar_wait(w1_full + st, (w1_it / kStages) & 1);
+          wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            FragA a;
-            wmma::load_matrix_sync(a, xs + (h_rf + j) * 16 * kLdx + sl * kSlice + kk * 16, kLdx);
-            wmma::mma_sync(h[j], a, b, h[j]);
+          for (int kk = 0; kk < kBK / 16; ++kk)
+            wgmma_m64n64k16_ss(ug, wgmma_desc(xs_a + s * kBox + kk * 32),
+                               wgmma_desc(w1_a + st * kW1Stage + kk * 32), (s | kk) != 0);
+          wgmma_commit();
+          wgmma_wait<1>();  // everything but this slice's products is done
+          if (lane == 0) {
+            if (s > 0)
+              mbar_arrive(w1_empty + (w1_it - 1) % kStages);
+            else if (c > 0)
+              mbar_arrive(w2_empty);  // the previous chunk's second product
           }
         }
-        __syncthreads();  // every warp is done with buffer ws % 2 before refill
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(hs + (h_rf + j) * 16 * kLdf + h_cf * 16, h[j], kLdf,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
+        wgmma_wait<0>();
+        fence_regs(ug);
+        if (lane == 0) {
+          mbar_arrive(w1_empty + (w1_it - 1) % kStages);
+          if (c == n_chunks - 1) mbar_arrive(x_empty);
+        }
 
-    // 2. exact-erf GELU gate in fp32, rounded to bf16 for the second product
-    for (int i = tid; i < kBM * kBI; i += kThreads) {
-      const int r = i / kBI, c = i % kBI;
-      const float g = gs[r * kLdf + c], u = us[r * kLdf + c];
-      as[r * kLda + c] = __float2bfloat16(0.5f * g * (1.f + erff(g * kInvSqrt2)) * u);
-    }
-    __syncthreads();
+        // 2. gate in fp32, bf16 into this warpgroup's half of the gated tile
+        const uint32_t a_tile = as_a + (w2_it & 1) * kBox;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 4 * j + 2 * h;
+            const uint32_t v = pack_bf16x2(gate(ug[e], ug[16 + e]), gate(ug[e + 1], ug[17 + e]));
+            const uint32_t addr = a_tile + swz128(16 * wl + g + 8 * h, 32 * cw + 8 * j + c2);
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+          }
+        }
+        fence_async_smem();
+        named_barrier(1, 256);  // both halves of the gated tile are written
 
-    // 3. acc[:, o_c0:o_c0+32] += a @ W2[c0:c0+64, o_c0:o_c0+32]
+        // 3. acc += gated tile @ this warpgroup's 256 rows of the W2 chunk
+        mbar_wait(w2_full, w2_it & 1);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBI / 16; ++kk) {
-      FragB b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], w2 + size_t(c0 + kk * 16) * kD + o_c0 + j * 16, kD);
-#pragma unroll
-      for (int rf = 0; rf < 4; ++rf) {
-        FragA a;
-        wmma::load_matrix_sync(a, as + rf * 16 * kLda + kk * 16, kLda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[rf][j], a, b[j], acc[rf][j]);
+        for (int kk = 0; kk < kBI / 16; ++kk)
+          wgmma_m64n256k16_ss(acc, wgmma_desc(a_tile + kk * 32), wgmma_desc(w2_a + kk * 32), 1);
+        wgmma_commit();
+        ++w2_it;
       }
-    }
-    // no barrier needed here: the next chunk's step 1 writes only the
-    // u / gate tiles, which step 2 finished reading before the barrier
-    // above, and its own barrier orders these reads of `as` before
-    // step 2 rewrites it
-  }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(w2_empty);
 
-  // epilogue: each fragment through a per-warp fp32 stage, then bf16 rows
-  float* st = stage + warp * 256;
+      // epilogue: bf16 pairs straight from the accumulator layout
+      const int row0 = tile * kBM + 16 * wl + g;
 #pragma unroll
-  for (int rf = 0; rf < 4; ++rf) {
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= n) continue;
+        __nv_bfloat16* orow = out + size_t(row) * kD + 256 * cw + c2;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[rf][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = m0 + rf * 16 + e / 16;
-        if (row < n) out[size_t(row) * kD + o_c0 + j * 16 + e % 16] = __float2bfloat16(st[e]);
+        for (int j = 0; j < 32; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
-      __syncwarp();
     }
   }
 }
@@ -232,18 +252,32 @@ extern "C" const char* mca_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, out: [n, 512] bf16; w1u, w1g: [512, inner_p] bf16; w2: [inner_p, 512]
-// bf16; inner_p a multiple of 64.  Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
-extern "C" int mca_geglu_ff(const void* x, const void* w1u, const void* w1g, const void* w2,
-                            void* out, int n, int inner_p, void* stream) {
+// x, out: [n, 512] bf16; w1t: [2 * inner_p, 512] bf16 (interleaved);
+// w2t: [512, inner_p] bf16; inner_p a multiple of 64.  Encodes the
+// three tensor maps, launches one block per SM (at most one per tile)
+// on `stream`, does not synchronise, returns cudaGetLastError() (or
+// cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses a map).
+extern "C" int mca_geglu_ff(const void* x, const void* w1t, const void* w2t, void* out, int n,
+                            int inner_p, void* stream) {
+  CUtensorMap map_x, map_w1, map_w2;
+  const uint64_t x_dims[2] = {uint64_t(kD), uint64_t(n)}, x_strides[1] = {kD * 2};
+  const uint64_t w1_dims[2] = {uint64_t(kD), uint64_t(2 * inner_p)};
+  const uint64_t w2_dims[2] = {uint64_t(inner_p), uint64_t(kD)};
+  const uint64_t w2_strides[1] = {uint64_t(inner_p) * 2};
+  const uint32_t x_box[2] = {kBK, kBM}, w1_box[2] = {kBK, 2 * kBI}, w2_box[2] = {kBI, kD / 2};
+  if (!make_map(&map_x, x, 2, x_dims, x_strides, x_box) ||
+      !make_map(&map_w1, w1t, 2, w1_dims, x_strides, w1_box) ||
+      !make_map(&map_w2, w2t, 2, w2_dims, w2_strides, w2_box))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       geglu_ff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
   if (err != cudaSuccess) return int(err);
-  const int blocks = (n + kBM - 1) / kBM;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n_tiles = (n + kBM - 1) / kBM;
+  const int blocks = n_tiles < sms ? n_tiles : sms;
   geglu_ff_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1u),
-      static_cast<const __nv_bfloat16*>(w1g), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<__nv_bfloat16*>(out), n, inner_p);
+      map_x, map_w1, map_w2, static_cast<__nv_bfloat16*>(out), n, inner_p / kBI);
   return int(cudaGetLastError());
 }

@@ -54,8 +54,8 @@ class FeedForward(nn.Module):
 
     ``feedforward.0`` is W1 ``[2*inner, dim]`` (u half first),
     ``feedforward.2`` is W2 ``[dim, inner]``; index 1 stands for the
-    reference's parameter-free GEGLU.  On the fused path the split,
-    padded, compute-dtype copies of the weights the op takes are made
+    reference's parameter-free GEGLU.  On the fused path the transposed,
+    interleaved, padded compute-dtype copies the op takes are made
     once per weight version and device, not on every call; they are
     detached, so that path raises when grad mode is on and a weight
     requires grad, instead of leaving the weights without gradients.

@@ -12,7 +12,8 @@ Semantics (shared by the kernels and the plain versions
 
 - ``attn_mask`` [Tq, Tk] bool, True = blocked, STATIC (numpy, shared by
   batch and heads): it becomes a CSR tile schedule at ``BLOCK`` = 64,
-  q-major for the forward and dq, kv-major for dk and dv;
+  q-major for dq, over pairs of q tiles for the forward
+  (:func:`pair_schedule`), kv-major for dk and dv;
 - ``key_padding_mask`` [B, Tk] bool, True = padded key, dynamic;
 - scale folded into q in the input dtype, fp32 scores and softmax
   statistics, p (and in the backward ds) rounded to the input dtype for
@@ -104,6 +105,46 @@ def kv_tile_schedule(
     col_ptr = np.zeros(nk + 1, np.int32)
     np.cumsum(np.bincount(col_idx, minlength=nk), out=col_ptr[1:])
     return col_ptr, rows[order], full[order]
+
+
+def pair_schedule(
+    mask: np.ndarray, block: int = BLOCK
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The forward kernel's walk: q tiles in pairs ``(2i, 2i + 1)``.
+
+    Returns ``(pair_ptr [n_pairs + 1], pair_kv [n], pair_flags [n],
+    pair_bits [n, 2, 64])``: pair ``i`` visits kv tiles
+    ``pair_kv[pair_ptr[i]:pair_ptr[i + 1]]``, in increasing order, the
+    union of the two q tiles' rows of :func:`tile_schedule` (a q tile
+    past the last one has an empty row).  ``pair_flags`` has bit ``h``
+    set where q tile ``2i + h`` visits the tile and bit ``2 + h`` where
+    that tile is also ``full``.  ``pair_bits[n, h, r]`` holds row ``r`` of
+    that 64 x 64 tile of the mask as bits (bit ``c``: key ``c`` blocked,
+    the region past the mask's edge blocked), as int64.  The 64 x 64
+    tile stays the unit of skipping, as in the backward's schedules.
+    """
+    assert block == 64, "the mask bits of a tile row fill one 64-bit word"
+    row_ptr, col_idx, full = tile_schedule(mask, block)
+    t, s = mask.shape
+    nq, nk = len(row_ptr) - 1, -(-s // block)
+    n_pairs = -(-nq // 2)
+    rows = np.repeat(np.arange(nq, dtype=np.int64), np.diff(row_ptr))
+    items, inv = np.unique((rows // 2) * nk + col_idx, return_inverse=True)
+    flags = np.zeros(len(items), np.int64)
+    half = rows % 2
+    np.bitwise_or.at(flags, inv.reshape(-1), (1 << half) | (full.astype(np.int64) << (2 + half)))
+    pair_of, pair_kv = items // nk, items % nk
+    pair_ptr = np.zeros(n_pairs + 1, np.int32)
+    np.cumsum(np.bincount(pair_of, minlength=n_pairs), out=pair_ptr[1:])
+    padded = np.ones((2 * n_pairs * block, nk * block), dtype=bool)
+    padded[:t, :s] = mask
+    tiles = padded.reshape(n_pairs, 2, block, nk, block)[pair_of, :, :, pair_kv, :]
+    weights = np.left_shift(np.uint64(1), np.arange(block, dtype=np.uint64))
+    bits = (tiles.astype(np.uint64) * weights).sum(axis=-1, dtype=np.uint64)
+    return (
+        pair_ptr, pair_kv.astype(np.int32), flags.astype(np.int32),
+        np.ascontiguousarray(bits).view(np.int64),
+    )
 
 
 def _tile_keys(tiles: np.ndarray, tk: int) -> np.ndarray:
@@ -243,10 +284,11 @@ def flash_attention_bwd_reference(
 
 
 def _schedule_on(mask: np.ndarray, device: torch.device):
-    """The mask's two schedules and its uint8 copy on ``device``, built
-    and uploaded once per static mask (kept alive with the entry, so its
-    id cannot be reused while cached): ``(row_ptr, col_idx, full,
-    col_ptr, row_idx, full_kv, mask_u8)``."""
+    """The mask's schedules and its uint8 copy on ``device``, built and
+    uploaded once per static mask (kept alive with the entry, so its id
+    cannot be reused while cached): ``(row_ptr, col_idx, full, col_ptr,
+    row_idx, full_kv, mask_u8, pair_ptr, pair_kv, pair_flags,
+    pair_bits)``."""
     key = (id(mask), str(device))
     hit = _SCHED_CACHE.get(key)
     if hit is None or hit[0] is not mask:
@@ -256,6 +298,7 @@ def _schedule_on(mask: np.ndarray, device: torch.device):
                 *tile_schedule(mask),
                 *kv_tile_schedule(mask),
                 np.ascontiguousarray(mask, dtype=np.uint8),
+                *pair_schedule(mask),
             )
         )
         hit = (mask, tensors)
@@ -309,7 +352,7 @@ def _scale_q(scale: float, dtype: torch.dtype) -> float:
 def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
     attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
     b, h, t, _ = q.shape
-    row_ptr, col_idx, full, *_, mask_u8 = _schedule_on(attn_mask, q.device)
+    pair_ptr, pair_kv, pair_flags, pair_bits = _schedule_on(attn_mask, q.device)[7:]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
@@ -318,11 +361,11 @@ def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
         + [ctypes.c_float, ctypes.c_void_p],
     )
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_u8.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         pad.data_ptr() if pad is not None else None,
-        row_ptr.data_ptr(), col_idx.data_ptr(), full.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
-        b * h, h, t, len(row_ptr) - 1, _scale_q(scale, q.dtype),
+        pair_ptr.data_ptr(), pair_kv.data_ptr(), pair_flags.data_ptr(),
+        pair_bits.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b * h, h, t, len(pair_ptr) - 1, _scale_q(scale, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_fwd", err)

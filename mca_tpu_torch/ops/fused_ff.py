@@ -10,11 +10,16 @@ product is rounded to the input dtype before ``@ W2``, and the output
 is in the input dtype.  Weights are in ``[in, out]`` layout, as in the
 JAX package.
 
-The kernel takes W1's halves and W2 zero-padded to a multiple of 64
-inner columns; :func:`prepare_geglu_weights` does that once, when the
-weights are loaded.  :func:`geglu_ff` is the wrapper: CPU tensors go to
-the plain version, CUDA tensors to the kernel, anything else raises.
-``launches`` counts kernel launches.
+The kernel takes the weights in the layout :func:`prepare_geglu_weights`
+makes once, when they are loaded: both transposed to ``[out, in]``
+(each row one output column, its ``in`` values contiguous, the
+"K-major" operand that TMA and wgmma take), the inner width zero-padded
+to a multiple of 64, and W1's rows interleaved so that every 64-wide
+inner chunk is ``[u 32 | g 32 | u 32 | g 32]``: a 64-row slice then gives
+one warpgroup the u and the gate of the same 32 inner columns.
+:func:`split_geglu_weights` undoes it.  :func:`geglu_ff` is the
+wrapper: CPU tensors go to the plain version, CUDA tensors to the
+kernel, anything else raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from mca_tpu_torch import _build
 
 INNER_MULTIPLE = 64
+HALF_CHUNK = INNER_MULTIPLE // 2  # inner columns of one u or gate run
 MODEL_DIM = 512
 
 #: kernel launches by :func:`geglu_ff` (plain-version calls excluded)
@@ -40,37 +46,55 @@ def _pad_to(x: int, m: int) -> int:
 
 def prepare_geglu_weights(
     w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``w1`` [D, 2*inner], ``w2`` [inner, D_out] -> ``(w1u, w1g, w2p)``
-    in ``dtype``: the u and gate halves of W1 as [D, inner_p] and W2 as
-    [inner_p, D_out], zero-padded to ``inner_p``, a multiple of 64."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``w1`` [D, 2*inner], ``w2`` [inner, D_out] -> ``(w1t, w2t)`` in
+    ``dtype``: ``w1t`` [2*inner_p, D], W1's u and gate columns as rows,
+    interleaved in runs of 32 (``u[0:32], g[0:32], u[32:64], g[32:64],
+    ...``), and ``w2t`` [D_out, inner_p], W2 transposed; ``inner_p`` is
+    inner rounded up to a multiple of 64, the extra rows and columns
+    zero."""
     d, two_inner = w1.shape
     inner = two_inner // 2
     assert w2.shape[0] == inner, (w1.shape, w2.shape)
     ip = _pad_to(inner, INNER_MULTIPLE)
-    w1u = w1.new_zeros((d, ip), dtype=dtype)
-    w1g = w1.new_zeros((d, ip), dtype=dtype)
-    w2p = w2.new_zeros((ip, w2.shape[1]), dtype=dtype)
-    w1u[:, :inner] = w1[:, :inner]
-    w1g[:, :inner] = w1[:, inner:]
-    w2p[:inner] = w2
-    return w1u.contiguous(), w1g.contiguous(), w2p.contiguous()
+    halves = w1.new_zeros((2, ip, d), dtype=dtype)
+    halves[0, :inner] = w1[:, :inner].t()
+    halves[1, :inner] = w1[:, inner:].t()
+    w1t = halves.reshape(2, ip // HALF_CHUNK, HALF_CHUNK, d).transpose(0, 1)
+    w2t = w2.new_zeros((w2.shape[1], ip), dtype=dtype)
+    w2t[:, :inner] = w2.t()
+    return w1t.reshape(2 * ip, d).contiguous(), w2t.contiguous()
+
+
+def split_geglu_weights(
+    w1t: torch.Tensor, w2t: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prepared layout back to ``(w1u, w1g, w2p)``: W1's u and gate
+    halves as [D, inner_p] and W2 as [inner_p, D_out] (still padded)."""
+    two_ip, d = w1t.shape
+    runs = w1t.reshape(two_ip // (2 * HALF_CHUNK), 2, HALF_CHUNK, d)
+    w1u = runs[:, 0].reshape(-1, d).t()
+    w1g = runs[:, 1].reshape(-1, d).t()
+    return w1u, w1g, w2t.t()
+
+
+def _gate(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """fp32 exact-erf GELU of the gate times u."""
+    return 0.5 * g * (1.0 + torch.erf(g * (1.0 / math.sqrt(2.0)))) * u
 
 
 def geglu_ff_plain(
-    x: torch.Tensor,
-    w1u: torch.Tensor,
-    w1g: torch.Tensor,
-    w2: torch.Tensor,
+    x: torch.Tensor, w1t: torch.Tensor, w2t: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on split weights (padded or
-    not): fp32 u and g, fp32 exact-erf gate, gated product rounded to
-    ``x.dtype``, fp32 accumulation of ``@ w2``, output in ``x.dtype``."""
-    x32 = x.float()
-    u = x32 @ w1u.float()
-    g = x32 @ w1g.float()
-    a = 0.5 * g * (1.0 + torch.erf(g * (1.0 / math.sqrt(2.0)))) * u
-    return (a.to(x.dtype).float() @ w2.float()).to(x.dtype)
+    """Plain PyTorch version of the kernel on the prepared weights: fp32
+    u and g, fp32 exact-erf gate, gated product rounded to ``x.dtype``,
+    fp32 accumulation of ``@ W2``, output in ``x.dtype``."""
+    h = x.float() @ w1t.float().t()  # [..., 2 * inner_p], interleaved
+    runs = h.reshape(*h.shape[:-1], -1, 2, HALF_CHUNK)
+    u = runs[..., 0, :].flatten(-2)
+    g = runs[..., 1, :].flatten(-2)
+    a = _gate(u, g)
+    return (a.to(x.dtype).float() @ w2t.float().t()).to(x.dtype)
 
 
 def geglu_ff_reference(
@@ -79,8 +103,8 @@ def geglu_ff_reference(
     """The unfused semantics on the unsplit weights, ``[u | g] = x @ w1;
     out = (gelu_erf(g) * u) @ w2`` (``mca_tpu.ops.fused_ff.
     geglu_ff_reference``), with the kernel's dtype chain."""
-    inner = w2.shape[0]
-    return geglu_ff_plain(x, w1[:, :inner], w1[:, inner:], w2)
+    u, g = (x.float() @ w1.float()).chunk(2, dim=-1)
+    return (_gate(u, g).to(x.dtype).float() @ w2.float()).to(x.dtype)
 
 
 def _check_cuda(t: torch.Tensor, name: str, shape) -> None:
@@ -95,48 +119,42 @@ def _check_cuda(t: torch.Tensor, name: str, shape) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def geglu_ff(
-    x: torch.Tensor,
-    w1u: torch.Tensor,
-    w1g: torch.Tensor,
-    w2p: torch.Tensor,
-) -> torch.Tensor:
+def geglu_ff(x: torch.Tensor, w1t: torch.Tensor, w2t: torch.Tensor) -> torch.Tensor:
     """GEGLU FF on weights from :func:`prepare_geglu_weights`; ``x`` is
     ``[..., D]``.  CUDA: the fused kernel (bf16, D = D_out = 512,
     forward only).  CPU: the plain version."""
     if x.device.type == "cpu":
-        return geglu_ff_plain(x, w1u, w1g, w2p)
+        return geglu_ff_plain(x, w1t, w2t)
     if x.device.type != "cuda":
         raise RuntimeError(
             f"geglu_ff runs on CPU (plain) or CUDA (kernel) tensors, "
             f"not {x.device}"
         )
-    if any(t.requires_grad for t in (x, w1u, w1g, w2p)):
+    if any(t.requires_grad for t in (x, w1t, w2t)):
         raise RuntimeError(
-            "the fused GEGLU kernel is forward-only: its backward comes "
-            "with the training slice"
+            "the fused GEGLU kernel is forward-only: training runs the "
+            "unfused chain"
         )
-    d, ip = w1u.shape
-    if d != MODEL_DIM or w2p.shape[1] != MODEL_DIM or ip % INNER_MULTIPLE:
+    two_ip, d = w1t.shape
+    ip = two_ip // 2
+    if d != MODEL_DIM or w2t.shape[0] != MODEL_DIM or ip % INNER_MULTIPLE:
         raise ValueError(
             f"the kernel takes D = D_out = {MODEL_DIM} and inner padded "
-            f"to a multiple of {INNER_MULTIPLE}; got w1u {tuple(w1u.shape)}"
-            f", w2 {tuple(w2p.shape)}"
+            f"to a multiple of {INNER_MULTIPLE}; got w1t {tuple(w1t.shape)}"
+            f", w2t {tuple(w2t.shape)}"
         )
     lead = x.shape[:-1]
     x2 = x.reshape(-1, d)
     n = x2.shape[0]
     _check_cuda(x2, "x", (n, d))
-    _check_cuda(w1u, "w1u", (d, ip))
-    _check_cuda(w1g, "w1g", (d, ip))
-    _check_cuda(w2p, "w2", (ip, d))
+    _check_cuda(w1t, "w1t", (two_ip, d))
+    _check_cuda(w2t, "w2t", (d, ip))
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     fn = _build.function(
-        "geglu_ff", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        "geglu_ff", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     err = fn(
-        x2.data_ptr(), w1u.data_ptr(), w1g.data_ptr(), w2p.data_ptr(),
-        out.data_ptr(), n, ip,
+        x2.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), out.data_ptr(), n, ip,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("geglu_ff", err)

@@ -41,7 +41,12 @@ import torch
 from mca_tpu_torch.config import get_model_config, training_config
 from mca_tpu_torch.masks import build_masks
 from mca_tpu_torch.ops import probes
-from mca_tpu_torch.ops.flash_attention import BLOCK, flash_attention, tile_schedule
+from mca_tpu_torch.ops.flash_attention import (
+    BLOCK,
+    flash_attention,
+    pair_schedule,
+    tile_schedule,
+)
 
 ROOT = Path(__file__).resolve().parents[2]
 CONFIG = ROOT / "configs" / "tcga_mca.yaml"
@@ -84,29 +89,35 @@ def attention_counts(attn_mask, *, batch, heads, dim_head, io_bytes=2):
     - K1 reads q and writes out and lse once per row, ``T (2 d b + 4)``
       with ``b`` = ``io_bytes`` (JAX: per q run of 64 rows, the ragged
       last tile counted whole);
+    - K1 walks q tiles in pairs (``pair_schedule``) and loads each k and
+      v tile once for both halves of a pair, ``p 2 64 d b`` for the p
+      visited (pair, kv tile) items (JAX: per visited tile), and reads a
+      tile that is not full as 64 rows of 64 bits, 512 bytes (JAX: the
+      64 x 64 mask bytes);
     - K2 reads k and v once per kv tile, ``2 T d b`` (JAX: per visited
       tile), and the key padding once per key, ``T`` (JAX: per tile);
     - K2 adds dq into an fp32 buffer with atomics on every visited tile,
       ``64 n d 4`` (JAX: one fp32 flush of the T rows), and writes dk and
       dv once, ``2 T d b`` (JAX: per kv run of 64 rows).
 
-    The k and v tiles of K1, q, do, lse and delta of K2, the mask tile
-    of a tile that is not full (64 x 64 bytes) and K1's key padding (64
-    bytes a tile) are counted per visited tile, as in the JAX count.
+    q, do, lse and delta of K2, K2's mask tile of a tile that is not
+    full (64 x 64 bytes) and K1's key padding (64 bytes a tile) are
+    counted per visited tile, as in the JAX count.
     """
     attn_mask = np.asarray(attn_mask, bool)
     t = attn_mask.shape[0]
     _, col_idx, full = tile_schedule(attn_mask)
+    n_pair_items = len(pair_schedule(attn_mask)[1])
     bh, d, bl = batch * heads, dim_head, BLOCK
     n_tiles = len(col_idx)
     n_masked = int((full == 0).sum())
     entries = n_tiles * bl * bl
     tile_flops = float(bh * n_tiles * 2 * bl * bl * d)  # one product's worth
     fwd_terms = {
-        "k_v_tiles": n_tiles * 2 * bl * d * io_bytes,
+        "k_v_tiles": n_pair_items * 2 * bl * d * io_bytes,
         "q": t * d * io_bytes,
         "out_lse": t * (d * io_bytes + 4),
-        "mask_tiles": n_masked * bl * bl,
+        "mask_bits": n_masked * bl * 8,
         "key_padding": n_tiles * bl,
     }
     bwd_terms = {

@@ -4,7 +4,8 @@
 
 Builds ``csrc/<name>.cu`` (every kernel when no name is given), runs
 ``cuobjdump -sass`` on the library and prints, per ``Function :``
-section, its HMMA, MUFU.EX2 and branch instructions and its SASS lines.
+section, its HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA tensor
+load), MUFU.EX2 and branch instructions and its SASS lines.
 A loop the compiler did not unroll holds exactly one iteration's worth,
 so the counts show dead work the compiler dropped (fewer products than
 the body asks for) or a body that outgrew the instruction cache (many
@@ -24,11 +25,18 @@ from typing import Dict
 from mca_tpu_torch import _build
 
 _SECTION = re.compile(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", re.S)
-_COUNTED = {"HMMA": r"\bHMMA\.", "MUFU.EX2": r"\bMUFU\.EX2\b", "BRA": r"\bBRA\b"}
+_COUNTED = {
+    "HMMA": r"\bHMMA\.",  # mma.sync
+    "HGMMA": r"\bHGMMA\.",  # wgmma
+    "UTMALDG": r"\bUTMALDG\b",  # TMA tensor load
+    "MUFU.EX2": r"\bMUFU\.EX2\b",
+    "BRA": r"\bBRA\b",
+}
 
 
 def count(sass: str) -> Dict[str, Dict[str, int]]:
-    """``{function: {"HMMA", "MUFU.EX2", "BRA", "lines"}}`` of
+    """``{function: {"HMMA", "HGMMA", "UTMALDG", "MUFU.EX2", "BRA",
+    "lines"}}`` of
     ``cuobjdump -sass`` output."""
     out = {}
     for fn, body in _SECTION.findall(sass):

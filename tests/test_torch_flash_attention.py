@@ -117,3 +117,60 @@ def test_dense_matches_jax_including_uniform_rows():
     bi, ti = np.argwhere(dead)[0]
     np.testing.assert_allclose(out[bi, :, ti], v[bi].mean(axis=1), atol=1e-5)
 
+
+def _pair_cases():
+    from mca_tpu_torch.tools import roofline as port_roofline
+
+    small = jax_masks.build_masks([48, 30, 40], 14, [3, 2, 1]).attn_mask  # 3 q tiles
+    cases = {"small": small}
+    for name, variant in (("tcga", ""), ("tcga", "zorro"), ("cmu", "")):
+        cases["-".join(x for x in (name, variant) if x)] = port_roofline.build_case(
+            name, variant
+        )["attn_mask"]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def pair_cases():
+    return _pair_cases()
+
+
+@pytest.mark.parametrize("case", ["small", "tcga", "tcga-zorro", "cmu"])
+def test_pair_schedule_matches_tile_schedules(pair_cases, case):
+    """K1's pair walk lists, for q tiles 2i and 2i + 1, the union of their
+    kv tiles with each half's active and full flags exactly as the port's
+    ``tile_schedule`` and the JAX ``_tile_schedule`` have them, and a
+    tile's mask bits equal the mask (past its edge: blocked)."""
+    mask = pair_cases[case]
+    t = mask.shape[0]
+    pair_ptr, pair_kv, flags, bits = port_flash.pair_schedule(mask)
+    row_ptr, col_idx, full = port_flash.tile_schedule(mask)
+    qs, ks, fl = _tile_schedule(mask, 64, 64)[:3]
+    nq = len(row_ptr) - 1
+    assert len(pair_ptr) - 1 == -(-nq // 2) and pair_ptr[-1] == len(pair_kv)
+    assert bits.shape == (len(pair_kv), 2, 64) and bits.dtype == np.int64
+    jax_tiles = {(int(q), int(k)): int(f) for q, k, f in zip(qs, ks, fl)}
+    port_tiles = {
+        (i, int(col_idx[n])): int(full[n])
+        for i in range(nq) for n in range(row_ptr[i], row_ptr[i + 1])
+    }
+    assert port_tiles == jax_tiles
+    padded = np.ones((-(-nq // 2) * 128, -(-t // 64) * 64), bool)
+    padded[:t, :t] = mask
+    seen = {}
+    for p in range(len(pair_ptr) - 1):
+        kvs = pair_kv[pair_ptr[p] : pair_ptr[p + 1]]
+        assert (np.diff(kvs) > 0).all()
+        for n in range(pair_ptr[p], pair_ptr[p + 1]):
+            j = int(pair_kv[n])
+            assert flags[n] & 3, "a visited item is active for some half"
+            for h in range(2):
+                if flags[n] >> h & 1:
+                    seen[(2 * p + h, j)] = flags[n] >> (2 + h) & 1
+                tile = padded[(2 * p + h) * 64 : (2 * p + h + 1) * 64, j * 64 : (j + 1) * 64]
+                row_bits = bits[n, h].view(np.uint64)
+                decoded = (row_bits[:, None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+                np.testing.assert_array_equal(decoded.astype(bool), tile)
+    assert seen == port_tiles
+    # sharing: a pair loads each kv tile once for both halves
+    assert len(pair_kv) < len(col_idx) or nq == 1

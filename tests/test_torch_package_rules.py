@@ -81,8 +81,7 @@ def test_wrappers_raise_where_no_kernel_can_launch():
             mask, None, 0.125,
         )
     with pytest.raises(RuntimeError, match="not meta"):
-        port_ff.geglu_ff(_meta(5, 512), _meta(512, 1408), _meta(512, 1408),
-                         _meta(1408, 512))
+        port_ff.geglu_ff(_meta(5, 512), _meta(2816, 512), _meta(512, 1408))
     assert (port_flash.launches, port_ff.launches) == before
     bwd_before = dict(port_flash.bwd_launches)
     q = _meta(1, 2, t, 64)

@@ -243,5 +243,27 @@ def test_sass_counts_reads_each_function():
     from mca_tpu_torch.tools import sass_counts
 
     got = sass_counts.count(SASS)
-    assert got["_Z3fooPf"] == {"HMMA": 2, "MUFU.EX2": 1, "BRA": 1, "lines": 4}
-    assert got["_Z3barPf"] == {"HMMA": 0, "MUFU.EX2": 0, "BRA": 0, "lines": 2}
+    none = {"HGMMA": 0, "UTMALDG": 0}
+    assert got["_Z3fooPf"] == {"HMMA": 2, "MUFU.EX2": 1, "BRA": 1, "lines": 4, **none}
+    assert got["_Z3barPf"] == {"HMMA": 0, "MUFU.EX2": 0, "BRA": 0, "lines": 2, **none}
+
+
+HOPPER_SASS = """
+        Function : _Z6hopperv
+        /*0000*/  UTMALDG.3D [UR8], [UR4] ;
+        /*0010*/  UTMALDG.2D [UR16], [UR12] ;
+        /*0020*/  SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR6], RZ ;
+        /*0030*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*0040*/  HGMMA.64x256x16.F32.BF16 R88, gdesc[UR8], R88, gsb0 ;
+        /*0050*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0060*/  MUFU.EX2 R2, R3 ;
+"""
+
+
+def test_sass_counts_reads_wgmma_and_tma():
+    """K1 and K5 are checked for HGMMA (wgmma) and UTMALDG (TMA tensor
+    loads) and for the absence of HMMA (mma.sync)."""
+    from mca_tpu_torch.tools import sass_counts
+
+    got = sass_counts.count(HOPPER_SASS)["_Z6hopperv"]
+    assert got == {"HMMA": 0, "HGMMA": 2, "UTMALDG": 2, "MUFU.EX2": 1, "BRA": 0, "lines": 7}

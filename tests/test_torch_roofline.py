@@ -99,7 +99,17 @@ def test_attention_counts_match_jax(built, case):
     assert ref["bwd"]["hbm_bytes"] == bh * sum(jb.values())
     # the port's terms: shared ones equal the JAX ones, the others follow
     # the formulas of port.attention_counts' docstring
-    fwd = {**jf, "q": t * D * 2, "out_lse": t * (D * 2 + 4)}
+    # K1 loads k and v once per (pair of q tiles, kv tile) item and reads
+    # a tile that is not full as 64 words of 64 bits
+    n_items = len(port.pair_schedule(mask)[1])
+    assert n_tiles / 2 <= n_items < n_tiles
+    fwd = {
+        "k_v_tiles": n_items * 2 * 64 * D * 2,
+        "q": t * D * 2,
+        "out_lse": t * (D * 2 + 4),
+        "mask_bits": jf["mask_tiles"] // (64 * 64) * 64 * 8,
+        "key_padding": jf["key_padding"],
+    }
     bwd = {
         "k_v": t * 2 * D * 2,
         "q_do_tiles": jb["q_do_tiles"],
@@ -117,7 +127,8 @@ def test_attention_counts_match_jax(built, case):
 
 def test_attention_counts_tiny_mask_by_hand():
     """130 x 130, nothing blocked: 3 x 3 tiles, the 5 on the ragged edge
-    not full; 1 batch x 2 heads, d 4."""
+    not full; 1 batch x 2 heads, d 4.  K1's pairs are q tiles (0, 1) and
+    (2, none), 3 kv tiles each: 6 k / v loads for the 9 tiles."""
     mask = np.zeros((130, 130), bool)
     c = port.attention_counts(mask, batch=1, heads=2, dim_head=4)
     bh, n, m, t, d = 2, 9, 5, 130, 4
@@ -125,7 +136,10 @@ def test_attention_counts_tiny_mask_by_hand():
     assert c["bwd"]["mxu_flops"] == bh * n * 5 * 2 * 64 * 64 * d
     assert c["fwd"]["mxu_by_shape"] == {"fwdpair:64x4x64": c["fwd"]["mxu_flops"]}
     assert c["bwd"]["exp_elems"] == bh * n * 64 * 64
-    assert c["fwd"]["hbm_terms"]["mask_tiles"] == bh * m * 64 * 64
+    assert c["fwd"]["hbm_terms"]["k_v_tiles"] == bh * 6 * 2 * 64 * d * 2
+    assert c["fwd"]["hbm_terms"]["mask_bits"] == bh * m * 64 * 8
+    assert c["fwd"]["hbm_terms"]["key_padding"] == bh * n * 64
+    assert c["bwd"]["hbm_terms"]["mask_tiles"] == bh * m * 64 * 64
     assert c["bwd"]["hbm_terms"]["dq_atomics"] == bh * n * 64 * d * 4
     assert c["bwd"]["hbm_terms"]["key_padding"] == bh * t
 
