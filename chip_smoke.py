@@ -133,10 +133,17 @@ BWD_ATOL = 1e-2
 # The few one-unit roundings apart give ~1.2e-4 (measured on an H100,
 # fused and split alike); one partly masked 64 x 64 tile dropped from
 # the plain backward (the tile with the median live count), the planted
-# fault, gives ~2.9e-2, and must exceed the bound; 2e-3 sits ~15x from
-# each, and also catches a dropped tile with 1-3% of that live count
-# (6-7e-3 at these shapes)
+# fault, gives ~2.9e-2, and must exceed the bound, as must the second
+# planted fault, the second kv tile of a pair item dropped (2.9-3.0e-2,
+# measured on an H100); 2e-3 sits ~15x from each, and also catches a
+# dropped tile with 1-3% of that live count (6-7e-3 at these shapes)
 BWD_REL_L2 = 2e-3
+# a softmax scale whose bf16 is not a power of two: K2 and K3b then read
+# q_s = bf16(q * bf16(scale)) from the wrapper instead of scaling in fp32
+SCALE_NOT_POW2 = 0.1
+# modality widths that give an odd number of 64-key tiles (T 160 with 22
+# fusion tokens, two for each of the 11 modality combinations)
+ODD_DIMS = (48, 30, 40, 20)
 # embeddings, bf16 on the GPU vs fp32 on the CPU: relative L2 gap per key
 # (bf16 rounds each activation to 8 significant bits, ~2e-3 relative;
 # the final fp32 norm and pool average much of it out)
@@ -328,24 +335,56 @@ def check_flash(device, b=8, h=8) -> dict:
     }
 
 
+def median_tile(tiles: list):
+    """The (q tile, kv tile, live entries) with the median live count of
+    ``tiles`` ``[(count, q tile, kv tile)]``."""
+    cnt, i, j = sorted(tiles)[len(tiles) // 2]
+    return i, j, cnt
+
+
+def tile_live(mask: np.ndarray, pad: torch.Tensor, i: int, j: int) -> int:
+    """Live entries of tile (q tile i, kv tile j) over the batch."""
+    bl = flash.BLOCK
+    live = ~torch.from_numpy(mask[i * bl : (i + 1) * bl, j * bl : (j + 1) * bl])[None]
+    return int((live & ~pad.cpu()[:, None, j * bl : (j + 1) * bl]).sum())
+
+
 def planted_tile(mask: np.ndarray, pad: torch.Tensor):
     """The (q tile, kv tile) that the planted fault drops, and its live
     entries over the batch: of the tiles that the static mask leaves
     partly blocked (off the ragged edge) and the padding leaves some
     entry live, the one with the median count of live entries."""
     row_ptr, col_idx, full = flash.tile_schedule(mask)
-    bl, nt = flash.BLOCK, len(row_ptr) - 1
-    live = ~torch.from_numpy(mask)[None] & ~pad.cpu()[:, None, :]
+    nt = len(row_ptr) - 1
     tiles = []
     for i in range(nt - 1):
         for n in range(row_ptr[i], row_ptr[i + 1]):
             j = int(col_idx[n])
             if not full[n] and j < nt - 1:
-                cnt = int(live[:, i * bl : (i + 1) * bl, j * bl : (j + 1) * bl].sum())
+                cnt = tile_live(mask, pad, i, j)
                 if cnt:
                     tiles.append((cnt, i, j))
-    cnt, i, j = sorted(tiles)[len(tiles) // 2]
-    return i, j, cnt
+    return median_tile(tiles)
+
+
+def planted_pair_half(mask: np.ndarray, pad: torch.Tensor):
+    """The second planted fault's tile, one that a pair walk could drop
+    while its first half still runs: of the kv_pair_schedule items whose
+    SECOND kv tile (2j + 1) is live but not full, off the ragged edge,
+    and has some entry the padding leaves live, the one with the median
+    count of live entries."""
+    pair_ptr, pair_q, flags, _ = flash.kv_pair_schedule(mask)
+    nt = -(-mask.shape[0] // flash.BLOCK)
+    tiles = []
+    for p in range(len(pair_ptr) - 1):
+        j = 2 * p + 1
+        for n in range(pair_ptr[p], pair_ptr[p + 1]):
+            i = int(pair_q[n])
+            if flags[n] & 2 and not flags[n] & 8 and max(i, j) < nt - 1:
+                cnt = tile_live(mask, pad, i, j)
+                if cnt:
+                    tiles.append((cnt, i, j))
+    return median_tile(tiles)
 
 
 def check_flash_bwd(device) -> list:
@@ -367,29 +406,36 @@ def check_flash_bwd(device) -> list:
         blocked = torch.from_numpy(mask).to(device)[None] | pad[:, None, :]
         dead = blocked.all(dim=2)[:, None, :].expand(b, h, t)  # dead query rows
         padded = pad[:, None, :].expand(b, h, t)  # padded keys
-        # the planted fault: the plain backward with one tile dropped
-        qi, kj, n_live = planted_tile(mask, pad)
-        faulty_mask = mask.copy()
-        tq, tk = (slice(x * flash.BLOCK, (x + 1) * flash.BLOCK) for x in (qi, kj))
-        faulty_mask[tq, tk] = True
-        faulty = flash.flash_attention_bwd_reference(
-            q, k, v, faulty_mask, pad, out, lse, do, scale
-        )
+        # the planted faults: the plain backward with one tile dropped, a
+        # partly masked tile of the q-major walk and the second kv tile of
+        # a pair item (which the pair walk could drop beside a live first
+        # half); each must fail the relative-L2 check on every gradient
         names = ("dq", "dk", "dv")
-        for name, r, f in zip(names, ref, faulty):
-            a = r.float().abs()
-            atol = BWD_ATOL * float(a.max())
-            flagged = int(((f.float() - r.float()).abs() > atol + BF16_RTOL * a).sum())
-            print(
-                f"backward {name}: max |plain| {float(a.max()):.4e}, median "
-                f"|plain| {float(a.median()):.4e}, entry tolerance {atol:.3e} + "
-                f"2^-6 relative; planted fault (tile q{qi} x kv{kj}, {n_live} live "
-                f"entries over the batch, dropped): "
-                f"relative L2 {rel_l2(f, r):.3e}, {flagged} entries past the "
-                f"entry tolerance",
-                flush=True,
+        for fault, (qi, kj, n_live) in (
+            ("tile", planted_tile(mask, pad)),
+            ("pair half", planted_pair_half(mask, pad)),
+        ):
+            faulty_mask = mask.copy()
+            tq, tk = (slice(x * flash.BLOCK, (x + 1) * flash.BLOCK) for x in (qi, kj))
+            faulty_mask[tq, tk] = True
+            faulty = flash.flash_attention_bwd_reference(
+                q, k, v, faulty_mask, pad, out, lse, do, scale
             )
-            assert rel_l2(f, r) > BWD_REL_L2, (name, "planted fault passes", rel_l2(f, r))
+            for name, r, f in zip(names, ref, faulty):
+                a = r.float().abs()
+                atol = BWD_ATOL * float(a.max())
+                flagged = int(((f.float() - r.float()).abs() > atol + BF16_RTOL * a).sum())
+                print(
+                    f"backward {name}: max |plain| {float(a.max()):.4e}, median "
+                    f"|plain| {float(a.median()):.4e}, entry tolerance {atol:.3e} + "
+                    f"2^-6 relative; planted {fault} fault (tile q{qi} x kv{kj}, "
+                    f"{n_live} live entries over the batch, dropped): "
+                    f"relative L2 {rel_l2(f, r):.3e}, {flagged} entries past the "
+                    f"entry tolerance",
+                    flush=True,
+                )
+                assert rel_l2(f, r) > BWD_REL_L2, (fault, name, "planted fault passes")
+            del faulty
         errs, rels = {}, {}
         for impl, grads in (("fused", fused), ("split", split)):
             for name, x, r in zip(names, grads, ref):
@@ -413,7 +459,46 @@ def check_flash_bwd(device) -> list:
         )
         route_rel = max(rel_l2(x, y) for x, y in zip(fused, split))
         assert route_rel <= BWD_REL_L2, route_rel
-        del faulty
+        # K2 and K3b take q_s from the wrapper where bf16(scale) is not a
+        # power of two (ops/flash_attention.py _q_operand)
+        out_b, lse_b = flash.flash_attention(q, k, v, mask, pad, SCALE_NOT_POW2)
+        ref_b = flash.flash_attention_bwd_reference(
+            q, k, v, mask, pad, out_b, lse_b, do, SCALE_NOT_POW2
+        )
+        for impl in ("fused", "split"):
+            got = flash.flash_attention_backward(
+                q, k, v, mask, pad, out_b, lse_b, do, SCALE_NOT_POW2, impl
+            )
+            rel_b = [rel_l2(x, r) for x, r in zip(got, ref_b)]
+            print(
+                f"backward {impl}, scale {SCALE_NOT_POW2}: relative L2 against "
+                "plain " + ", ".join(f"{n} {x:.3e}" for n, x in zip(names, rel_b)),
+                flush=True,
+            )
+            assert max(rel_b) <= BWD_REL_L2, (impl, SCALE_NOT_POW2, rel_b)
+        del out_b, lse_b, ref_b, got
+        # an odd number of kv tiles (T 160, 3 tiles): the last pair's
+        # second tile lies past T, where its k and v load as zeros
+        m_odd, q_o, k_o, v_o, pad_o = flash_inputs(device, b=2, h=2, dims=ODD_DIMS, fusion=22)
+        assert -(-m_odd.shape[0] // flash.BLOCK) % 2 == 1
+        do_o = torch.randn(q_o.shape, generator=g, device=device).to(torch.bfloat16)
+        out_o, lse_o = flash.flash_attention(q_o, k_o, v_o, m_odd, pad_o, scale)
+        ref_o = flash.flash_attention_bwd_reference(
+            q_o, k_o, v_o, m_odd, pad_o, out_o, lse_o, do_o, scale
+        )
+        for impl in ("fused", "split"):
+            got = flash.flash_attention_backward(
+                q_o, k_o, v_o, m_odd, pad_o, out_o, lse_o, do_o, scale, impl
+            )
+            rel_o = [rel_l2(x, r) for x, r in zip(got, ref_o)]
+            print(
+                f"backward {impl}, T {m_odd.shape[0]} (odd kv tiles): relative L2 "
+                "against plain " + ", ".join(f"{n} {x:.3e}" for n, x in zip(names, rel_o)),
+                flush=True,
+            )
+            assert max(rel_o) <= BWD_REL_L2, (impl, "odd kv tiles", rel_o)
+            padded_o = pad_o[:, None, :].expand(got[1].shape[:3])
+            assert bool((got[1][padded_o] == 0).all() and (got[2][padded_o] == 0).all()), impl
 
         dq_acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=device)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -1061,20 +1146,28 @@ def check_tools(device) -> dict:
     return counts
 
 
-def check_hopper_sass(reports: dict, names=("flash_fwd", "geglu_ff")) -> None:
-    """K1 and K5 are built from wgmma and TMA: their SASS holds HGMMA and
-    UTMALDG and no HMMA (mma.sync), and ptxas reports no spills."""
+def check_hopper_sass(reports: dict,
+                      names=("flash_fwd", "geglu_ff", "flash_bwd", "flash_bwd_dkv")) -> None:
+    """K1, K5, K2 and K3b are built from wgmma and TMA: their SASS holds
+    HGMMA and UTMALDG and no HMMA (mma.sync), and ptxas reports no
+    spills and did not serialise the wgmma pipeline (a C75xx warning: a
+    wait after every HGMMA); K2 also holds UTMAREDG, the TMA reduce-add
+    of its dq partials."""
     tool = sass_counts.cuobjdump_path()
     for name in names:
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         for fn, c in sass_counts.count(sass).items():
-            print(f"  {name} SASS: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, HMMA "
-                  f"{c['HMMA']}, MUFU.EX2 {c['MUFU.EX2']}, {c['lines']} lines", flush=True)
+            print(f"  {name} SASS: HGMMA {c['HGMMA']} (waits {c['WGWAIT']}), UTMALDG "
+                  f"{c['UTMALDG']}, UTMAREDG {c['UTMAREDG']}, HMMA {c['HMMA']}, MUFU.EX2 "
+                  f"{c['MUFU.EX2']}, {c['lines']} lines", flush=True)
             assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (name, c)
+            assert c["UTMAREDG"] > 0 or name != "flash_bwd", (name, c)
         spills = [line for line in reports[name].splitlines() if "spill" in line]
         assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
                               for line in spills), (name, spills)
+        serialised = [line for line in reports[name].splitlines() if "are serialized" in line]
+        assert not serialised, (name, serialised)
 
 
 def main() -> int:

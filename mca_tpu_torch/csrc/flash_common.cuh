@@ -1,8 +1,8 @@
-// Building blocks shared by the flash-attention kernels (forward K1 in
-// flash_fwd.cu, backward K2 / K3a / K3b in flash_bwd*.cu): the 64 x 64
-// tile geometry, mma.sync m16n8k16 fragments, quad-shuffle row
-// reductions and the tile loaders (row-major, transposed, or both from
-// one global read).
+// Building blocks of the mma.sync kernels: K3a (flash_bwd_dq.cu) and,
+// through mma_chain.cuh, the measurement kernels K6-K8: mma.sync
+// m16n8k16 fragments and the tile loaders (row-major, transposed, or both
+// from one global read).  The tile geometry, softmax constants and quad
+// reductions come from flash_tile.cuh.
 //
 // Tiles live in shared memory as bf16 rows of kLdh = 72 elements (64 +
 // 8 of padding, so the 32-bit fragment loads of the 8 rows a quad
@@ -14,17 +14,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
+
 namespace {
 
-constexpr int kD = 64;                 // head dim (compile-time)
-constexpr int kBlock = 64;             // q rows and kv columns per tile
 constexpr int kWarps = 4;              // each warp owns 16 rows of the tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kLdh = kD + 8;           // bf16 row stride of the shared tiles
 constexpr int kLdm = kBlock + 4;       // byte row stride of the mask tile
-constexpr float kNegInf = -1e30f;
-constexpr float kDeadClamp = -1e29f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr size_t kTileH = size_t(kBlock) * kLdh * sizeof(__nv_bfloat16);
 constexpr size_t kMaskBytes = size_t(kBlock) * kLdm;
@@ -51,16 +48,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // 16 bytes (8 values) of row `row` of a [t, 64] bf16 matrix at column

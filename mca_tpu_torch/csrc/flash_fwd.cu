@@ -67,13 +67,13 @@
 // an earlier loop that issued the next S before the softmax, with the
 // lookahead conditional, was serialised by ptxas and took 0.354 ms).
 
-#include "flash_common.cuh"
+#include "flash_tile.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-// kD, kBlock and the softmax constants (kNegInf, kDeadClamp, kLog2e),
-// quad_max and quad_sum are the backward kernels', from flash_common.cuh
+// kD, kBlock, the softmax constants (kNegInf, kDeadClamp, kLog2e),
+// quad_max and quad_sum: flash_tile.cuh
 constexpr int kStages = 4;           // k / v ring depth
 constexpr int kBlockThreads = 384;   // producer + two consumer warpgroups
 

@@ -1,26 +1,33 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (K1 in
-// flash_fwd.cu, K5 in geglu_ff.cu), written from the PTX ISA:
+// flash_fwd.cu, K5 in geglu_ff.cu, K2 / K3b in flash_bwd_kv.cuh), written
+// from the PTX ISA:
 //
 // - TMA tensor maps, encoded on the host inside each C entry point.
 //   cuTensorMapEncodeTiled lives in libcuda; it is fetched through
 //   the runtime's cudaGetDriverEntryPoint, so the libraries link only
-//   the CUDA runtime (no -lcuda).  Every map here has 128-byte rows
-//   (64 bf16) per box and CU_TENSOR_MAP_SWIZZLE_128B, rows past the
-//   tensor's edge read as zero.  Maps reach a kernel as
-//   `const __grid_constant__ CUtensorMap` parameters.
-// - mbarriers: init, arrive, arrive-expect-tx and try-wait with phase
-//   parity, and the TMA loads that complete on them.
+//   the CUDA runtime (no -lcuda).  Every map here has 128-byte rows per
+//   box (64 bf16, or 32 fp32) and CU_TENSOR_MAP_SWIZZLE_128B; rows past
+//   the tensor's edge read as zero and are not written.  Maps reach a
+//   kernel as `const __grid_constant__ CUtensorMap` parameters.
+// - mbarriers: init, arrive, expect-tx (with or without an arrival) and
+//   try-wait with phase parity, and the TMA loads that complete on them.
+// - the TMA reduce-add (cp.reduce.async.bulk.tensor ... .add): a tile of
+//   shared memory added element by element into device memory through a
+//   map, in bulk groups that one thread commits and waits for.
 // - wgmma: shared-memory descriptors for the 128-byte swizzle (the
-//   layout TMA writes), fence / commit / wait, and the three products
-//   the kernels issue (m64n64k16 and m64n256k16 from shared memory,
-//   m64n64k16 with A in registers).  A tile of 64-element rows is 1024
-//   bytes per 8 rows; it must start on a 1024-byte boundary, and a step
-//   of 16 elements along K inside it is 32 bytes added to the start.
+//   layout TMA writes), fence / commit / wait, and the products the
+//   kernels issue (m64n64k16 and m64n256k16 from shared memory, m64n64k16
+//   with A in registers).  A tile of 64-element rows is 1024 bytes per 8
+//   rows; it must start on a 1024-byte boundary.  Stored K-major (rows =
+//   M or N, 64 K values a row), a step of 16 elements along K is 32 bytes
+//   added to the start; stored MN-major (rows = K, 64 M or N values a row,
+//   the instruction's transpose bit set for that operand), it is 16 rows,
+//   2048 bytes.
 // - setmaxnreg, to move registers from the producer warpgroup to the
 //   consumers.
 //
-// flash_common.cuh holds the mma.sync building blocks of the backward
-// kernels.
+// flash_common.cuh holds the mma.sync building blocks of K3a and the
+// measurement kernels.
 
 #pragma once
 
@@ -58,12 +65,13 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (2 or 3) dims, innermost first: dims[0] = 64
-// elements or more, contiguous; strides[i] the byte stride of dim i + 1.
-// Boxes of box[0] = 64 x box[1] (x 1) elements, 128-byte swizzle.
-// Returns false when the encoding is refused.
+// A tensor of `rank` (2 or 3) dims, innermost first: dims[0] contiguous;
+// strides[i] the byte stride of dim i + 1.  Boxes of box[0] x box[1] (x
+// 1) elements, box[0] 128 bytes wide (64 bf16 or 32 fp32), 128-byte
+// swizzle.  Returns false when the encoding is refused.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box) {
+                     const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   cuuint64_t gdim[3], gstride[2];
@@ -73,7 +81,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
     gbox[i] = box[i];
   }
   for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i];
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim,
+  return encode(map, dtype, rank, const_cast<void*>(base), gdim,
                 gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -105,6 +113,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// announces `bytes` of TMA transactions without an arrival (the issuing
+// thread arrives later, with the other arrivals the phase waits for)
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 
@@ -149,8 +164,48 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// adds the box at coordinates (c0, c1, c2) of shared address `src` (laid
+// out as a TMA load of the same map would write it) into device memory,
+// element by element; rows past the tensor's edge are not written.  The
+// addition is atomic against other reductions into the same elements.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, uint32_t src,
+                                                  int c0, int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// closes the issuing thread's bulk group of TMA stores / reductions
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the issuing thread's bulk groups still read
+// their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of the issuing thread's bulk groups are
+// incomplete (their writes to device memory included)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
 }
 
 // generic-proxy stores to shared memory become visible to wgmma / TMA
@@ -172,6 +227,12 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
          uint32_t(col & 7) * 2u;
 }
 
+// the same for a tile of 32-element fp32 rows
+__device__ __forceinline__ uint32_t swz128_f32(int row, int col) {
+  return uint32_t(row) * 128u + ((uint32_t(col >> 2) ^ uint32_t(row & 7)) << 4) +
+         uint32_t(col & 3) * 4u;
+}
+
 // ---------------------------------------------------------------------------
 // Device: wgmma
 // ---------------------------------------------------------------------------
@@ -180,8 +241,9 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
 // start >> 4, leading byte offset 1 (unused by this layout), stride
 // byte offset 1024 >> 4 (from one group of 8 rows to the next), layout
 // type 1 (128-byte swizzle).  The same encoding serves a K-major
-// operand (rows = M or N, 64 K values a row) and an MN-major B (rows =
-// K, 64 N values a row, with the instruction's transpose bit set).
+// operand (rows = M or N, 64 K values a row) and an MN-major one (rows
+// = K, 64 M or N values a row, with the instruction's transpose bit for
+// that operand set).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
   return uint64_t((addr & 0x3FFFFu) >> 4) | (uint64_t(1) << 16) | (uint64_t(64) << 32) |
          (uint64_t(1) << 62);
@@ -226,7 +288,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // d[32] (+)= A[64 x 16] * B[16 x 64]; A and B from shared memory
-// (K-major, 128-byte swizzle descriptors); scale_d 0 overwrites d.
+// (128-byte swizzle descriptors), each K-major (TRANS 0) or MN-major
+// (TRANS 1); scale_d 0 overwrites d.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -235,13 +299,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
       ", "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d[128] (+)= A[64 x 16] * B[16 x 256]; A and B from shared memory

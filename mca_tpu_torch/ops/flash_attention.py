@@ -13,7 +13,8 @@ Semantics (shared by the kernels and the plain versions
 - ``attn_mask`` [Tq, Tk] bool, True = blocked, STATIC (numpy, shared by
   batch and heads): it becomes a CSR tile schedule at ``BLOCK`` = 64,
   q-major for dq, over pairs of q tiles for the forward
-  (:func:`pair_schedule`), kv-major for dk and dv;
+  (:func:`pair_schedule`), over pairs of kv tiles for dk and dv
+  (:func:`kv_pair_schedule`);
 - ``key_padding_mask`` [B, Tk] bool, True = padded key, dynamic;
 - scale folded into q in the input dtype, fp32 scores and softmax
   statistics, p (and in the backward ds) rounded to the input dtype for
@@ -35,6 +36,7 @@ launches, ``bwd_launches`` backward ones per kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -145,6 +147,31 @@ def pair_schedule(
         pair_ptr, pair_kv.astype(np.int32), flags.astype(np.int32),
         np.ascontiguousarray(bits).view(np.int64),
     )
+
+
+def kv_pair_schedule(
+    mask: np.ndarray, block: int = BLOCK
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The kv-major backward kernels' walk: kv tiles in pairs ``(2j, 2j + 1)``.
+
+    :func:`pair_schedule` of the transposed mask: ``(pair_ptr [n_pairs +
+    1], pair_q [n], pair_flags [n], pair_bits [n, 2, 64])``; pair ``j``
+    visits q tiles ``pair_q[pair_ptr[j]:pair_ptr[j + 1]]``, in increasing
+    order, the union of kv tiles ``2j`` and ``2j + 1``'s columns of
+    :func:`kv_tile_schedule`.  ``pair_flags`` bit ``h``: kv tile ``2j + h``
+    visits the q tile, bit ``2 + h``: that tile is also ``full``.
+    ``pair_bits[n, h, r]`` holds row ``r`` of the TRANSPOSED 64 x 64 tile
+    (rows = keys, bit ``c``: query ``c`` blocked), the region past the
+    mask's edge blocked, as int64.
+    """
+    return pair_schedule(np.ascontiguousarray(np.asarray(mask, bool).T), block)
+
+
+def kv_pair_order(pair_ptr: np.ndarray) -> np.ndarray:
+    """The order in which K2 / K3b start their pairs of kv tiles: longest
+    walk first (ties in pair order), int32; from
+    :func:`kv_pair_schedule`'s ``pair_ptr``."""
+    return np.argsort(-np.diff(pair_ptr), kind="stable").astype(np.int32)
 
 
 def _tile_keys(tiles: np.ndarray, tk: int) -> np.ndarray:
@@ -283,25 +310,26 @@ def flash_attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _schedule_on(mask: np.ndarray, device: torch.device):
+def _schedule_on(mask: np.ndarray, device: torch.device) -> dict:
     """The mask's schedules and its uint8 copy on ``device``, built and
     uploaded once per static mask (kept alive with the entry, so its id
-    cannot be reused while cached): ``(row_ptr, col_idx, full, col_ptr,
-    row_idx, full_kv, mask_u8, pair_ptr, pair_kv, pair_flags,
-    pair_bits)``."""
+    cannot be reused while cached): ``{"tile": tile_schedule (K3a),
+    "mask": the mask as uint8 (K3a), "pair": pair_schedule (K1),
+    "kv_pair": kv_pair_schedule and kv_pair_order (K2, K3b)}``, each
+    schedule a tuple of tensors."""
     key = (id(mask), str(device))
     hit = _SCHED_CACHE.get(key)
     if hit is None or hit[0] is not mask:
-        tensors = tuple(
-            torch.from_numpy(a).to(device)
-            for a in (
-                *tile_schedule(mask),
-                *kv_tile_schedule(mask),
-                np.ascontiguousarray(mask, dtype=np.uint8),
-                *pair_schedule(mask),
-            )
-        )
-        hit = (mask, tensors)
+        def up(arrays):
+            return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+        kv_pair = kv_pair_schedule(mask)
+        hit = (mask, {
+            "tile": up(tile_schedule(mask)),
+            "mask": up([np.ascontiguousarray(mask, dtype=np.uint8)])[0],
+            "pair": up(pair_schedule(mask)),
+            "kv_pair": up((*kv_pair, kv_pair_order(kv_pair[0]))),
+        })
         _SCHED_CACHE[key] = hit
     return hit[1]
 
@@ -349,10 +377,24 @@ def _scale_q(scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
+def _q_operand(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """``(q as the kv-major backward kernels read it, scale_s)``: they
+    multiply s = q k^T and dk by ``scale_s`` in fp32, where the TPU
+    kernels fold ``bf16(scale)`` into q in bf16.  Where that scale is a
+    power of two (the model's 64^-0.5 = 2^-3) both give the same s and dk
+    bit for bit (barring subnormal products), and q goes in as it is with ``scale_s`` = the scale;
+    otherwise q goes in as ``q_s = q * bf16(scale)`` (one bf16 pass) with
+    ``scale_s`` = 1."""
+    sq = _scale_q(scale, q.dtype)
+    if math.frexp(sq)[0] == 0.5:
+        return q, sq
+    return q * torch.tensor(sq, dtype=q.dtype, device=q.device), 1.0
+
+
 def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
     attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
     b, h, t, _ = q.shape
-    pair_ptr, pair_kv, pair_flags, pair_bits = _schedule_on(attn_mask, q.device)[7:]
+    pair_ptr, pair_kv, pair_flags, pair_bits = _schedule_on(attn_mask, q.device)["pair"]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
@@ -375,43 +417,47 @@ def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
 
 
 def _bwd_common(q, k, v, do, lse, delta, attn_mask, key_padding_mask):
-    """Checked pointers shared by the three backward entry points and
-    the mask's schedules on the device."""
+    """Checks shared by the three backward entry points; returns the
+    mask's schedules on the device and the key padding (or None)."""
     attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
     b, h, t, d = q.shape
     _check_cuda(do, "do", (b, h, t, d), torch.bfloat16)
     _check_cuda(lse, "lse", (b, h, t), torch.float32)
     _check_cuda(delta, "delta", (b, h, t), torch.float32)
-    sched = _schedule_on(attn_mask, q.device)
-    ptrs = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), sched[6].data_ptr(),
-        pad.data_ptr() if pad is not None else None,
-    )
-    return ptrs, sched, torch.cuda.current_stream(q.device).cuda_stream
+    return _schedule_on(attn_mask, q.device), pad
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return x.data_ptr() if x is not None else None
 
 
 def flash_bwd(q, k, v, do, lse, delta, attn_mask, key_padding_mask, scale,
               dq_acc, dk, dv) -> None:
     """Launch K2: dk, dv written, dq added into the fp32 ``dq_acc``
     (zeroed by the caller).  CUDA tensors only."""
-    ptrs, sched, stream = _bwd_common(
+    sched, pad = _bwd_common(
         q, k, v, do, lse, delta, attn_mask, key_padding_mask
     )
     b, h, t, d = q.shape
     _check_cuda(dq_acc, "dq_acc", (b, h, t, d), torch.float32)
     _check_cuda(dk, "dk", (b, h, t, d), torch.bfloat16)
     _check_cuda(dv, "dv", (b, h, t, d), torch.bfloat16)
-    col_ptr, row_idx, full_kv = sched[3:6]
+    q_in, scale_s = _q_operand(q, scale)
     fn = _build.function(
         "flash_bwd",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
         + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     err = fn(
-        *ptrs, col_ptr.data_ptr(), row_idx.data_ptr(), full_kv.data_ptr(),
+        q_in.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(pad),
+        *(x.data_ptr() for x in sched["kv_pair"]),
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, t,
-        len(col_ptr) - 1, _scale_q(scale, q.dtype), float(scale), stream,
+        len(sched["kv_pair"][0]) - 1, scale_s, float(scale), _stream(q),
     )
     _build.check("flash_bwd", err)
     bwd_launches["flash_bwd"] += 1
@@ -420,21 +466,23 @@ def flash_bwd(q, k, v, do, lse, delta, attn_mask, key_padding_mask, scale,
 def flash_bwd_dq(q, k, v, do, lse, delta, attn_mask, key_padding_mask,
                  scale, dq) -> None:
     """Launch K3a: dq (bf16) written.  CUDA tensors only."""
-    ptrs, sched, stream = _bwd_common(
+    sched, pad = _bwd_common(
         q, k, v, do, lse, delta, attn_mask, key_padding_mask
     )
     b, h, t, d = q.shape
     _check_cuda(dq, "dq", (b, h, t, d), torch.bfloat16)
-    row_ptr, col_idx, full = sched[:3]
+    row_ptr, col_idx, full = sched["tile"]
     fn = _build.function(
         "flash_bwd_dq",
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
         + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     err = fn(
-        *ptrs, row_ptr.data_ptr(), col_idx.data_ptr(), full.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), sched["mask"].data_ptr(), _ptr(pad),
+        row_ptr.data_ptr(), col_idx.data_ptr(), full.data_ptr(),
         dq.data_ptr(), b * h, h, t, len(row_ptr) - 1,
-        _scale_q(scale, q.dtype), float(scale), stream,
+        _scale_q(scale, q.dtype), float(scale), _stream(q),
     )
     _build.check("flash_bwd_dq", err)
     bwd_launches["flash_bwd_dq"] += 1
@@ -443,22 +491,24 @@ def flash_bwd_dq(q, k, v, do, lse, delta, attn_mask, key_padding_mask,
 def flash_bwd_dkv(q, k, v, do, lse, delta, attn_mask, key_padding_mask,
                   scale, dk, dv) -> None:
     """Launch K3b: dk and dv (bf16) written.  CUDA tensors only."""
-    ptrs, sched, stream = _bwd_common(
+    sched, pad = _bwd_common(
         q, k, v, do, lse, delta, attn_mask, key_padding_mask
     )
     b, h, t, d = q.shape
     _check_cuda(dk, "dk", (b, h, t, d), torch.bfloat16)
     _check_cuda(dv, "dv", (b, h, t, d), torch.bfloat16)
-    col_ptr, row_idx, full_kv = sched[3:6]
+    q_in, scale_s = _q_operand(q, scale)
     fn = _build.function(
         "flash_bwd_dkv",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p],
     )
     err = fn(
-        *ptrs, col_ptr.data_ptr(), row_idx.data_ptr(), full_kv.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b * h, h, t, len(col_ptr) - 1,
-        _scale_q(scale, q.dtype), stream,
+        q_in.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(pad),
+        *(x.data_ptr() for x in sched["kv_pair"]),
+        dk.data_ptr(), dv.data_ptr(), b * h, h, t, len(sched["kv_pair"][0]) - 1,
+        scale_s, _stream(q),
     )
     _build.check("flash_bwd_dkv", err)
     bwd_launches["flash_bwd_dkv"] += 1

@@ -6,7 +6,8 @@
 The port of ``baselines/roofline.py``.  For each hot component it
 
 1. COUNTS the work from the port's own tile schedule (the CSR
-   ``tile_schedule`` / ``kv_tile_schedule`` of ``ops/flash_attention.py``
+   ``tile_schedule`` / ``pair_schedule`` / ``kv_pair_schedule`` of
+   ``ops/flash_attention.py``
    at 64 x 64 tiles, one launch per layer: the JAX package's row bands
    do not apply) on the real MCA / zorro / CMU mask: tensor-core flops,
    elementwise and exp element counts, and device-memory bytes;
@@ -44,6 +45,7 @@ from mca_tpu_torch.ops import probes
 from mca_tpu_torch.ops.flash_attention import (
     BLOCK,
     flash_attention,
+    kv_pair_schedule,
     pair_schedule,
     tile_schedule,
 )
@@ -94,20 +96,26 @@ def attention_counts(attn_mask, *, batch, heads, dim_head, io_bytes=2):
       visited (pair, kv tile) items (JAX: per visited tile), and reads a
       tile that is not full as 64 rows of 64 bits, 512 bytes (JAX: the
       64 x 64 mask bytes);
-    - K2 reads k and v once per kv tile, ``2 T d b`` (JAX: per visited
-      tile), and the key padding once per key, ``T`` (JAX: per tile);
-    - K2 adds dq into an fp32 buffer with atomics on every visited tile,
-      ``64 n d 4`` (JAX: one fp32 flush of the T rows), and writes dk and
-      dv once, ``2 T d b`` (JAX: per kv run of 64 rows).
+    - K2 walks kv tiles in pairs (``kv_pair_schedule``): it reads k and
+      v once per kv tile, ``2 T d b`` (JAX: per visited tile), and q, do,
+      lse and delta once per (pair of kv tiles, q tile) item, ``p' (2 64
+      d b + 64 8)`` for the p' items (JAX: per visited tile); it reads
+      the key padding once per key, ``T`` (JAX: per tile), and a tile
+      that is not full as 64 rows of 64 bits, 512 bytes (JAX: the 64 x
+      64 mask bytes);
+    - K2 adds each visited tile's fp32 dq partial into an fp32 buffer
+      with a TMA reduce-add, ``64 n d 4`` (JAX: one fp32 flush of the T
+      rows), and writes dk and dv once, ``2 T d b`` (JAX: per kv run of
+      64 rows).
 
-    q, do, lse and delta of K2, K2's mask tile of a tile that is not
-    full (64 x 64 bytes) and K1's key padding (64 bytes a tile) are
-    counted per visited tile, as in the JAX count.
+    K1's key padding (64 bytes a tile) is counted per visited tile, as in
+    the JAX count.
     """
     attn_mask = np.asarray(attn_mask, bool)
     t = attn_mask.shape[0]
     _, col_idx, full = tile_schedule(attn_mask)
     n_pair_items = len(pair_schedule(attn_mask)[1])
+    n_kv_pair_items = len(kv_pair_schedule(attn_mask)[1])
     bh, d, bl = batch * heads, dim_head, BLOCK
     n_tiles = len(col_idx)
     n_masked = int((full == 0).sum())
@@ -122,11 +130,11 @@ def attention_counts(attn_mask, *, batch, heads, dim_head, io_bytes=2):
     }
     bwd_terms = {
         "k_v": t * 2 * d * io_bytes,
-        "q_do_tiles": n_tiles * 2 * bl * d * io_bytes,
-        "lse_delta_tiles": n_tiles * bl * 8,
-        "dq_atomics": n_tiles * bl * d * 4,
+        "q_do_items": n_kv_pair_items * 2 * bl * d * io_bytes,
+        "lse_delta_items": n_kv_pair_items * bl * 8,
+        "dq_reduce": n_tiles * bl * d * 4,
         "dk_dv": t * 2 * d * io_bytes,
-        "mask_tiles": n_masked * bl * bl,
+        "mask_bits": n_masked * bl * 8,
         "key_padding": t,
     }
 

@@ -4,8 +4,10 @@
 
 Builds ``csrc/<name>.cu`` (every kernel when no name is given), runs
 ``cuobjdump -sass`` on the library and prints, per ``Function :``
-section, its HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA tensor
-load), MUFU.EX2 and branch instructions and its SASS lines.
+section, its HMMA (mma.sync), HGMMA (wgmma), WARPGROUP.DEPBAR (wgmma
+waits: one after every HGMMA means ptxas serialised the pipeline),
+UTMALDG (TMA tensor load), UTMAREDG (TMA tensor reduce-add), MUFU.EX2
+and branch instructions and its SASS lines.
 A loop the compiler did not unroll holds exactly one iteration's worth,
 so the counts show dead work the compiler dropped (fewer products than
 the body asks for) or a body that outgrew the instruction cache (many
@@ -28,16 +30,17 @@ _SECTION = re.compile(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", re.S)
 _COUNTED = {
     "HMMA": r"\bHMMA\.",  # mma.sync
     "HGMMA": r"\bHGMMA\.",  # wgmma
+    "WGWAIT": r"\bWARPGROUP\.DEPBAR\b",  # wgmma.wait_group
     "UTMALDG": r"\bUTMALDG\b",  # TMA tensor load
+    "UTMAREDG": r"\bUTMAREDG\b",  # TMA tensor reduce (cp.reduce.async.bulk.tensor)
     "MUFU.EX2": r"\bMUFU\.EX2\b",
     "BRA": r"\bBRA\b",
 }
 
 
 def count(sass: str) -> Dict[str, Dict[str, int]]:
-    """``{function: {"HMMA", "HGMMA", "UTMALDG", "MUFU.EX2", "BRA",
-    "lines"}}`` of
-    ``cuobjdump -sass`` output."""
+    """``{function: {"HMMA", "HGMMA", "WGWAIT", "UTMALDG", "UTMAREDG",
+    "MUFU.EX2", "BRA", "lines"}}`` of ``cuobjdump -sass`` output."""
     out = {}
     for fn, body in _SECTION.findall(sass):
         c = {k: len(re.findall(pat, body)) for k, pat in _COUNTED.items()}

@@ -174,3 +174,52 @@ def test_pair_schedule_matches_tile_schedules(pair_cases, case):
     assert seen == port_tiles
     # sharing: a pair loads each kv tile once for both halves
     assert len(pair_kv) < len(col_idx) or nq == 1
+
+
+@pytest.mark.parametrize("case", ["small", "tcga", "tcga-zorro", "cmu"])
+def test_kv_pair_schedule_matches_kv_tile_schedules(pair_cases, case):
+    """K2 / K3b's pair walk lists, for kv tiles 2j and 2j + 1, the union of
+    their columns of the kv-major schedule, with each half's live and full
+    flags exactly as the port's ``kv_tile_schedule`` and the JAX
+    ``_tile_schedule`` have them, and a tile's bits decode to the
+    TRANSPOSED tile of the mask (rows = keys, past its edge: blocked)."""
+    mask = pair_cases[case]
+    t = mask.shape[0]
+    pair_ptr, pair_q, flags, bits = port_flash.kv_pair_schedule(mask)
+    col_ptr, row_idx, full = port_flash.kv_tile_schedule(mask)
+    _, _, _, q_kv, kv_kv, full_kv, _, nk = _tile_schedule(mask, 64, 64)
+    assert len(col_ptr) - 1 == nk
+    assert len(pair_ptr) - 1 == -(-nk // 2) and pair_ptr[-1] == len(pair_q)
+    assert bits.shape == (len(pair_q), 2, 64) and bits.dtype == np.int64
+    jax_tiles = {(int(j), int(i)): int(f) for i, j, f in zip(q_kv, kv_kv, full_kv)}
+    port_tiles = {
+        (j, int(row_idx[n])): int(full[n])
+        for j in range(nk) for n in range(col_ptr[j], col_ptr[j + 1])
+    }
+    assert port_tiles == jax_tiles
+    padded = np.ones((-(-nk // 2) * 128, -(-t // 64) * 64), bool)
+    padded[:t, :t] = mask.T
+    seen, idle = {}, 0
+    for p in range(len(pair_ptr) - 1):
+        qs = pair_q[pair_ptr[p] : pair_ptr[p + 1]]
+        assert (np.diff(qs) > 0).all()
+        for n in range(pair_ptr[p], pair_ptr[p + 1]):
+            i = int(pair_q[n])
+            assert flags[n] & 3, "a visited item is live for some half"
+            for h in range(2):
+                if flags[n] >> h & 1:
+                    seen[(2 * p + h, i)] = flags[n] >> (2 + h) & 1
+                else:
+                    idle += 1
+                tile = padded[(2 * p + h) * 64 : (2 * p + h + 1) * 64, i * 64 : (i + 1) * 64]
+                row_bits = bits[n, h].view(np.uint64)
+                decoded = (row_bits[:, None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+                np.testing.assert_array_equal(decoded.astype(bool), tile)
+    assert seen == port_tiles
+    assert idle == 2 * len(pair_q) - len(row_idx)
+    # the kernels start the pairs longest walk first
+    order = port_flash.kv_pair_order(pair_ptr)
+    assert order.dtype == np.int32 and sorted(order) == list(range(len(pair_ptr) - 1))
+    assert (np.diff(np.diff(pair_ptr)[order]) <= 0).all()
+    if case == "tcga":  # the TCGA_config1 walk: 308 items for 568 tiles
+        assert (len(pair_q), len(row_idx), idle) == (308, 568, 48)

@@ -129,3 +129,58 @@ def test_kv_tile_schedule_matches_jax(dims, fusion, combos):
     np.testing.assert_array_equal(cols, kv_kv)
     np.testing.assert_array_equal(row_idx, q_kv)
     np.testing.assert_array_equal(full, full_kv)
+
+
+@pytest.mark.parametrize("scale", [64**-0.5, 1.0, 0.1, 0.3])
+def test_kv_kernels_q_operand_keeps_the_tpu_scale_rule(scale):
+    """K2 / K3b compute s = q_s k^T and dk with q_s = bf16(q * bf16(scale))
+    as the TPU kernels do.  Where bf16(scale) is a power of two they take
+    q itself and scale s and dk in fp32, which gives the same numbers bit
+    for bit; otherwise they take q_s from the wrapper and a unit scale."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(2, 64, 64)).astype(np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rng.normal(size=(2, 64, 64)).astype(np.float32)).to(torch.bfloat16)
+    sq = port_flash._scale_q(scale, torch.bfloat16)
+    q_s = q * torch.tensor(scale, dtype=torch.bfloat16)  # the TPU kernels' q_s
+    q_in, scale_s = port_flash._q_operand(q, scale)
+    power_of_two = scale in (64**-0.5, 1.0)
+    if power_of_two:
+        assert q_in is q and scale_s == sq
+    else:
+        assert scale_s == 1.0
+        assert torch.equal(q_in, q_s)
+    s_tpu = q_s.float() @ k.float().transpose(1, 2)
+    s_kernel = (q_in.float() @ k.float().transpose(1, 2)) * scale_s
+    assert torch.equal(s_kernel, s_tpu)
+    assert torch.equal(q_in.float() * scale_s, q_s.float())
+
+
+@pytest.mark.parametrize(
+    "name,kind",
+    [
+        ("void (anonymous namespace)::flash_bwd_kv_kernel<true>(CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+         "float const*, unsigned char const*, int const*, int const*, int const*, "
+         "unsigned long const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, float)",
+         "flash_bwd (K2)"),
+        ("void (anonymous namespace)::flash_bwd_kv_kernel<false>(CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+         "float const*, unsigned char const*, int const*, int const*, int const*, "
+         "unsigned long const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, float)",
+         "flash_bwd_dkv (K3b)"),
+        ("void (anonymous namespace)::flash_bwd_dq_kernel(__nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, float const*, int, int, float, float)",
+         "flash_bwd_dq (K3a)"),
+        ("void (anonymous namespace)::flash_fwd_kernel(CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, unsigned char const*, int const*, int const*, int const*, "
+         "unsigned long const*, __nv_bfloat16*, float*, int, int, float)",
+         "flash_fwd (K1)"),
+        ("nvjet_tst_128x64_64x8_1x2_h_bz_TNT", "gemm (projections, FF, encoders, loss)"),
+    ],
+)
+def test_profile_train_attributes_the_flash_kernels(name, kind):
+    """``tools/profile_train`` sorts device time by kernel name: the
+    kv-major template's two instances are K2 (with dq) and K3b."""
+    from mca_tpu_torch.tools.profile_train import kind_of
+
+    assert kind_of(name) == kind

@@ -243,7 +243,7 @@ def test_sass_counts_reads_each_function():
     from mca_tpu_torch.tools import sass_counts
 
     got = sass_counts.count(SASS)
-    none = {"HGMMA": 0, "UTMALDG": 0}
+    none = {"HGMMA": 0, "WGWAIT": 0, "UTMALDG": 0, "UTMAREDG": 0}
     assert got["_Z3fooPf"] == {"HMMA": 2, "MUFU.EX2": 1, "BRA": 1, "lines": 4, **none}
     assert got["_Z3barPf"] == {"HMMA": 0, "MUFU.EX2": 0, "BRA": 0, "lines": 2, **none}
 
@@ -266,4 +266,31 @@ def test_sass_counts_reads_wgmma_and_tma():
     from mca_tpu_torch.tools import sass_counts
 
     got = sass_counts.count(HOPPER_SASS)["_Z6hopperv"]
-    assert got == {"HMMA": 0, "HGMMA": 2, "UTMALDG": 2, "MUFU.EX2": 1, "BRA": 0, "lines": 7}
+    assert got == {
+        "HMMA": 0, "HGMMA": 2, "WGWAIT": 1, "UTMALDG": 2, "UTMAREDG": 0, "MUFU.EX2": 1,
+        "BRA": 0, "lines": 7,
+    }
+
+
+# as cuobjdump prints K2's dq reduce (cp.reduce.async.bulk.tensor ... .add)
+REDUCE_SASS = """
+        Function : _ZN12_GLOBAL__N_119flash_bwd_kv_kernelILb1EEEv14CUtensorMap_st
+        /*4c20*/  UTMAREDG.3D.ADD [UR12], [UR18] ;
+        /*4cc0*/  UTMAREDG.3D.ADD [UR12], [UR18] ;
+        /*4ce0*/  UTMACMDFLUSH ;
+        /*5820*/  UTMALDG.3D [UR8], [UR4] ;
+        /*5830*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR20].tnspA.tnspB, RZ, !UPT, gsb0 ;
+        /*5840*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+"""
+
+
+def test_sass_counts_reads_the_tma_reduce():
+    """K2 is checked for UTMAREDG, the TMA reduce-add that adds its dq
+    partials (K3b, without dq, has none)."""
+    from mca_tpu_torch.tools import sass_counts
+
+    (got,) = sass_counts.count(REDUCE_SASS).values()
+    assert got == {
+        "HMMA": 0, "HGMMA": 1, "WGWAIT": 1, "UTMALDG": 1, "UTMAREDG": 2, "MUFU.EX2": 0,
+        "BRA": 0, "lines": 6,
+    }

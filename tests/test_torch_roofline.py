@@ -99,10 +99,13 @@ def test_attention_counts_match_jax(built, case):
     assert ref["bwd"]["hbm_bytes"] == bh * sum(jb.values())
     # the port's terms: shared ones equal the JAX ones, the others follow
     # the formulas of port.attention_counts' docstring
-    # K1 loads k and v once per (pair of q tiles, kv tile) item and reads
-    # a tile that is not full as 64 words of 64 bits
+    # K1 loads k and v once per (pair of q tiles, kv tile) item, K2 q,
+    # do, lse and delta once per (pair of kv tiles, q tile) item, and both
+    # read a tile that is not full as 64 words of 64 bits
     n_items = len(port.pair_schedule(mask)[1])
+    n_kv_items = len(port.kv_pair_schedule(mask)[1])
     assert n_tiles / 2 <= n_items < n_tiles
+    assert n_tiles / 2 <= n_kv_items < n_tiles
     fwd = {
         "k_v_tiles": n_items * 2 * 64 * D * 2,
         "q": t * D * 2,
@@ -112,11 +115,11 @@ def test_attention_counts_match_jax(built, case):
     }
     bwd = {
         "k_v": t * 2 * D * 2,
-        "q_do_tiles": jb["q_do_tiles"],
-        "lse_delta_tiles": jb["lse_delta_tiles"],
-        "dq_atomics": n_tiles * 64 * D * 4,
+        "q_do_items": jb["q_do_tiles"] // n_tiles * n_kv_items,
+        "lse_delta_items": jb["lse_delta_tiles"] // n_tiles * n_kv_items,
+        "dq_reduce": n_tiles * 64 * D * 4,
         "dk_dv": t * 2 * D * 2,
-        "mask_tiles": jb["mask_tiles"],
+        "mask_bits": jb["mask_tiles"] // (64 * 64) * 64 * 8,
         "key_padding": t,
     }
     assert mine["fwd"]["hbm_terms"] == {k: float(bh * v) for k, v in fwd.items()}
@@ -128,7 +131,8 @@ def test_attention_counts_match_jax(built, case):
 def test_attention_counts_tiny_mask_by_hand():
     """130 x 130, nothing blocked: 3 x 3 tiles, the 5 on the ragged edge
     not full; 1 batch x 2 heads, d 4.  K1's pairs are q tiles (0, 1) and
-    (2, none), 3 kv tiles each: 6 k / v loads for the 9 tiles."""
+    (2, none), 3 kv tiles each: 6 k / v loads for the 9 tiles; K2's are
+    kv tiles (0, 1) and (2, none): 6 q / do loads."""
     mask = np.zeros((130, 130), bool)
     c = port.attention_counts(mask, batch=1, heads=2, dim_head=4)
     bh, n, m, t, d = 2, 9, 5, 130, 4
@@ -139,9 +143,36 @@ def test_attention_counts_tiny_mask_by_hand():
     assert c["fwd"]["hbm_terms"]["k_v_tiles"] == bh * 6 * 2 * 64 * d * 2
     assert c["fwd"]["hbm_terms"]["mask_bits"] == bh * m * 64 * 8
     assert c["fwd"]["hbm_terms"]["key_padding"] == bh * n * 64
-    assert c["bwd"]["hbm_terms"]["mask_tiles"] == bh * m * 64 * 64
-    assert c["bwd"]["hbm_terms"]["dq_atomics"] == bh * n * 64 * d * 4
+    assert c["bwd"]["hbm_terms"]["q_do_items"] == bh * 6 * 2 * 64 * d * 2
+    assert c["bwd"]["hbm_terms"]["mask_bits"] == bh * m * 64 * 8
+    assert c["bwd"]["hbm_terms"]["dq_reduce"] == bh * n * 64 * d * 4
     assert c["bwd"]["hbm_terms"]["key_padding"] == bh * t
+
+
+def test_attention_bwd_bytes_tiny_mask_by_hand():
+    """256 x 256 (4 x 4 tiles): q tile 3 x kv tile 0 and q tile 0 x kv
+    tile 3 blocked whole, one entry of q tile 1 x kv tile 2 blocked; 1
+    batch x 1 head, d 4.  14 tiles visited, 1 not full; K2's kv pairs (0,
+    1) and (2, 3) each visit q tiles 0-3: 8 items, of which 2 have an idle
+    half."""
+    mask = np.zeros((256, 256), bool)
+    mask[192:, :64] = True
+    mask[:64, 192:] = True
+    mask[70, 130] = True
+    c = port.attention_counts(mask, batch=1, heads=1, dim_head=4)["bwd"]
+    d, t = 4, 256
+    terms = {
+        "k_v": t * 2 * d * 2,
+        "q_do_items": 8 * 2 * 64 * d * 2,
+        "lse_delta_items": 8 * 64 * 8,
+        "dq_reduce": 14 * 64 * d * 4,
+        "dk_dv": t * 2 * d * 2,
+        "mask_bits": 1 * 64 * 8,
+        "key_padding": t,
+    }
+    assert c["hbm_terms"] == {k: float(v) for k, v in terms.items()}
+    assert c["hbm_bytes"] == float(sum(terms.values()))
+    assert c["mxu_flops"] == 14 * 5 * 2 * 64 * 64 * d
 
 
 def test_gemm_flops_and_optimizer_bytes_match_jax(built):
