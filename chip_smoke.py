@@ -9,8 +9,11 @@ Phases (each asserted; any failure exits non-zero):
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
    build every kernel from ``mca_tpu_torch/csrc`` (one ``nvcc`` each, in
    parallel) and print ptxas's registers, spills and wgmma serialisation
-   warnings; K1's and K5's SASS (``cuobjdump``) must hold HGMMA (wgmma)
-   and UTMALDG (TMA) and no HMMA (mma.sync), with no spills.
+   warnings; the SASS (``cuobjdump``) of K1, K5, K2, K3a and K3b must hold
+   HGMMA (wgmma) and UTMALDG (TMA) and no HMMA (mma.sync), with no spills
+   and no serialisation, and UTMAREDG (TMA reduce-add) in K2 alone; K6's
+   fwdpair, bwd5 and big kernels must hold HGMMA and no HMMA, its vpu and
+   exp sweeps neither.
 2. K1, the flash-attention forward, against its plain version at
    TCGA_config1 shapes (B 8, H 8, T 2548, D 64, bf16, the real MCA
    mask, ragged key padding and a missing modality): live rows within
@@ -29,8 +32,10 @@ Phases (each asserted; any failure exits non-zero):
    plain backward at K1's shapes and inputs with a random ``do``:
    dq, dk, dv within bf16 tolerance entry by entry and in relative L2
    per gradient, dead-row dq and padded-key dk / dv exactly 0, the two
-   routes against each other; a planted fault (the plain backward with
-   one partly masked tile dropped) must fail the relative-L2 check.
+   routes against each other, K3a's dq bitwise equal over two runs; two
+   planted faults (the plain backward with one partly masked tile
+   dropped, or the second kv tile of a pair item) must fail the
+   relative-L2 check.
    Times: each kernel,
    the plain backward, and the backward alone of
    ``F.scaled_dot_product_attention`` with the same mask as a yardstick.
@@ -452,6 +457,12 @@ def check_flash_bwd(device) -> list:
             assert bool((grads[1][padded] == 0).all()), f"{impl}: padded-key dk is not 0"
             assert bool((grads[2][padded] == 0).all()), f"{impl}: padded-key dv is not 0"
         assert int(dead.sum()) > 0 and int(padded.sum()) > 0  # both were covered
+        # K3a is the deterministic route: its dq sums in a fixed order, so
+        # a second run on the same inputs gives the same bits
+        again = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "split")
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], split[0]), "K3a: two runs give different dq"
+        del again
         # K2 against K3a + K3b: dk and dv come from the same kernel body;
         # dq sums the same bf16 products, in fp32, in another order
         fused_vs_split = max(
@@ -1146,28 +1157,55 @@ def check_tools(device) -> dict:
     return counts
 
 
-def check_hopper_sass(reports: dict,
-                      names=("flash_fwd", "geglu_ff", "flash_bwd", "flash_bwd_dkv")) -> None:
-    """K1, K5, K2 and K3b are built from wgmma and TMA: their SASS holds
-    HGMMA and UTMALDG and no HMMA (mma.sync), and ptxas reports no
-    spills and did not serialise the wgmma pipeline (a C75xx warning: a
-    wait after every HGMMA); K2 also holds UTMAREDG, the TMA reduce-add
-    of its dq partials."""
-    tool = sass_counts.cuobjdump_path()
+def sass_of(name: str) -> dict:
+    """``sass_counts.count`` of the built library ``name``, per function."""
+    sass = subprocess.run([sass_counts.cuobjdump_path(), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sass_counts.count(sass)
+
+
+def print_sass(name: str, fn: str, c: dict) -> None:
+    print(f"  {name} SASS {fn[-48:]}: HGMMA {c['HGMMA']} (waits {c['WGWAIT']}), UTMALDG "
+          f"{c['UTMALDG']}, UTMAREDG {c['UTMAREDG']}, HMMA {c['HMMA']}, MUFU.EX2 "
+          f"{c['MUFU.EX2']}, {c['lines']} lines", flush=True)
+
+
+def check_ptxas(name: str, report: str) -> None:
+    """ptxas reports no spills for ``name`` and did not serialise its
+    wgmma pipeline (a C75xx warning: a wait after every HGMMA)."""
+    spills = [line for line in report.splitlines() if "spill" in line]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                          for line in spills), (name, spills)
+    serialised = [line for line in report.splitlines() if "are serialized" in line]
+    assert not serialised, (name, serialised)
+
+
+def check_hopper_sass(reports: dict, names=("flash_fwd", "geglu_ff", "flash_bwd",
+                                            "flash_bwd_dq", "flash_bwd_dkv")) -> None:
+    """K1, K5, K2, K3a and K3b are built from wgmma and TMA: their SASS
+    holds HGMMA and UTMALDG and no HMMA (mma.sync), with no spills and no
+    wgmma serialisation; K2 alone holds UTMAREDG, the TMA reduce-add of
+    its dq partials (K3a, the deterministic route, has none)."""
     for name in names:
-        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
-                              capture_output=True, text=True, check=True).stdout
-        for fn, c in sass_counts.count(sass).items():
-            print(f"  {name} SASS: HGMMA {c['HGMMA']} (waits {c['WGWAIT']}), UTMALDG "
-                  f"{c['UTMALDG']}, UTMAREDG {c['UTMAREDG']}, HMMA {c['HMMA']}, MUFU.EX2 "
-                  f"{c['MUFU.EX2']}, {c['lines']} lines", flush=True)
+        for fn, c in sass_of(name).items():
+            print_sass(name, fn, c)
             assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (name, c)
-            assert c["UTMAREDG"] > 0 or name != "flash_bwd", (name, c)
-        spills = [line for line in reports[name].splitlines() if "spill" in line]
-        assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
-                              for line in spills), (name, spills)
-        serialised = [line for line in reports[name].splitlines() if "are serialized" in line]
-        assert not serialised, (name, serialised)
+            assert (c["UTMAREDG"] > 0) == (name == "flash_bwd"), (name, c)
+        check_ptxas(name, reports[name])
+
+
+def check_counter_sass(report: str) -> None:
+    """K6's tensor-core modes (fwdpair, bwd5, big) hold HGMMA (wgmma) and
+    no HMMA (mma.sync); its vpu and exp sweeps hold neither; no spills
+    and no wgmma serialisation."""
+    seen = set()
+    for fn, c in sass_of("roofline_counter").items():
+        print_sass("roofline_counter", fn, c)
+        kind = next(k for k in ("fwdpair", "bwd5", "big", "sweep") if f"{k}_kernel" in fn)
+        seen.add(kind)
+        assert c["HMMA"] == 0 and (c["HGMMA"] > 0) == (kind != "sweep"), (fn, c)
+    assert seen == {"fwdpair", "bwd5", "big", "sweep"}, seen
+    check_ptxas("roofline_counter", report)
 
 
 def main() -> int:
@@ -1195,6 +1233,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     check_hopper_sass(reports)
+    check_counter_sass(reports["roofline_counter"])
 
     device = torch.device("cuda")
     kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]

@@ -84,18 +84,6 @@ constexpr uint32_t kVOff = kKOff + kStages * kBox;
 constexpr uint32_t kBarOff = kVOff + kStages * kBox;
 constexpr uint32_t kSmemBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
 
-__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-// two bf16 times the scale, each rounded to bf16 (load_row8's q * scale)
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-  return pack_bf16x2(f.x * scale, f.y * scale);
-}
-
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,

@@ -1,9 +1,10 @@
 // The flash-attention kernels' tile geometry and softmax constants, and
 // the quad reductions over a row of an mma accumulator (a row's entries
 // sit in the 4 lanes of a quad, in mma.sync's m16n8 layout and in each
-// warp's slice of a wgmma accumulator alike).  Shared by the Hopper
-// kernels (K1 in flash_fwd.cu, K2 / K3b in flash_bwd_kv.cuh) and, through
-// flash_common.cuh, by the mma.sync ones.
+// warp's slice of a wgmma accumulator alike).  Shared by the flash
+// kernels (K1 flash_fwd.cu, K3a flash_bwd_dq.cu, K2 / K3b
+// flash_bwd_kv.cuh), the roofline counter (K6) and, through
+// flash_common.cuh, the overlap probe (K7, K8).
 
 #pragma once
 

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (K1 in
-// flash_fwd.cu, K5 in geglu_ff.cu, K2 / K3b in flash_bwd_kv.cuh), written
-// from the PTX ISA:
+// flash_fwd.cu, K3a in flash_bwd_dq.cu, K5 in geglu_ff.cu, K2 / K3b in
+// flash_bwd_kv.cuh, K6 in roofline_counter.cu), written from the PTX ISA:
 //
 // - TMA tensor maps, encoded on the host inside each C entry point.
 //   cuTensorMapEncodeTiled lives in libcuda; it is fetched through
@@ -25,9 +25,12 @@
 //   2048 bytes.
 // - setmaxnreg, to move registers from the producer warpgroup to the
 //   consumers.
+// - small helpers shared by the kernels: 32-bit shared loads and stores,
+//   bf16 packing and scaling, the MUFU's 2^x, and the occupancy query
+//   the measurement kernels size their grids with.
 //
-// flash_common.cuh holds the mma.sync building blocks of K3a and the
-// measurement kernels.
+// flash_common.cuh holds the mma.sync building blocks of the overlap
+// probe (K7, K8).
 
 #pragma once
 
@@ -200,6 +203,12 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -231,6 +240,29 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
 __device__ __forceinline__ uint32_t swz128_f32(int row, int col) {
   return uint32_t(row) * 128u + ((uint32_t(col >> 2) ^ uint32_t(row & 7)) << 4) +
          uint32_t(col & 3) * 4u;
+}
+
+// 2^x on the MUFU (one MUFU.EX2, denormals flushed)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Set the dynamic shared-memory limit of `kernel` and report how many of
+// its blocks of `threads` fit on one SM at `smem` bytes, times the SMs.
+__host__ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
+                                            int* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  *blocks = sms * per_sm;
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -285,6 +317,13 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two bf16 times `scale`, each rounded to bf16 (the TPU kernels' q *
+// scale in the input dtype)
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  return pack_bf16x2(f.x * scale, f.y * scale);
 }
 
 // d[32] (+)= A[64 x 16] * B[16 x 64]; A and B from shared memory

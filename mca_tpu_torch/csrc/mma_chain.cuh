@@ -1,7 +1,5 @@
-// The chained 256-wide product shared by the measurement kernels: the
-// roofline counter's `big` body (roofline_counter.cu), the overlap
-// probe's matrix chain (probe_overlap.cu) and its control
-// (probe_overlap_ctl.cu).
+// The chained 256-wide mma.sync product of the overlap probe's matrix
+// chain (probe_overlap.cu) and its control (probe_overlap_ctl.cu).
 //
 // A block of kChainWarps warps holds a [kChainRows x 256] bf16 operand
 // `a`, 16 rows per warp, as mma.sync A fragments in registers, and W
@@ -11,10 +9,9 @@
 // chunks of 64, each 16 k-steps of 8 m16n8k16 products (512 HMMA per
 // warp and step), the chunk's fp32 accumulators turned into the new A
 // fragments of the same 64 columns (an output column block of 16 is
-// exactly the A fragment of that k-step, as in flash_common.cuh's
-// mma_acc_b).  `between` runs after every fourth k-step (16 times a
-// step): the overlap probe puts its exp chain there, in the same
-// instruction stream.
+// exactly the A fragment of that k-step).  `between` runs after every
+// fourth k-step (16 times a step): the overlap probe puts its exp chain
+// there, in the same instruction stream.
 //
 // Why 256: W^T takes 135,168 bytes of shared memory, and a warp's 16 x
 // 256 operand, its 16 x 256 successor and one chunk's accumulators take
@@ -24,6 +21,7 @@
 #pragma once
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -72,10 +70,6 @@ __device__ __forceinline__ void store_a256(__nv_bfloat16* dst, const uint32_t (&
   }
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
 // a <- epi(a W, a).  epi(x_lo, x_hi, old) takes two fp32 entries of
 // a W and the packed pair of a they replace, and returns the new pair.
 template <class Epi, class Between>
@@ -121,28 +115,5 @@ struct DecayEpi {
 struct Nothing {
   __device__ __forceinline__ void operator()() const {}
 };
-
-// 2^x on the MUFU (one MUFU.EX2, denormals flushed)
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Set the dynamic shared-memory limit of `kernel` and report how many of
-// its blocks of `threads` fit on one SM at `smem` bytes, times the SMs.
-__host__ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
-                                            int* blocks) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  *blocks = sms * per_sm;
-  return err;
-}
 
 }  // namespace

@@ -29,7 +29,7 @@
 // Bound: per step a block moves 88 KB (44 KB in, 44 KB out), 11.9 MB
 // for 132 blocks, 3.5 us at 3.35 TB/s; a dot is 16.8 MFLOP a block.
 
-#include "mma_chain.cuh"
+#include "mma_chain.cuh"  // and hopper_common.cuh: smem_u32, mbar_init, mbar_wait
 
 namespace {
 
@@ -38,30 +38,6 @@ enum Mode { kDma = 0, kMxu = 1, kBoth = 2 };
 constexpr int kChunk = 11 * 1024;  // fp32 values of one streamed chunk: 44 KB
 constexpr uint32_t kChunkBytes = kChunk * sizeof(float);
 constexpr size_t kCtlSmem = kWBytes + 2 * size_t(kChunkBytes) + 2 * sizeof(uint64_t);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // global -> shared, `bytes` (a multiple of 16), completing on `bar`
 __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint64_t* bar) {
@@ -103,8 +79,8 @@ probe_ctl_kernel(const float* __restrict__ x, float* __restrict__ y, int n_chunk
   auto chunk = [&](int i) { return (blk * per_block + size_t(i) % per_block) * kChunk; };
 
   if (tid == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (kDots) load_w_transposed(wt, w);

@@ -5,32 +5,44 @@
 // `kern` body launched through pl.pallas_call there): a VMEM-resident
 // fori_loop over one of five bodies.  Here one entry point,
 // mca_roofline_counter(mode, ...), launches one of five kernels; each
-// block reads its own tile of x0, runs `iters` iterations of the body on
-// it with everything in registers and shared memory, and writes the tile
-// to `out` once.  A TPU core is one unit; this card has 132 SMs, so the
-// wrapper launches as many blocks as the occupancy calculator lets reside
-// at once (mca_roofline_counter_blocks) and every block chains its own
-// copy.  The bodies, with the TPU body each copies:
+// block reads its own tile of x0 once, runs `iters` iterations of the
+// body on it with everything in registers and shared memory, and writes
+// the tile to `out` once: nothing in the loop touches device memory.  A
+// TPU core is one unit; this card has 132 SMs, so the wrapper launches as
+// many blocks as the occupancy calculator lets reside at once
+// (mca_roofline_counter_blocks) and every block chains its own copy.
 //
-//   fwdpair (roofline.py:362-377), K1's tile dataflow: per warp 16 rows
-//     of a [64 x 64] bf16 q tile as A fragments; k (row-major) and v
-//     (transposed) [64 x 64] bf16 in shared memory;
-//     s = q k^T (fp32), o = bf16(s) v (fp32), q <- bf16(q + eps o).
-//     64 m16n8k16 products per warp and iteration.
-//   bwd5 (roofline.py:384-414), K2's tile dataflow: per warp 16 keys of
-//     k and v as A fragments; q through shared memory row-major and
-//     transposed; do = q.  s^T = k q^T, dp^T = v do^T, ds = bf16(s + dp),
-//     dv = bf16(s)^T do, dk = ds^T q, dq = ds k (ds through shared memory,
-//     k^T kept there), fold = column sums of dv + dk over the 64 keys,
-//     q <- bf16(q + eps (dq + fold)).  160 products per warp and
-//     iteration.  dv takes bf16(s) where the TPU body reuses ds: with
-//     do = q, ds^T do and ds^T q are the same product of the same
-//     registers, which the compiler may merge; K2's dv takes p, which
-//     comes from s.
+// The three tensor-core bodies issue wgmma, the unit the flash kernels
+// (K1, K2, K3a, K3b) and the fused FF (K5) use, with their dataflow.
+// Operands in shared memory are 64-element bf16 rows in the 128-byte
+// swizzle TMA writes (hopper_common.cuh), loaded once by plain stores.
+// The bodies, with the TPU body each copies:
+//
+//   fwdpair (roofline.py:362-377), K1's tile dataflow: one warpgroup a
+//     block holds a [64 x 64] bf16 q tile as wgmma register-A fragments;
+//     k and v [64 x 64] bf16 in shared memory.  s = q k^T (wgmma
+//     m64n64k16, k K-major), o = bf16(s) v (s as register A, v read
+//     through the transpose bit), q <- bf16(q + eps o): 8 products a
+//     warpgroup and iteration.
+//   bwd5 (roofline.py:384-414), K2's tile dataflow as
+//     flash_bwd_kv.cuh issues it: one warpgroup a block owns the 64 keys
+//     of k and v; q (and do = q) in shared memory.  s^T = k q^T and
+//     dp^T = v do^T (all operands K-major in shared memory), ds^T =
+//     bf16(s^T + dp^T), dv = bf16(s^T) do and dk = ds^T q (register A,
+//     do and q read MN-major), dq = ds k (ds^T through shared memory, both
+//     operands MN-major), fold = column sums of dv + dk over the 64 keys,
+//     q <- bf16(q + eps (dq + fold)) written back to shared memory: 20
+//     products a warpgroup and iteration.  dv takes bf16(s) where the TPU
+//     body reuses ds: with do = q, ds^T do and ds^T q are the same product
+//     of the same operands, which the compiler may merge; K2's dv takes
+//     p, which comes from s.
 //   big (roofline.py:427-437), the deep-contraction reference: a 1024^2
-//     operand does not fit in one SM, so a block chains mma_chain.cuh's
-//     [128 x 256] x [256 x 256] product, a <- bf16(a + scale (a W)), W in
-//     shared memory; 512 products per warp and iteration.
+//     operand does not fit in one SM, so a block chains a [128 x 256] x
+//     [256 x 256] product, a <- bf16(a + scale (a W)), as K5 issues its
+//     second product: two warpgroups of 64 rows, each 16 wgmma
+//     m64n256k16 an iteration with its rows of a and W (stored W^T, K
+//     in four 64-wide slices) both K-major in shared memory; a is
+//     rewritten there in place.
 //   vpu (roofline.py:446-452): x <- x - c x x on 16 fp32 registers a
 //     thread (one FMUL and one FFMA each), [64 x 64] a block.
 //   exp (roofline.py:458-464): x <- exp(-x - eps) on 16 fp32 registers a
@@ -39,223 +51,320 @@
 // Dead work.  Every product feeds the chain's next iteration and the
 // final store, so the compiler can drop none of it; cuobjdump -sass of
 // the built library (tools/sass_counts.py) shows, per iteration of each
-// kernel's loop (per warp):
-//   fwdpair 64 HMMA.16816.F32.BF16, bwd5 160, big 512 (these loops are
-//   not unrolled: the kernels hold exactly that many);
-//   exp 16 MUFU.EX2 a thread (80 in the kernel: the loop unrolled four
-//   times, and its remainder).
+// kernel's loop: fwdpair 8 HGMMA, bwd5 20, big 16 (these loops are not
+// unrolled: the kernels hold exactly that many); exp 16 MUFU.EX2 a
+// thread (80 in the kernel: the loop unrolled four times, and its
+// remainder).
 //
 // Bound: none of the loops touches device memory, so each is bound by
-// its unit: the tensor cores for fwdpair, bwd5 and big (mma.sync, not
-// wgmma, as the flash kernels issue it), the FP32 pipe for vpu and the
-// MUFU (16 operations a clock per SM) for exp.  What they measure is how
-// close the port's own dataflow can come to those units.
+// its unit: the tensor cores for fwdpair, bwd5 and big, the FP32 pipe for
+// vpu and the MUFU (16 operations a clock per SM) for exp.  What they
+// measure is how close the port's own wgmma dataflows can come to those
+// units: the tools' yardstick for the kernels built from them.
+//
+// Measured (tools/roofline.py's rate pass, NVIDIA H100 80GB HBM3, 700.00
+// W): fwdpair 763-778 TFLOP/s (660 blocks, 5 an SM), bwd5 426 (396, 3 an
+// SM), big 795-796 (132); the mma.sync bodies before them read 392, 293
+// and 387 in the same call.  ptxas: fwdpair 90 registers, bwd5 154, big
+// 193; no spills, no wgmma serialisation.
 
-#include "mma_chain.cuh"
+#include "flash_tile.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 enum Mode { kFwdpair = 0, kBwd5 = 1, kBig = 2, kVpu = 3, kExp = 4 };
 
+constexpr int kWarpgroup = 128;
 constexpr int kSweepThreads = 256;
 constexpr int kSweepPerThread = 16;
 constexpr int kSweepTile = kSweepThreads * kSweepPerThread;  // 4096 fp32 a block
 constexpr int kQTile = kBlock * kD;                            // 64 x 64 bf16 a block
+constexpr uint32_t kTileBytes = kQTile * 2;                    // 8 KB
 
-constexpr size_t kFwdpairSmem = 2 * kTileH;
-constexpr size_t kBwd5Smem = 4 * kTileH + kWarps * kD * sizeof(float);
+constexpr int kBigW = 256;                      // width and depth of big's product
+constexpr int kBigRows = 128;                   // rows of a a block: two warpgroups of 64
+constexpr uint32_t kWSlice = kBigW * 64 * 2;    // W^T: 256 rows of one 64-deep K slice, 32 KB
+constexpr uint32_t kASlice = 64 * 64 * 2;       // a: one warpgroup's 64 rows of a K slice, 8 KB
 
-// q <- bf16(q + eps * o) on one packed pair
-__device__ __forceinline__ uint32_t add_scaled(uint32_t q, float o0, float o1, float eps) {
-  const float2 f = unpack_bf16(q);
-  return pack_bf16(f.x + o0 * eps, f.y + o1 * eps);
+// 1024 bytes of slack for aligning the dynamic shared memory
+constexpr size_t kFwdpairSmem = 2 * kTileBytes + 1024;                 // k, v
+constexpr size_t kBwd5Smem = 4 * kTileBytes + 4 * kD * 4 + 1024;      // k, v, q, ds^T, fold
+constexpr size_t kBigSmem = 4 * kWSlice + 2 * 4 * kASlice + 1024;     // W^T, a
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~uintptr_t(1023));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// rows [0, 64) of a [rows x ld] bf16 matrix, columns [c0, c0 + 64), into
+// a 128-byte-swizzled shared tile, 16 bytes a thread and step (`tid` of
+// `threads`)
+__device__ __forceinline__ void load_swizzled(unsigned char* dst, const __nv_bfloat16* src,
+                                              int ld, int c0, int tid, int threads) {
+  for (int i = tid; i < kBlock * 8; i += threads) {
+    const int r = i / 8, c = (i % 8) * 8;
+    *reinterpret_cast<uint4*>(dst + swz128(r, c)) =
+        *reinterpret_cast<const uint4*>(src + size_t(r) * ld + c0 + c);
+  }
+}
+
+// the reverse: a swizzled shared tile to rows of a [rows x ld] matrix
+__device__ __forceinline__ void store_swizzled(__nv_bfloat16* dst, const unsigned char* src,
+                                               int ld, int c0, int tid, int threads) {
+  for (int i = tid; i < kBlock * 8; i += threads) {
+    const int r = i / 8, c = (i % 8) * 8;
+    *reinterpret_cast<uint4*>(dst + size_t(r) * ld + c0 + c) =
+        *reinterpret_cast<const uint4*>(src + swz128(r, c));
+  }
+}
+
+// bf16(x + eps * (o0, o1)) of a packed pair x, element by element
+__device__ __forceinline__ uint32_t add_scaled(uint32_t x, float o0, float o1, float eps) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16x2(f.x + o0 * eps, f.y + o1 * eps);
+}
+
+// the accumulators of column blocks 2j and 2j + 1 (rows r0, r0 + 8) as
+// the bf16 A fragment of the j-th 16-wide step
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kBlock / 16][4], const float (&x)[32]) {
+#pragma unroll
+  for (int j = 0; j < kBlock / 16; ++j) {
+    a[j][0] = pack_bf16x2(x[8 * j + 0], x[8 * j + 1]);
+    a[j][1] = pack_bf16x2(x[8 * j + 2], x[8 * j + 3]);
+    a[j][2] = pack_bf16x2(x[8 * j + 4], x[8 * j + 5]);
+    a[j][3] = pack_bf16x2(x[8 * j + 6], x[8 * j + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kWarpgroup)
 fwdpair_kernel(const __nv_bfloat16* __restrict__ x0, const __nv_bfloat16* __restrict__ kv,
                __nv_bfloat16* __restrict__ out, int iters, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // k: [key][d]
-  __nv_bfloat16* vt = ks + kBlock * kLdh;                      // v^T: [d][key]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = warp * 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int wl = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = 16 * wl + g;
 
-  load_tile(ks, kv, 0, kBlock, 1.f);
-  load_tile_transposed(vt, kv + kBlock * kD, 0, kBlock);
+  load_swizzled(smem, kv, kD, 0, threadIdx.x, kWarpgroup);                        // k
+  load_swizzled(smem + kTileBytes, kv + kQTile, kD, 0, threadIdx.x, kWarpgroup);  // v
+  fence_async_smem();
+  const uint32_t k_a = smem_u32(smem), v_a = k_a + kTileBytes;
   const __nv_bfloat16* src = x0 + size_t(blockIdx.x) * kQTile;
   uint32_t qa[kD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    const __nv_bfloat16* p = src + (r0 + g) * kD + kk * 16 + c2;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * kD);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * kD + 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      qa[kk][e] = *reinterpret_cast<const uint32_t*>(
+          src + (r0 + 8 * (e & 1)) * kD + 16 * kk + 8 * (e >> 1) + c2);
   }
   __syncthreads();
 
+  float s[32], o[32];
+  uint32_t pa[kBlock / 16][4];
   for (int it = 0; it < iters; ++it) {
-    float s[kBlock / 8][4], o[kD / 8][4];
-    zero_acc(s);
-    mma_a_bt(s, qa, ks, g, c2);  // s = q k^T
-    zero_acc(o);
-    mma_acc_b(o, s, vt, g, c2);  // o = bf16(s) v
+    // s = q k^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_rs<0>(s, qa[kk], wgmma_desc(k_a + 32 * kk), kk != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    pack_a(pa, s);
+    // o = bf16(s) v
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBlock / 16; ++j)
+      wgmma_m64n64k16_rs<1>(o, pa[j], wgmma_desc(v_a + 2048 * j), j != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
     // o's column blocks 2kk and 2kk + 1 are q's k-step kk
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
-      qa[kk][0] = add_scaled(qa[kk][0], o[2 * kk][0], o[2 * kk][1], eps);
-      qa[kk][1] = add_scaled(qa[kk][1], o[2 * kk][2], o[2 * kk][3], eps);
-      qa[kk][2] = add_scaled(qa[kk][2], o[2 * kk + 1][0], o[2 * kk + 1][1], eps);
-      qa[kk][3] = add_scaled(qa[kk][3], o[2 * kk + 1][2], o[2 * kk + 1][3], eps);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qa[kk][e] = add_scaled(qa[kk][e], o[8 * kk + 2 * e], o[8 * kk + 2 * e + 1], eps);
     }
   }
 
   __nv_bfloat16* dst = out + size_t(blockIdx.x) * kQTile;
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    __nv_bfloat16* p = dst + (r0 + g) * kD + kk * 16 + c2;
-    *reinterpret_cast<uint32_t*>(p) = qa[kk][0];
-    *reinterpret_cast<uint32_t*>(p + 8 * kD) = qa[kk][1];
-    *reinterpret_cast<uint32_t*>(p + 8) = qa[kk][2];
-    *reinterpret_cast<uint32_t*>(p + 8 * kD + 8) = qa[kk][3];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + 8 * (e & 1)) * kD + 16 * kk + 8 * (e >> 1) + c2) =
+          qa[kk][e];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarpgroup)
 bwd5_kernel(const __nv_bfloat16* __restrict__ x0, const __nv_bfloat16* __restrict__ kv,
             __nv_bfloat16* __restrict__ out, int iters, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // q: [q][d]
-  __nv_bfloat16* qt = qs + kBlock * kLdh;                      // q^T: [d][q]
-  __nv_bfloat16* kt = qt + kD * kLdh;                          // k^T: [d][key]
-  __nv_bfloat16* dss = kt + kD * kLdh;                         // ds: [q][key]
-  float* fold_s = reinterpret_cast<float*>(dss + kBlock * kLdh);  // [warp][d]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = warp * 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* q_tile = smem + 2 * kTileBytes;
+  float* fold_s = reinterpret_cast<float*>(smem + 4 * kTileBytes);  // [warp][d]
+  const int wl = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = 16 * wl + g;
 
-  // this warp's keys of k and v as A fragments, through qs / dss (free
-  // until the loop starts); k^T stays for the dq product
-  load_tile_transposed(kt, kv, 0, kBlock, 1.f, qs);
-  load_tile(dss, kv + kBlock * kD, 0, kBlock, 1.f);
+  load_swizzled(smem, kv, kD, 0, threadIdx.x, kWarpgroup);                        // k
+  load_swizzled(smem + kTileBytes, kv + kQTile, kD, 0, threadIdx.x, kWarpgroup);  // v
+  load_swizzled(q_tile, x0 + size_t(blockIdx.x) * kQTile, kD, 0, threadIdx.x, kWarpgroup);
+  fence_async_smem();
   __syncthreads();
-  uint32_t ka[kD / 16][4], va[kD / 16][4];
-  load_a_frags(ka, qs, r0, g, c2);
-  load_a_frags(va, dss, r0, g, c2);
-  __syncthreads();
-  load_tile_transposed(qt, x0 + size_t(blockIdx.x) * kQTile, 0, kBlock, 1.f, qs);
-  __syncthreads();
-  // this warp's 16 q rows (r0 + g, r0 + g + 8) in the accumulator layout
-  uint32_t qown[kD / 8][2];
-#pragma unroll
-  for (int nb = 0; nb < kD / 8; ++nb) {
-    qown[nb][0] = ld32(qs + (r0 + g) * kLdh + nb * 8 + c2);
-    qown[nb][1] = ld32(qs + (r0 + g + 8) * kLdh + nb * 8 + c2);
-  }
+  const uint32_t k_a = smem_u32(smem), v_a = k_a + kTileBytes;
+  const uint32_t q_a = k_a + 2 * kTileBytes, ds_a = k_a + 3 * kTileBytes;
 
+  float s[32], dp[32], dv[32], dk[32];
+  uint32_t pa[kBlock / 16][4], dsa[kBlock / 16][4];
   for (int it = 0; it < iters; ++it) {
-    // s^T = k q^T and dp^T = v do^T (do = q): rows are this warp's keys
-    float s[kBlock / 8][4], ds[kBlock / 8][4];
-    zero_acc(s);
-    mma_a_bt(s, ka, qs, g, c2);
-    zero_acc(ds);
-    mma_a_bt(ds, va, qs, g, c2);
+    // s^T = k q^T and dp^T = v do^T (do = q): rows = keys, columns = queries
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < kBlock / 8; ++nb) {
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss(s, wgmma_desc(k_a + 32 * kk), wgmma_desc(q_a + 32 * kk), kk != 0);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nb][e] += s[nb][e];  // rounded to bf16 where used
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, wgmma_desc(v_a + 32 * kk), wgmma_desc(q_a + 32 * kk), kk != 0);
+    wgmma_commit();
+
+    // dv = bf16(s^T) do: do's 16 query rows of a step are an MN-major B
+    wgmma_wait<1>();
+    fence_regs(s);
+    pack_a(pa, s);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBlock / 16; ++j)
+      wgmma_m64n64k16_rs<1>(dv, pa[j], wgmma_desc(q_a + 2048 * j), j != 0);
+    wgmma_commit();
+
+    // ds^T = bf16(s^T + dp^T) in place of dp^T, as register A and as
+    // [key][query] rows in shared memory; dk = ds^T q
+    wgmma_wait<1>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] += s[i];
+    pack_a(dsa, dp);
+#pragma unroll
+    for (int j = 0; j < kBlock / 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st_shared_u32(ds_a + swz128(r0 + 8 * (e & 1), 16 * j + 8 * (e >> 1) + c2), dsa[j][e]);
     }
-    // dv = bf16(s)^T do, dk = bf16(ds)^T q: [this warp's keys x d]
-    float dv[kD / 8][4], dk[kD / 8][4];
-    zero_acc(dv);
-    mma_acc_b(dv, s, qt, g, c2);
-    zero_acc(dk);
-    mma_acc_b(dk, ds, qt, g, c2);
-    // ds (bf16) to shared memory as [q][key] for the dq product
+    fence_async_smem();
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < kBlock / 8; ++nb) {
+    for (int j = 0; j < kBlock / 16; ++j)
+      wgmma_m64n64k16_rs<1>(dk, dsa[j], wgmma_desc(q_a + 2048 * j), j != 0);
+    wgmma_commit();
+
+    // dq = ds k: rows = queries; A = ds^T read MN-major, B = k read
+    // MN-major, 16 keys a step (into s, which is consumed)
+    __syncthreads();  // every warp's ds^T rows are stored
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = r0 + g + (e >> 1) * 8, c = nb * 8 + c2 + (e & 1);
-        dss[c * kLdh + key] = __float2bfloat16_rn(ds[nb][e]);
-      }
-    }
-    // fold: this warp's column sums of dv + dk (over its 16 keys: rows
-    // g and g + 8 here, then across the 8 values of g)
+    for (int j = 0; j < kBlock / 16; ++j)
+      wgmma_m64n64k16_ss<1, 1>(s, wgmma_desc(ds_a + 2048 * j), wgmma_desc(k_a + 2048 * j),
+                               j != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(s);
+
+    // fold: column sums of dv + dk over the 64 keys (rows r0 and r0 + 8
+    // here, then across the quad's 8 row groups, then across the warps)
 #pragma unroll
     for (int nb = 0; nb < kD / 8; ++nb) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float f = dv[nb][h] + dk[nb][h] + dv[nb][h + 2] + dk[nb][h + 2];
+      for (int e = 0; e < 2; ++e) {
+        float f = dv[4 * nb + e] + dk[4 * nb + e] + dv[4 * nb + 2 + e] + dk[4 * nb + 2 + e];
         f += __shfl_xor_sync(0xffffffffu, f, 4);
         f += __shfl_xor_sync(0xffffffffu, f, 8);
         f += __shfl_xor_sync(0xffffffffu, f, 16);
-        if (g == 0) fold_s[warp * kD + nb * 8 + c2 + h] = f;
+        if (g == 0) fold_s[wl * kD + 8 * nb + c2 + e] = f;
       }
     }
     __syncthreads();
 
-    // dq = ds k for this warp's 16 q rows
-    uint32_t dsa[kBlock / 16][4];
-    load_a_frags(dsa, dss, r0, g, c2);
-    float dq[kD / 8][4];
-    zero_acc(dq);
-    mma_a_bt(dq, dsa, kt, g, c2);
-
-    // q <- bf16(q + eps (dq + fold)), back to shared memory both ways
+    // q <- bf16(q + eps (dq + fold)), in place in shared memory
 #pragma unroll
     for (int nb = 0; nb < kD / 8; ++nb) {
-      const int c = nb * 8 + c2;
+      const int c = 8 * nb + c2;
       float fold[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        fold[h] = fold_s[c + h] + fold_s[kD + c + h] + fold_s[2 * kD + c + h] +
-                  fold_s[3 * kD + c + h];
-      }
+      for (int e = 0; e < 2; ++e)
+        fold[e] = fold_s[c + e] + fold_s[kD + c + e] + fold_s[2 * kD + c + e] +
+                  fold_s[3 * kD + c + e];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + g + 8 * h;
-        qown[nb][h] = add_scaled(qown[nb][h], dq[nb][2 * h] + fold[0],
-                                 dq[nb][2 * h + 1] + fold[1], eps);
-        *reinterpret_cast<uint32_t*>(qs + row * kLdh + c) = qown[nb][h];
-        const __nv_bfloat16* pair = reinterpret_cast<const __nv_bfloat16*>(&qown[nb][h]);
-        qt[c * kLdh + row] = pair[0];
-        qt[(c + 1) * kLdh + row] = pair[1];
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t addr = q_a + swz128(r0 + 8 * hh, c);
+        st_shared_u32(addr, add_scaled(ld_shared_u32(addr), s[4 * nb + 2 * hh] + fold[0],
+                                              s[4 * nb + 2 * hh + 1] + fold[1], eps));
       }
     }
+    fence_async_smem();
     __syncthreads();
   }
 
-  __nv_bfloat16* dst = out + size_t(blockIdx.x) * kQTile;
-#pragma unroll
-  for (int nb = 0; nb < kD / 8; ++nb) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      *reinterpret_cast<uint32_t*>(dst + (r0 + g + 8 * h) * kD + nb * 8 + c2) = qown[nb][h];
-    }
-  }
+  store_swizzled(out + size_t(blockIdx.x) * kQTile, q_tile, kD, 0, threadIdx.x, kWarpgroup);
 }
 
-struct AddScaledEpi {
-  float scale;
-  __device__ __forceinline__ uint32_t operator()(float x0, float x1, uint32_t old) const {
-    return add_scaled(old, x0, x1, scale);
-  }
-};
-
-__global__ void __launch_bounds__(kChainThreads, 1)
+__global__ void __launch_bounds__(2 * kWarpgroup, 1)
 big_kernel(const __nv_bfloat16* __restrict__ x0, const __nv_bfloat16* __restrict__ w,
            __nv_bfloat16* __restrict__ out, int iters, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = warp * 16;
-  load_w_transposed(wt, w);
-  uint32_t a[kChainW / 16][4];
-  load_a256(a, x0 + size_t(blockIdx.x) * kChainRows * kChainW, r0, g, c2);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int wg = threadIdx.x / kWarpgroup, tid = threadIdx.x % kWarpgroup;
+  const int wl = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c2 = 2 * (lane & 3), r0 = 16 * wl + g;
+  unsigned char* a_tile = smem + 4 * kWSlice + wg * 4 * kASlice;  // this warpgroup's rows
+
+  // W [256 x 256] (row-major: k, n) as W^T: K slice k / 64, row n
+  for (int i = threadIdx.x; i < kBigW * kBigW; i += blockDim.x) {
+    const int k = i / kBigW, n = i % kBigW;
+    *reinterpret_cast<__nv_bfloat16*>(smem + (k / 64) * kWSlice + swz128(n, k % 64)) = w[i];
+  }
+  const __nv_bfloat16* src = x0 + (size_t(blockIdx.x) * kBigRows + wg * 64) * kBigW;
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl)
+    load_swizzled(a_tile + sl * kASlice, src, kBigW, 64 * sl, tid, kWarpgroup);
+  fence_async_smem();
   __syncthreads();
-  const AddScaledEpi epi{scale};
-  for (int it = 0; it < iters; ++it) chain_step(a, wt, g, c2, epi, Nothing{});
-  store_a256(out + size_t(blockIdx.x) * kChainRows * kChainW, a, r0, g, c2);
+  const uint32_t w_a = smem_u32(smem), a_a = smem_u32(a_tile);
+
+  float acc[128];
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBigW / 16; ++kk)
+      wgmma_m64n256k16_ss(acc, wgmma_desc(a_a + (kk / 4) * kASlice + 32 * (kk % 4)),
+                          wgmma_desc(w_a + (kk / 4) * kWSlice + 32 * (kk % 4)), kk != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // a <- bf16(a + scale (a W)) on this thread's entries: rows r0 and
+    // r0 + 8, columns 8 nb + c2 and + 1 (K slice nb / 8)
+#pragma unroll
+    for (int nb = 0; nb < kBigW / 8; ++nb) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t addr = a_a + (nb / 8) * kASlice + swz128(r0 + 8 * hh, 8 * (nb % 8) + c2);
+        st_shared_u32(addr, add_scaled(ld_shared_u32(addr), acc[4 * nb + 2 * hh],
+                                              acc[4 * nb + 2 * hh + 1], scale));
+      }
+    }
+    fence_async_smem();
+    named_barrier(1 + wg, kWarpgroup);  // this warpgroup's rows are rewritten
+  }
+
+  __nv_bfloat16* dst = out + (size_t(blockIdx.x) * kBigRows + wg * 64) * kBigW;
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl)
+    store_swizzled(dst, a_tile + sl * kASlice, kBigW, 64 * sl, tid, kWarpgroup);
 }
 
 template <int kMode>
@@ -290,9 +399,9 @@ struct Launch {
 
 Launch launch_of(int mode) {
   switch (mode) {
-    case kFwdpair: return {reinterpret_cast<const void*>(fwdpair_kernel), kThreads, kFwdpairSmem};
-    case kBwd5: return {reinterpret_cast<const void*>(bwd5_kernel), kThreads, kBwd5Smem};
-    case kBig: return {reinterpret_cast<const void*>(big_kernel), kChainThreads, kWBytes};
+    case kFwdpair: return {reinterpret_cast<const void*>(fwdpair_kernel), kWarpgroup, kFwdpairSmem};
+    case kBwd5: return {reinterpret_cast<const void*>(bwd5_kernel), kWarpgroup, kBwd5Smem};
+    case kBig: return {reinterpret_cast<const void*>(big_kernel), 2 * kWarpgroup, kBigSmem};
     case kVpu: return {reinterpret_cast<const void*>(sweep_kernel<kVpu>), kSweepThreads, 0};
     case kExp: return {reinterpret_cast<const void*>(sweep_kernel<kExp>), kSweepThreads, 0};
     default: return {nullptr, 0, 0};

@@ -12,8 +12,8 @@ Semantics (shared by the kernels and the plain versions
 
 - ``attn_mask`` [Tq, Tk] bool, True = blocked, STATIC (numpy, shared by
   batch and heads): it becomes a CSR tile schedule at ``BLOCK`` = 64,
-  q-major for dq, over pairs of q tiles for the forward
-  (:func:`pair_schedule`), over pairs of kv tiles for dk and dv
+  over pairs of q tiles for the forward and K3a's dq
+  (:func:`pair_schedule`), over pairs of kv tiles for K2 and K3b
   (:func:`kv_pair_schedule`);
 - ``key_padding_mask`` [B, Tk] bool, True = padded key, dynamic;
 - scale folded into q in the input dtype, fp32 scores and softmax
@@ -168,9 +168,10 @@ def kv_pair_schedule(
 
 
 def kv_pair_order(pair_ptr: np.ndarray) -> np.ndarray:
-    """The order in which K2 / K3b start their pairs of kv tiles: longest
-    walk first (ties in pair order), int32; from
-    :func:`kv_pair_schedule`'s ``pair_ptr``."""
+    """The order in which a pair walk's blocks start: longest walk first
+    (ties in pair order), int32; from the ``pair_ptr`` of
+    :func:`kv_pair_schedule` (K2, K3b) or of :func:`pair_schedule`
+    (K3a)."""
     return np.argsort(-np.diff(pair_ptr), kind="stable").astype(np.int32)
 
 
@@ -311,24 +312,21 @@ def flash_attention_bwd_reference(
 
 
 def _schedule_on(mask: np.ndarray, device: torch.device) -> dict:
-    """The mask's schedules and its uint8 copy on ``device``, built and
-    uploaded once per static mask (kept alive with the entry, so its id
-    cannot be reused while cached): ``{"tile": tile_schedule (K3a),
-    "mask": the mask as uint8 (K3a), "pair": pair_schedule (K1),
-    "kv_pair": kv_pair_schedule and kv_pair_order (K2, K3b)}``, each
-    schedule a tuple of tensors."""
+    """The mask's schedules on ``device``, built and uploaded once per
+    static mask (kept alive with the entry, so its id cannot be reused
+    while cached): ``{"pair": pair_schedule and its kv_pair_order (K1,
+    K3a), "kv_pair": kv_pair_schedule and its kv_pair_order (K2, K3b)}``,
+    each a tuple of five tensors in the kernels' argument order."""
     key = (id(mask), str(device))
     hit = _SCHED_CACHE.get(key)
     if hit is None or hit[0] is not mask:
-        def up(arrays):
+        def up(schedule):
+            arrays = (*schedule, kv_pair_order(schedule[0]))
             return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
-        kv_pair = kv_pair_schedule(mask)
         hit = (mask, {
-            "tile": up(tile_schedule(mask)),
-            "mask": up([np.ascontiguousarray(mask, dtype=np.uint8)])[0],
             "pair": up(pair_schedule(mask)),
-            "kv_pair": up((*kv_pair, kv_pair_order(kv_pair[0]))),
+            "kv_pair": up(kv_pair_schedule(mask)),
         })
         _SCHED_CACHE[key] = hit
     return hit[1]
@@ -394,7 +392,7 @@ def _q_operand(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
 def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
     attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
     b, h, t, _ = q.shape
-    pair_ptr, pair_kv, pair_flags, pair_bits = _schedule_on(attn_mask, q.device)["pair"]
+    pair_ptr, pair_kv, pair_flags, pair_bits, _ = _schedule_on(attn_mask, q.device)["pair"]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
@@ -465,23 +463,23 @@ def flash_bwd(q, k, v, do, lse, delta, attn_mask, key_padding_mask, scale,
 
 def flash_bwd_dq(q, k, v, do, lse, delta, attn_mask, key_padding_mask,
                  scale, dq) -> None:
-    """Launch K3a: dq (bf16) written.  CUDA tensors only."""
+    """Launch K3a: dq (bf16) written, walking :func:`pair_schedule`
+    longest walk first.  CUDA tensors only."""
     sched, pad = _bwd_common(
         q, k, v, do, lse, delta, attn_mask, key_padding_mask
     )
     b, h, t, d = q.shape
     _check_cuda(dq, "dq", (b, h, t, d), torch.bfloat16)
-    row_ptr, col_idx, full = sched["tile"]
     fn = _build.function(
         "flash_bwd_dq",
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
         + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), sched["mask"].data_ptr(), _ptr(pad),
-        row_ptr.data_ptr(), col_idx.data_ptr(), full.data_ptr(),
-        dq.data_ptr(), b * h, h, t, len(row_ptr) - 1,
+        lse.data_ptr(), delta.data_ptr(), _ptr(pad),
+        *(x.data_ptr() for x in sched["pair"]),
+        dq.data_ptr(), b * h, h, t, len(sched["pair"][0]) - 1,
         _scale_q(scale, q.dtype), float(scale), _stream(q),
     )
     _build.check("flash_bwd_dq", err)

@@ -404,9 +404,10 @@ def measure_rates(min_ms: float = 20.0) -> dict:
     loop):
 
     - ``mxu_shape_rates["fwdpair:64x64x64"]`` and ``["bwd5:64x64x64"]``:
-      K1's and K2's tile dataflows (``mma.sync`` m16n8k16, 64-deep
-      products, 16 rows a warp);
-    - ``mxu_big_flops_s``: the 256-deep chained product;
+      K1's and K2's tile dataflows (wgmma m64n64k16, 64-deep products,
+      64 rows a warpgroup);
+    - ``mxu_big_flops_s``: the 256-deep chained product (wgmma
+      m64n256k16);
     - ``vpu_elems_s``: fp32 ``x - c x x`` (3 operations an element);
     - ``exp_elems_s``: fp32 exp;
     - ``hbm_bytes_s``: an in-place add over 256 MB of fp32, read + write.

@@ -22,8 +22,13 @@ bf16.  The entry point runs on ``cuda`` and raises without one; pass
 Data: ``--synthetic N`` trains on N TCGA-shaped rows from
 :func:`mca_tpu_torch.data.synthetic.make_tcga_like` (p_missing 0.25),
 cycled in batches of ``batch_size``.  The HF on-disk dataset loader,
-checkpointing / ``--restart``, the eval loop and gradient accumulation
-are not ported yet.
+checkpointing / ``--restart``, the eval loop, gradient accumulation
+(``grad_accum``) and half-width moments (``moment_dtype: bf16``) are not
+ported yet: a config that asks for the last two is refused.
+
+``halt_on_nan`` (default true) stops :func:`train` with
+:class:`DivergenceError` at the first step whose ``total_loss`` or
+``grad_norm`` is not finite, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,6 +47,50 @@ from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.synthetic import make_tcga_like
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
 from mca_tpu_torch.models import MCA, build_model
+
+
+class DivergenceError(RuntimeError):
+    """Raised by the ``halt_on_nan`` guard when ``total_loss`` or
+    ``grad_norm`` goes non-finite (``mca_tpu.train.DivergenceError``):
+    from that step on every gradient and parameter is NaN.  The JAX
+    package also saves the diverged state for inspection; that waits for
+    the port of checkpointing."""
+
+
+def check_training_keys(config) -> None:
+    """Refuse the training keys the port does not honour yet, rather
+    than train something other than the config asks for: ``grad_accum``
+    other than 1 (the JAX package takes microbatch-local losses) and
+    ``moment_dtype: bf16`` raise ``NotImplementedError``; a
+    ``moment_dtype`` other than fp32 or bf16 raises ``ValueError``, as
+    the JAX package does."""
+    grad_accum = int(config.get("grad_accum", 1) or 1)
+    if grad_accum != 1:
+        raise NotImplementedError(
+            f"grad_accum: {grad_accum}: gradient accumulation over "
+            "microbatch-local losses is not ported yet"
+        )
+    moment_dtype = str(config.get("moment_dtype", "fp32"))
+    if moment_dtype == "bf16":
+        raise NotImplementedError(
+            "moment_dtype: bf16: half-width AdamW moments are not ported yet"
+        )
+    if moment_dtype != "fp32":
+        raise ValueError(f"moment_dtype must be fp32 or bf16, got {moment_dtype!r}")
+
+
+def check_finite(metrics: Mapping[str, float], step: int) -> None:
+    """The ``halt_on_nan`` guard: raises :class:`DivergenceError` when
+    ``total_loss`` or ``grad_norm`` is not finite.  ``grad_norm`` is the
+    signal to trust: once the parameters are NaN the NaN-safe pair
+    averaging reports a total_loss of 0.0."""
+    for name in ("total_loss", "grad_norm"):
+        val = float(metrics[name])
+        if not math.isfinite(val):
+            raise DivergenceError(
+                f"{name} is {val} at step {step} — diverged "
+                "(halt_on_nan: false to disable this guard)"
+            )
 
 
 def hf_lr_factor(
@@ -194,7 +243,9 @@ def build_trainer(
 ):
     """``(model, optimizer, schedule)`` on ``device``: the model built
     for training (unfused feed-forward) with random weights from
-    ``seed``, or ``params`` (a state dict under the port's names)."""
+    ``seed``, or ``params`` (a state dict under the port's names).
+    Refuses the keys :func:`check_training_keys` names."""
+    check_training_keys(config)
     dev = require_device(device)
     model = build_model(get_model_config(config), fused_ff=False)
     if params is None:
@@ -246,7 +297,12 @@ def train(
     log: Optional[Callable[[Dict[str, float]], None]] = None,
 ) -> List[Dict[str, float]]:
     """Train on ``rows`` for ``steps`` steps (default: ``epochs`` passes
-    over the rows); ``log`` gets each step's metrics.  Returns them."""
+    over the rows); ``log`` gets each step's metrics.  Returns them.
+
+    With ``halt_on_nan`` (the default) a step whose ``total_loss`` or
+    ``grad_norm`` is not finite is logged, then :class:`DivergenceError`
+    is raised.  The metrics are floats already (one ``.tolist()`` a
+    step), so the guard adds no device sync."""
     dev = require_device(device)
     if rows is None:
         raise NotImplementedError(
@@ -260,6 +316,7 @@ def train(
     model, optimizer, schedule = build_trainer(
         config, device, num_training_steps=steps, seed=seed
     )
+    halt_on_nan = bool(config.get("halt_on_nan", True))
     history = []
     data = batches(config, rows, dev)
     for step in range(steps):
@@ -270,6 +327,8 @@ def train(
         history.append(metrics)
         if log is not None:
             log(metrics)
+        if halt_on_nan:
+            check_finite(metrics, step)
     return history
 
 

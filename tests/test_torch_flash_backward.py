@@ -155,6 +155,47 @@ def test_kv_kernels_q_operand_keeps_the_tpu_scale_rule(scale):
     assert torch.equal(q_in.float() * scale_s, q_s.float())
 
 
+def test_dq_kernel_walks_the_pair_schedule_longest_first(monkeypatch):
+    """K3a's wrapper hands the kernel K1's walk (pair_schedule) and its
+    longest-first order, in the C entry point's argument order.  The
+    kernel itself runs only on the card; here the launch is recorded."""
+    mask = jax_masks.build_masks([800, 198, 800, 662], 88, [4, 3, 2], fcl=True).attn_mask
+    b, h, t = 2, 2, mask.shape[0]
+    q, k, v, do, dq = (torch.zeros((b, h, t, 64), dtype=torch.bfloat16) for _ in range(5))
+    lse, delta = torch.zeros((b, h, t)), torch.zeros((b, h, t))
+    pad = torch.zeros((b, t), dtype=torch.bool)
+    calls = []
+
+    def function(name, argtypes):
+        return lambda *args: calls.append((name, argtypes, args)) or 0
+
+    monkeypatch.setattr(port_flash, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(port_flash, "_stream", lambda x: 0)
+    monkeypatch.setattr(port_flash._build, "function", function)
+    before = port_flash.bwd_launches["flash_bwd_dq"]
+    port_flash.flash_bwd_dq(q, k, v, do, lse, delta, mask, pad, 0.125, dq)
+    assert port_flash.bwd_launches["flash_bwd_dq"] == before + 1
+    (name, argtypes, args), = calls
+    assert name == "flash_bwd_dq" and len(argtypes) == len(args) == 20
+
+    sched = port_flash._schedule_on(mask, torch.device("cpu"))
+    assert set(sched) == {"pair", "kv_pair"}
+    pair = port_flash.pair_schedule(mask)
+    order = port_flash.kv_pair_order(pair[0])
+    for got, want in zip(sched["pair"], (*pair, order)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    walks = np.diff(pair[0])[order]
+    assert (np.diff(walks) <= 0).all() and walks[0] > walks[-1]  # longest first
+    assert len(pair[1]) == 303  # the TCGA_config1 walk: 303 items
+
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, pad)]
+    assert list(args[:7]) == ptrs
+    assert list(args[7:12]) == [x.data_ptr() for x in sched["pair"]]
+    assert args[12] == dq.data_ptr()
+    assert args[13:17] == (b * h, h, t, len(pair[0]) - 1)
+    assert args[17:19] == (0.125, 0.125)  # bf16(scale) for q, the scale for dq
+
+
 @pytest.mark.parametrize(
     "name,kind",
     [
@@ -168,8 +209,10 @@ def test_kv_kernels_q_operand_keeps_the_tpu_scale_rule(scale):
          "float const*, unsigned char const*, int const*, int const*, int const*, "
          "unsigned long const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, float)",
          "flash_bwd_dkv (K3b)"),
-        ("void (anonymous namespace)::flash_bwd_dq_kernel(__nv_bfloat16 const*, "
-         "__nv_bfloat16 const*, float const*, int, int, float, float)",
+        ("void (anonymous namespace)::flash_bwd_dq_kernel(CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, float const*, float const*, unsigned char const*, "
+         "int const*, int const*, int const*, unsigned long const*, int const*, "
+         "__nv_bfloat16*, int, int, float, float)",
          "flash_bwd_dq (K3a)"),
         ("void (anonymous namespace)::flash_fwd_kernel(CUtensorMap_st, CUtensorMap_st, "
          "CUtensorMap_st, unsigned char const*, int const*, int const*, int const*, "
