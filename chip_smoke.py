@@ -13,7 +13,9 @@ Phases (each asserted; any failure exits non-zero):
    HGMMA (wgmma) and UTMALDG (TMA) and no HMMA (mma.sync), with no spills
    and no serialisation, and UTMAREDG (TMA reduce-add) in K2 alone; K6's
    fwdpair, bwd5 and big kernels must hold HGMMA and no HMMA, its vpu and
-   exp sweeps neither.
+   exp sweeps neither; K7's mxu and both kernels must hold HGMMA and no
+   HMMA, its vpu kernel neither, its both and vpu kernels MUFU.EX2 and
+   its mxu kernel none, with no spills and no serialisation.
 2. K1, the flash-attention forward, against its plain version at
    TCGA_config1 shapes (B 8, H 8, T 2548, D 64, bf16, the real MCA
    mask, ragged key padding and a missing modality): live rows within
@@ -57,19 +59,22 @@ Phases (each asserted; any failure exits non-zero):
    and the first step's loss, whole gradient and attention-projection
    gradients agree with fp32 on the CPU.  Prints the host, the ms of
    each step and training tokens/s.
-7. the measurement slice: K6 (roofline counter), K7 (overlap probe) and
-   K8 (its control) against their plain versions, mode by mode, every
+7. the measurement slice: K6 (roofline counter), K7 (overlap probe, on
+   wgmma, its exp steps between the issues of its products) and K8 (its
+   control) against their plain versions, mode by mode, every
    block's output after a few iterations from seeded inputs under which
    every product moves the chain, within bf16 tolerance (fp32 for the
    fp32 chains); planted faults must fail that check: each mode's plain
    chain one iteration (K7: one step of each chain, K8: one step) short,
    and the plain ``bwd5`` without dq, dv or dk.  Times of each mode,
-   kernel and plain, and its bound.  Then the tools' main path, with the
-   launch counts at 0 just before it: ``tools.roofline.measure_rates``'s
-   short pass (every rate above 0 and within 105% of its published
-   ceiling, each with the SM clock) and ``tools.probe_overlap.run`` at a
-   short length (both verdicts printed; the control must read
-   OVERLAPS, or the instrument cannot see overlap).
+   kernel and plain (K7's short launches queued behind a spin kernel, so
+   that the device alone is timed), and its bound.  Then the tools' main
+   path, with the launch counts at 0 just before it:
+   ``tools.roofline.measure_rates``'s short pass (every rate above 0 and
+   within 105% of its published ceiling, each with the SM clock) and
+   ``tools.probe_overlap.run`` at a short length (both verdicts printed;
+   the control must read OVERLAPS, or the instrument cannot see
+   overlap).
 8. one ``{"kernels": [...]}`` line (eight kernels), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -207,17 +212,25 @@ CHECK_ITERS = 4
 PROBE_RTOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
 TIMED_ITERS = 256  # iterations of each K6 mode in its timed launch
 TIMED_PROBE_ITERS = 8
+TIMED_PROBE_LAUNCHES = 10
+QUEUE_CYCLES = 20_000_000  # about 10 ms at 1980 MHz, to enqueue the timed launches
 TIMED_CTL_STEPS = 64
 CTL_DOTS = 1
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean milliseconds of ``fn`` on the current stream (CUDA events).
+    ``queued``: a spin kernel holds the stream while the launches are
+    enqueued, so that launches shorter than the host's work to enqueue
+    them (K7's 8-iteration launches, 25-40 us) run back to back and
+    the events time the device alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1032,14 +1045,16 @@ def check_counter(device) -> dict:
 def check_probe(device) -> dict:
     """K7, each mode: the check after one iteration from the tool's
     seeded a and W and a b far from the exp chain's fixed point, the
-    planted faults (each chain one step short), and one launch of
-    TIMED_PROBE_ITERS iterations."""
+    planted faults (each chain one step short), and the mean of
+    TIMED_PROBE_LAUNCHES queued launches of TIMED_PROBE_ITERS
+    iterations."""
     n = probes.probe_blocks()
     t = overlap_tool.probe_inputs(n, device, seed=3, n_chunks=1)
     a, w = t["a"], t["w"]
     # b <- exp(-|b|) + 1e-3 contracts by about 0.57 a step towards 0.568;
-    # from |b| in [3, 6] its 16th step is still ~1e-4 from its 15th,
-    # far above FP32_RTOL, so one iteration's output shows its step count
+    # from |b| in [3, 6] every step up to the 21st is still outside the
+    # fp32 tolerance of the one before, so one iteration's output (EXP_CALLS
+    # steps) shows its step count
     rng = np.random.default_rng(3)
     mag = rng.uniform(3.0, 6.0, (n, *probes.EXP_SHAPE)) * rng.choice([-1.0, 1.0], (n, *probes.EXP_SHAPE))
     b = torch.from_numpy(mag).float().to(device)
@@ -1059,7 +1074,8 @@ def check_probe(device) -> dict:
         if mode != "mxu":
             faults["exp chain one step short"] = (kb, b_short)
         note = planted(faults)
-        ms[mode] = cuda_ms(lambda: probes.probe_overlap(mode, a, w, b, TIMED_PROBE_ITERS), 3)
+        ms[mode] = cuda_ms(lambda: probes.probe_overlap(mode, a, w, b, TIMED_PROBE_ITERS),
+                           TIMED_PROBE_LAUNCHES, queued=True)
         plain_ms[mode] = cuda_ms(
             lambda: probes.probe_reference(mode, a, w, b, TIMED_PROBE_ITERS), 1, 0
         )
@@ -1194,6 +1210,46 @@ def check_hopper_sass(reports: dict, names=("flash_fwd", "geglu_ff", "flash_bwd"
         check_ptxas(name, reports[name])
 
 
+# K7's three kernels by their template arguments (kDoMxu, kDoExp), as
+# they appear in the mangled names cuobjdump prints
+PROBE_KERNELS = {"ILb1ELb0E": "mxu", "ILb0ELb1E": "vpu", "ILb1ELb1E": "both"}
+
+
+def probe_sass_faults(counts: dict) -> list:
+    """What is wrong with K7's SASS, from ``sass_counts.count`` of its
+    library: ``mxu`` and ``both`` must hold HGMMA (wgmma) and ``vpu``
+    none; none may hold HMMA (mma.sync); ``vpu`` and ``both`` must hold
+    MUFU.EX2 and ``mxu`` none; each mode once.  Empty when all hold."""
+    faults, seen = [], []
+    for fn, c in counts.items():
+        mode = next((m for tag, m in PROBE_KERNELS.items()
+                     if f"probe_overlap_kernel{tag}" in fn), None)
+        if mode is None:
+            faults.append(f"{fn}: not one of K7's kernels")
+            continue
+        seen.append(mode)
+        if c["HMMA"]:
+            faults.append(f"{mode}: {c['HMMA']} HMMA (mma.sync)")
+        if (c["HGMMA"] > 0) != (mode != "vpu"):
+            faults.append(f"{mode}: {c['HGMMA']} HGMMA")
+        if (c["MUFU.EX2"] > 0) != (mode != "mxu"):
+            faults.append(f"{mode}: {c['MUFU.EX2']} MUFU.EX2")
+    if sorted(seen) != sorted(probes.PROBE_MODES):
+        faults.append(f"K7 kernels found: {seen}")
+    return faults
+
+
+def check_probe_sass(report: str) -> None:
+    """K7 is the wgmma design (:func:`probe_sass_faults`), with no spills
+    and no wgmma serialisation."""
+    counts = sass_of("probe_overlap")
+    for fn, c in counts.items():
+        print_sass("probe_overlap", fn, c)
+    faults = probe_sass_faults(counts)
+    assert not faults, faults
+    check_ptxas("probe_overlap", report)
+
+
 def check_counter_sass(report: str) -> None:
     """K6's tensor-core modes (fwdpair, bwd5, big) hold HGMMA (wgmma) and
     no HMMA (mma.sync); its vpu and exp sweeps hold neither; no spills
@@ -1234,6 +1290,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     check_hopper_sass(reports)
     check_counter_sass(reports["roofline_counter"])
+    check_probe_sass(reports["probe_overlap"])
 
     device = torch.device("cuda")
     kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]

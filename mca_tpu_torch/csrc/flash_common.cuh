@@ -1,5 +1,5 @@
-// The mma.sync building blocks of the overlap probe (K7 and K8, through
-// mma_chain.cuh): m16n8k16 products on register fragments.  The tile
+// The mma.sync building blocks of the overlap probe's control (K8,
+// through mma_chain.cuh): m16n8k16 products on register fragments.  The tile
 // geometry and constants come from flash_tile.cuh.
 
 #pragma once

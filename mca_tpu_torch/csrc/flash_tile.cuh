@@ -3,8 +3,8 @@
 // sit in the 4 lanes of a quad, in mma.sync's m16n8 layout and in each
 // warp's slice of a wgmma accumulator alike).  Shared by the flash
 // kernels (K1 flash_fwd.cu, K3a flash_bwd_dq.cu, K2 / K3b
-// flash_bwd_kv.cuh), the roofline counter (K6) and, through
-// flash_common.cuh, the overlap probe (K7, K8).
+// flash_bwd_kv.cuh), the roofline counter (K6), the overlap probe (K7)
+// and, through flash_common.cuh, its control (K8).
 
 #pragma once
 

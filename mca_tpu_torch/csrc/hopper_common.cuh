@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (K1 in
 // flash_fwd.cu, K3a in flash_bwd_dq.cu, K5 in geglu_ff.cu, K2 / K3b in
-// flash_bwd_kv.cuh, K6 in roofline_counter.cu), written from the PTX ISA:
+// flash_bwd_kv.cuh, K6 in roofline_counter.cu, K7 in probe_overlap.cu),
+// written from the PTX ISA:
 //
 // - TMA tensor maps, encoded on the host inside each C entry point.
 //   cuTensorMapEncodeTiled lives in libcuda; it is fetched through
@@ -26,11 +27,12 @@
 // - setmaxnreg, to move registers from the producer warpgroup to the
 //   consumers.
 // - small helpers shared by the kernels: 32-bit shared loads and stores,
-//   bf16 packing and scaling, the MUFU's 2^x, and the occupancy query
-//   the measurement kernels size their grids with.
+//   16-byte copies between rows of a matrix and a swizzled tile, bf16
+//   packing and scaling, the MUFU's 2^x, and the occupancy query the
+//   measurement kernels size their grids with.
 //
 // flash_common.cuh holds the mma.sync building blocks of the overlap
-// probe (K7, K8).
+// probe's control (K8), the one kernel left on mma.sync.
 
 #pragma once
 
@@ -240,6 +242,35 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
 __device__ __forceinline__ uint32_t swz128_f32(int row, int col) {
   return uint32_t(row) * 128u + ((uint32_t(col >> 2) ^ uint32_t(row & 7)) << 4) +
          uint32_t(col & 3) * 4u;
+}
+
+// the dynamic shared memory's first 1024-byte boundary (where a swizzled
+// tile must start); the kernel asks for 1024 bytes of slack
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// rows [0, 64) of a [rows x ld] bf16 matrix, columns [c0, c0 + 64), into
+// a 128-byte-swizzled shared tile, 16 bytes a thread and step (`tid` of
+// `threads`)
+__device__ __forceinline__ void load_swizzled(unsigned char* dst, const __nv_bfloat16* src,
+                                              int ld, int c0, int tid, int threads) {
+  for (int i = tid; i < 64 * 8; i += threads) {
+    const int r = i / 8, c = (i % 8) * 8;
+    *reinterpret_cast<uint4*>(dst + swz128(r, c)) =
+        *reinterpret_cast<const uint4*>(src + size_t(r) * ld + c0 + c);
+  }
+}
+
+// the reverse: a swizzled shared tile to rows of a [rows x ld] matrix
+__device__ __forceinline__ void store_swizzled(__nv_bfloat16* dst, const unsigned char* src,
+                                               int ld, int c0, int tid, int threads) {
+  for (int i = tid; i < 64 * 8; i += threads) {
+    const int r = i / 8, c = (i % 8) * 8;
+    *reinterpret_cast<uint4*>(dst + size_t(r) * ld + c0 + c) =
+        *reinterpret_cast<const uint4*>(src + swz128(r, c));
+  }
 }
 
 // 2^x on the MUFU (one MUFU.EX2, denormals flushed)

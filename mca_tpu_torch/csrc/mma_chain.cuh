@@ -1,5 +1,6 @@
-// The chained 256-wide mma.sync product of the overlap probe's matrix
-// chain (probe_overlap.cu) and its control (probe_overlap_ctl.cu).
+// The chained 256-wide mma.sync product of the overlap probe's control
+// (K8, probe_overlap_ctl.cu), the one kernel of the port still on
+// mma.sync.  The probe itself (K7, probe_overlap.cu) issues wgmma.
 //
 // A block of kChainWarps warps holds a [kChainRows x 256] bf16 operand
 // `a`, 16 rows per warp, as mma.sync A fragments in registers, and W
@@ -9,9 +10,7 @@
 // chunks of 64, each 16 k-steps of 8 m16n8k16 products (512 HMMA per
 // warp and step), the chunk's fp32 accumulators turned into the new A
 // fragments of the same 64 columns (an output column block of 16 is
-// exactly the A fragment of that k-step).  `between` runs after every
-// fourth k-step (16 times a step): the overlap probe puts its exp chain
-// there, in the same instruction stream.
+// exactly the A fragment of that k-step).
 //
 // Why 256: W^T takes 135,168 bytes of shared memory, and a warp's 16 x
 // 256 operand, its 16 x 256 successor and one chunk's accumulators take
@@ -72,9 +71,9 @@ __device__ __forceinline__ void store_a256(__nv_bfloat16* dst, const uint32_t (&
 
 // a <- epi(a W, a).  epi(x_lo, x_hi, old) takes two fp32 entries of
 // a W and the packed pair of a they replace, and returns the new pair.
-template <class Epi, class Between>
+template <class Epi>
 __device__ __forceinline__ void chain_step(uint32_t (&a)[kChainW / 16][4], const __nv_bfloat16* wt,
-                                           int g, int c2, Epi epi, Between between) {
+                                           int g, int c2, Epi epi) {
   uint32_t an[kChainW / 16][4];
 #pragma unroll
   for (int ch = 0; ch < kChainW / 64; ++ch) {
@@ -87,7 +86,6 @@ __device__ __forceinline__ void chain_step(uint32_t (&a)[kChainW / 16][4], const
         const __nv_bfloat16* p = wt + (ch * 64 + nb * 8 + g) * kLdw + kk * 16 + c2;
         mma16816(acc[nb], a[kk][0], a[kk][1], a[kk][2], a[kk][3], ld32(p), ld32(p + 8));
       }
-      if ((kk & 3) == 3) between();
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -110,10 +108,6 @@ struct DecayEpi {
   __device__ __forceinline__ uint32_t operator()(float x0, float x1, uint32_t) const {
     return pack_bf16(0.999f * x0, 0.999f * x1);
   }
-};
-
-struct Nothing {
-  __device__ __forceinline__ void operator()() const {}
 };
 
 }  // namespace

@@ -24,7 +24,8 @@
 //             copies are issued.  If the copies run under the dots,
 //             ctl_both takes about max(ctl_dma, ctl_mxu) per step.
 //
-// 512 HMMA per warp and dot (cuobjdump -sass), as in probe_overlap.cu.
+// 512 HMMA per warp and dot (cuobjdump -sass).  The probe (K7) now
+// issues wgmma; this control stays on mma.sync (mma_chain.cuh).
 //
 // Bound: per step a block moves 88 KB (44 KB in, 44 KB out), 11.9 MB
 // for 132 blocks, 3.5 us at 3.35 TB/s; a dot is 16.8 MFLOP a block.
@@ -110,7 +111,7 @@ probe_ctl_kernel(const float* __restrict__ x, float* __restrict__ y, int n_chunk
     __syncthreads();
     if (kFresh && tid == 0) bulk_store(y + chunk(i), cur);
     if (kDots) {
-      for (int d = 0; d < dots; ++d) chain_step(a, wt, g, c2, DecayEpi{}, Nothing{});
+      for (int d = 0; d < dots; ++d) chain_step(a, wt, g, c2, DecayEpi{});
     }
   }
   if (!kFresh && tid == 0 && steps > 0) bulk_store(y + chunk(0), xb);

@@ -92,33 +92,6 @@ constexpr size_t kFwdpairSmem = 2 * kTileBytes + 1024;                 // k, v
 constexpr size_t kBwd5Smem = 4 * kTileBytes + 4 * kD * 4 + 1024;      // k, v, q, ds^T, fold
 constexpr size_t kBigSmem = 4 * kWSlice + 2 * 4 * kASlice + 1024;     // W^T, a
 
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-// rows [0, 64) of a [rows x ld] bf16 matrix, columns [c0, c0 + 64), into
-// a 128-byte-swizzled shared tile, 16 bytes a thread and step (`tid` of
-// `threads`)
-__device__ __forceinline__ void load_swizzled(unsigned char* dst, const __nv_bfloat16* src,
-                                              int ld, int c0, int tid, int threads) {
-  for (int i = tid; i < kBlock * 8; i += threads) {
-    const int r = i / 8, c = (i % 8) * 8;
-    *reinterpret_cast<uint4*>(dst + swz128(r, c)) =
-        *reinterpret_cast<const uint4*>(src + size_t(r) * ld + c0 + c);
-  }
-}
-
-// the reverse: a swizzled shared tile to rows of a [rows x ld] matrix
-__device__ __forceinline__ void store_swizzled(__nv_bfloat16* dst, const unsigned char* src,
-                                               int ld, int c0, int tid, int threads) {
-  for (int i = tid; i < kBlock * 8; i += threads) {
-    const int r = i / 8, c = (i % 8) * 8;
-    *reinterpret_cast<uint4*>(dst + size_t(r) * ld + c0 + c) =
-        *reinterpret_cast<const uint4*>(src + swz128(r, c));
-  }
-}
-
 // bf16(x + eps * (o0, o1)) of a packed pair x, element by element
 __device__ __forceinline__ uint32_t add_scaled(uint32_t x, float o0, float o1, float eps) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));

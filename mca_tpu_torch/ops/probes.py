@@ -44,7 +44,7 @@ CTL_MODES = ("ctl_dma", "ctl_mxu", "ctl_both")
 TILE = 64  # fwdpair / bwd5: a [64 x 64] bf16 q tile a block, k and v [64 x 64]
 CHAIN_W = 256  # the chained product: a [128 x 256] bf16 a block, W [256 x 256]
 CHAIN_ROWS = 128
-EXP_CALLS = 16  # K7: exp steps per iteration (one after every fourth k-step)
+EXP_CALLS = 9  # K7: exp steps per iteration (csrc/probe_overlap.cu's kExpCalls)
 SWEEP_SHAPE = (64, 64)  # vpu / exp of K6: 4096 fp32 a block
 EXP_SHAPE = (32, 256)  # K7's exp tile: 8192 fp32 a block
 CHUNK_SHAPE = (11, 1024)  # K8's streamed chunk: 44 KB of fp32
@@ -199,7 +199,7 @@ def counter_check_inputs(mode: str, n_blocks: int, seed: int = 0):
 def probe_reference(mode: str, a, w, b, iters: int):
     """Plain version of K7 on [blocks, 128, 256] bf16 ``a`` and [blocks,
     32, 256] fp32 ``b``: per iteration, ``mxu`` one :func:`decay_step`,
-    ``vpu`` 16 :func:`abs_exp_step`, ``both`` the two."""
+    ``vpu`` EXP_CALLS :func:`abs_exp_step`, ``both`` the two."""
     if mode not in PROBE_MODES:
         raise ValueError(f"mode must be one of {PROBE_MODES}, got {mode!r}")
     a, b = a.clone(), b.clone()

@@ -4,12 +4,15 @@
         [--ctl-steps 64] [--ctl-dots 1]
 
 The port of ``baselines/probe_overlap.py``.  Two independent chains, a
-matrix chain (HMMA) and an exp chain (MUFU.EX2), run alone and together
-in one instruction stream (K7, ``csrc/probe_overlap.cu``).  If the
-combined body takes about the sum of the two, the units do not overlap
-in one warp's stream and the flash kernels' softmax needs another warp
-(warp specialisation, as FlashAttention-3's ping-pong) to hide under
-the products; if it takes about the larger of the two, they overlap.
+matrix chain (wgmma, HGMMA in the SASS) and an exp chain (MUFU.EX2), run
+alone and together in one instruction stream (K7,
+``csrc/probe_overlap.cu``): in the combined body each warpgroup runs its
+exp steps between the issue of its products and the wait for them.  If
+the combined body takes about the sum of the two, the MUFU does not work
+while the warpgroup's own products are in flight, and the flash kernels'
+softmax needs another warpgroup (as FlashAttention-3's ping-pong) to
+hide under the products; if it takes about the larger of the two, it
+does.
 
 The positive control (K8, ``csrc/probe_overlap_ctl.cu``) runs the same
 method where overlap is known to exist: a double-buffered bulk-copy
@@ -22,9 +25,9 @@ a half-length launch, as in ``tools/roofline.py``; every block chains its
 own copy, on as many blocks as reside on the card at once.  ``--iters``
 (probe iterations) and ``--ctl-steps`` (control steps) are the starting
 lengths; they grow until the full launch takes 20 ms.  The exp arm's
-length is fixed, 16 steps an iteration, where it takes about as long as
-the matrix arm.  ``--ctl-dots`` (chained products per control
-step) is sized so that ``ctl_mxu`` alone takes about as long as
+length is fixed, ``probes.EXP_CALLS`` steps an iteration, where it takes
+about as long as the matrix arm.  ``--ctl-dots`` (chained products per
+control step) is sized so that ``ctl_mxu`` alone takes about as long as
 ``ctl_dma`` alone, where the control separates overlap from the sum best;
 both are printed.  Needs a CUDA device.
 """

@@ -154,18 +154,22 @@ def test_probe_plain_chain_matches_jax(inputs, mode, n):
         torch.testing.assert_close(mine_b, b, rtol=0, atol=0)
 
 
+FIXED_POINT_STEPS = 32
+
+
 def test_probe_exp_chain_shows_its_step_count():
-    """One iteration of K7's exp chain is 16 steps; from |b| in [3, 6]
-    (chip_smoke.py's check inputs) the 16th step is still far from the
-    15th at fp32 tolerance (1e-5 of the entry plus 1e-5 of the largest),
-    so the check after one iteration sees a step short, while from 32
-    steps on the chain sits at its fixed point within that tolerance."""
+    """One iteration of K7's exp chain is EXP_CALLS steps; from |b| in
+    [3, 6] (chip_smoke.py's check inputs) its last step is still far from
+    the one before at fp32 tolerance (1e-5 of the entry plus 1e-5 of the
+    largest), so the check after one iteration sees a step short, while
+    from 32 steps on the chain sits at its fixed point within that
+    tolerance."""
     rng = np.random.default_rng(3)
     b = torch.from_numpy(
         rng.uniform(3.0, 6.0, (2, *probes.EXP_SHAPE)) * rng.choice([-1.0, 1.0], (2, *probes.EXP_SHAPE))
     ).float()
     steps = [b]
-    for _ in range(2 * probes.EXP_CALLS):
+    for _ in range(max(probes.EXP_CALLS, FIXED_POINT_STEPS)):
         steps.append(probes.abs_exp_step(steps[-1]))
 
     def outside(x, ref):
@@ -176,7 +180,7 @@ def test_probe_exp_chain_shows_its_step_count():
                                   torch.zeros(256, 256, dtype=torch.bfloat16), b, 1)[1]
     torch.testing.assert_close(full, steps[probes.EXP_CALLS], rtol=0, atol=0)
     assert outside(steps[probes.EXP_CALLS - 1], full) == 1.0
-    assert outside(steps[2 * probes.EXP_CALLS - 1], steps[2 * probes.EXP_CALLS]) == 0.0
+    assert outside(steps[FIXED_POINT_STEPS - 1], steps[FIXED_POINT_STEPS]) == 0.0
 
 
 @pytest.mark.parametrize("mode", probes.CTL_MODES)
@@ -294,3 +298,63 @@ def test_sass_counts_reads_the_tma_reduce():
         "HMMA": 0, "HGMMA": 1, "WGWAIT": 1, "UTMALDG": 1, "UTMAREDG": 2, "MUFU.EX2": 0,
         "BRA": 0, "lines": 6,
     }
+
+
+def probe_sass(both="HGMMA", vpu="", mxu="HGMMA", both_exp=True):
+    """A made-up ``cuobjdump -sass`` of K7's library: its three kernels
+    (as the mangled names of probe_overlap_kernel<kDoMxu, kDoExp> read),
+    each holding the products named (HGMMA for wgmma, HMMA for mma.sync)
+    and MUFU.EX2 where its mode has the exp chain."""
+    product = {
+        "HGMMA": "HGMMA.64x256x16.F32.BF16 R24, gdesc[UR12], R24 ;",
+        "HMMA": "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "": "NOP ;",
+    }
+    prefix = "_ZN49_GLOBAL__N__b8b163d2_16_probe_overlap_cu_d509350f20probe_overlap_kernel"
+    suffix = "EEEvPK13__nv_bfloat16S3_PKfPS1_Pfi"
+    out = []
+    for tag, prod, exp in (("ILb1ELb1E", both, both_exp), ("ILb0ELb1E", vpu, True),
+                           ("ILb1ELb0E", mxu, False)):
+        out.append(f"        Function : {prefix}{tag}{suffix}")
+        out.append(f"        /*0000*/  {product[prod]}")
+        out.append("        /*0010*/  MUFU.EX2 R0, R0 ;" if exp else "        /*0010*/  FADD R0, R0, R1 ;")
+        out.append("        /*0020*/  EXIT ;")
+    return "\n".join(out) + "\n"
+
+
+SASS_RULE_CASES = {
+    "wgmma": (probe_sass(), []),
+    "both_on_mma_sync": (probe_sass(both="HMMA"), ["both: 1 HMMA (mma.sync)", "both: 0 HGMMA"]),
+    "both_without_exp": (probe_sass(both_exp=False), ["both: 0 MUFU.EX2"]),
+    "mxu_on_mma_sync": (probe_sass(mxu="HMMA"), ["mxu: 1 HMMA (mma.sync)", "mxu: 0 HGMMA"]),
+    "vpu_with_products": (probe_sass(vpu="HGMMA"), ["vpu: 1 HGMMA"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SASS_RULE_CASES))
+def test_probe_sass_rule(case):
+    """chip_smoke.py phase 1's rule for K7, on made-up SASS: a wgmma
+    ``both`` with MUFU.EX2 (and a wgmma ``mxu``, a product-free ``vpu``)
+    passes; ``both`` or ``mxu`` on HMMA, ``both`` without MUFU.EX2 and
+    ``vpu`` with HGMMA are each refused, with what is wrong."""
+    import chip_smoke
+    from mca_tpu_torch.tools import sass_counts
+
+    sass, expect = SASS_RULE_CASES[case]
+    counts = sass_counts.count(sass)
+    assert len(counts) == 3
+    assert chip_smoke.probe_sass_faults(counts) == expect
+
+
+def test_probe_sass_rule_needs_every_mode():
+    """A library missing a mode, or holding a kernel that is not K7's,
+    is refused."""
+    import chip_smoke
+    from mca_tpu_torch.tools import sass_counts
+
+    counts = sass_counts.count(probe_sass())
+    mxu = next(fn for fn in counts if "ILb1ELb0E" in fn)
+    missing = {fn: c for fn, c in counts.items() if fn != mxu}
+    assert chip_smoke.probe_sass_faults(missing) == ["K7 kernels found: ['both', 'vpu']"]
+    stranger = dict(counts, _Z3fooPf=counts[mxu])
+    assert chip_smoke.probe_sass_faults(stranger) == ["_Z3fooPf: not one of K7's kernels"]
