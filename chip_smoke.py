@@ -75,8 +75,31 @@ Phases (each asserted; any failure exits non-zero):
    ``tools.probe_overlap.run`` at a short length (both verdicts printed;
    the control must read OVERLAPS, or the instrument cannot see
    overlap).
-8. one ``{"kernels": [...]}`` line (eight kernels), then the last line
-   ``{"ok": true, "device": {...}}``.
+8. the training run: ``mca_tpu_torch.train.train`` at TCGA_config1
+   width and depth (``num_warmup_steps`` 2) on 40 synthetic TCGA-shaped
+   rows (p_missing 0.25) held in memory, ``split`` 0.2, so 4 train
+   batches and 1 eval batch an epoch, into a temporary directory.
+   (a) The main path, launch counts at 0 just before it: 2 epochs,
+   ``n_step_checkpoint`` 2, ``checkpoint_keep`` 1, the eval pass, fused
+   backward: 8 finite step records with ``tokens_per_sec`` and
+   ``epoch``, finite ``val_epoch_*`` records after each epoch, K1 5
+   times per step and per eval forward, K2 5 per step; ``1/`` kept,
+   ``0/`` pruned, ``model/`` and ``model.safetensors`` (read back equal
+   to the final parameters); the first eval's ``val_epoch_total_loss``
+   against the same eval in fp32 on the CPU from the epoch-0 weights.
+   (b) Restart, on the split (deterministic) backward with
+   ``torch.use_deterministic_algorithms``: 2 epochs straight against
+   epoch 0 then ``restart:`` from ``0/``, and against a SIGTERM at step
+   2 then ``restart:`` from the root checkpoint (mid-epoch resume); the
+   final parameters equal bit for bit.  (c) ``remat`` + ``grad_accum``
+   2 + ``moment_dtype: bf16`` for one epoch: finite records, K1 20 and
+   K2 10 times per step, bf16 moments in the checkpoint; from the same
+   weights and batch, a ``remat`` step's gradients against a plain
+   step's.  (d) Prints ms per step, per eval pass and per checkpoint
+   save (synchronous and asynchronous), peak memory with and without
+   ``remat`` and the optimizer state's bytes, fp32 and bf16 moments.
+9. one ``{"kernels": [...]}`` line (eight kernels, launches from phases
+   2-7), then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -88,11 +111,16 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import signal
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -100,8 +128,10 @@ import torch
 
 import mca_tpu_torch
 from mca_tpu_torch import _build
+from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state
 from mca_tpu_torch.config import get_model_config, training_config
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.data.synthetic import tabular_rows
 from mca_tpu_torch.masks import build_masks
 from mca_tpu_torch.models import build_model
@@ -114,10 +144,13 @@ from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
 from mca_tpu_torch.tools import sass_counts
 from mca_tpu_torch.train import (
+    PreemptedError,
     build_trainer,
     forward_backward,
+    run_eval_epoch,
     synthetic_rows,
     to_device,
+    train,
     train_step,
 )
 
@@ -192,6 +225,14 @@ TRAIN_ATTN_GRAD_REL_L2 = 2e-2
 # dq scaled by PLANTED_DQ_SCALE, measured 5.0e-2) must exceed the bound
 TRAIN_ROUTE_GRAD_REL_L2 = 1e-2
 PLANTED_DQ_SCALE = 1.05
+# phase 8: 40 rows, 8 of them the eval split, so 4 train batches and 1
+# eval batch of 8 an epoch
+RUN_ROWS = 40
+RUN_SPLIT = 0.2
+# the first eval's val_epoch_total_loss, bf16 on the GPU against fp32 on
+# the CPU from the same weights: an average of pair losses, as phase 6's
+# first-step loss (TRAIN_LOSS_RTOL)
+RUN_EVAL_RTOL = 1e-2
 PEAK_FP32 = 67e12  # FLOP/s, outside the tensor cores (an FFMA counts 2)
 PEAK_FP32_ISSUE = PEAK_FP32 / 2  # fp32 instructions/s: 128 lanes a clock per SM
 PEAK_MUFU = roofline_tool.rate_ceilings(1980.0, 132)["exp_elems_s"]  # 132 SMs at 1980 MHz
@@ -839,7 +880,7 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
     def first_step(cfg, dev, impl="fused"):
         flash.default_bwd_impl = impl
         model = build_trainer(cfg, dev, params=params)[0]
-        loss = float(forward_backward(model, to_device(collated, dev))["loss"].detach())
+        loss = float(forward_backward(model, to_device(collated, dev))["total_loss"])
         flash.default_bwd_impl = "fused"
         return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
 
@@ -910,6 +951,303 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
     )
     return {"flash_bwd": fused_c["flash_bwd"], "flash_bwd_dq": split_c["flash_bwd_dq"],
             "flash_bwd_dkv": split_c["flash_bwd_dkv"]}
+
+
+class StopRun(Exception):
+    """Raised from a run's ``log`` callback to end the run there."""
+
+
+def read_safetensors(path) -> dict:
+    """A safetensors file's tensors (the card has no ``safetensors``
+    package): the 8-byte header length, the JSON header, the raw bytes."""
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(n))
+        data = f.read()
+    header.pop("__metadata__", None)
+    dtypes = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16}
+    return {
+        k: torch.frombuffer(bytearray(data[h["data_offsets"][0]:h["data_offsets"][1]]),
+                            dtype=dtypes[h["dtype"]]).reshape(h["shape"])
+        for k, h in header.items()
+    }
+
+
+def run_config(config, out_dir, **overrides):
+    """The phase-8 run's config: ``config`` with 2 warm-up steps, the
+    ``split`` of RUN_SPLIT and ``out_dir``, then ``overrides``."""
+    cfg = type(config)(config)
+    cfg.num_warmup_steps = TRAIN_WARMUP
+    cfg.split = RUN_SPLIT
+    cfg.output_dir = str(out_dir)
+    cfg.update(overrides)
+    return cfg
+
+
+def run_records(out_dir) -> list:
+    with open(Path(out_dir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def step_records(out_dir) -> list:
+    # val_step_total_loss is another key: test membership, not substrings
+    return [r for r in run_records(out_dir) if "total_loss" in r]
+
+
+def reset_launches() -> None:
+    flash.launches = 0
+    ff.launches = 0
+    flash.bwd_launches.update(dict.fromkeys(flash.bwd_launches, 0))
+
+
+def launches_now() -> dict:
+    return {"flash_fwd": flash.launches, "geglu_ff": ff.launches, **flash.bwd_launches}
+
+
+def final_params(out_dir) -> dict:
+    return torch.load(Path(out_dir) / "model" / "model.pt", map_location="cpu",
+                      weights_only=True)
+
+
+def assert_finite_steps(recs: list, n: int) -> None:
+    assert [r["step"] for r in recs] == list(range(1, n + 1)), [r["step"] for r in recs]
+    for r in recs:
+        assert "tokens_per_sec" in r and "epoch" in r, r
+        for k in ("total_loss", "fcl_loss", "no-fcl_loss", "param_norm", "grad_norm"):
+            assert math.isfinite(r[k]), (k, r)
+        # a pair absent from every row of a batch is NaN by design
+        assert not any(isinstance(v, float) and math.isinf(v) for v in r.values()), r
+
+
+def optimizer_state_bytes(opt) -> int:
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for k, t in st.items() if k != "step" and torch.is_tensor(t))
+
+
+def check_run(config, device, cpu_device="cpu") -> dict:
+    """Phase 8, the training run (module docstring); returns what it
+    measured."""
+    rows = synthetic_rows(config, RUN_ROWS, seed=int(config.seed))
+    depth, bs = int(config.layers), int(config.batch_size)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        tmp = Path(tmp)
+        data = setup_data(rows, split=RUN_SPLIT, ds_seed=int(config.ds_seed))
+        collate = MultimodalCollator(config.modality_config.to_plain())
+        n_train, n_eval = len(data["train"]) // bs, len(data["test"]) // bs
+        assert (n_train, n_eval) == (4, 1), (n_train, n_eval)
+        batch = to_device(collate(data["train"][:bs]), device)
+
+        # (a) the main path, with every launch count at 0 just before it
+        flash.default_bwd_impl = "fused"
+        stamps, epoch0 = [], {}
+
+        def log_a(rec):
+            if "total_loss" in rec:
+                stamps.append(time.perf_counter())
+            if "val_epoch_total_loss" in rec and not epoch0:
+                epoch0.update(load_params(tmp / "a" / "0"))  # what this eval ran on
+
+        cfg = run_config(config, tmp / "a", epochs=2, n_step_checkpoint=2,
+                         checkpoint_keep=1, run_eval_loop=True)
+        reset_launches()
+        out = train(cfg, device=device.type, rows=rows, log=log_a)
+        counts = launches_now()
+        n_steps = 2 * n_train
+        print(f"run (a): launches {counts}", flush=True)
+        assert counts == {"flash_fwd": depth * (n_steps + 2 * n_eval), "geglu_ff": 0,
+                          "flash_bwd": depth * n_steps, "flash_bwd_dq": 0,
+                          "flash_bwd_dkv": 0}, counts
+        steps = step_records(out)
+        assert_finite_steps(steps, n_steps)
+        assert [r["epoch"] for r in steps] == [0] * n_train + [1] * n_train
+        evals = [r for r in run_records(out) if "val_epoch_total_loss" in r]
+        assert len(evals) == 2 and [r["step"] for r in evals] == [n_train, n_steps], evals
+        for r in evals:
+            bad = {k: v for k, v in r.items() if k.startswith("val_epoch_") and not math.isfinite(v)}
+            assert not bad, bad
+        assert (Path(out) / "1" / "state").is_dir() and not (Path(out) / "0").exists()
+        final = final_params(out)
+        st = read_safetensors(Path(out) / "model.safetensors")
+        assert st.keys() == final.keys(), st.keys() ^ final.keys()
+        assert all(torch.equal(st[k], final[k]) for k in final)
+        # the first eval again, in fp32 on the CPU from the epoch-0 weights
+        cfg32 = run_config(config, tmp / "cpu", precision="fp32")
+        model32 = build_trainer(cfg32, cpu_device, params=epoch0)[0]
+        cpu_evals = []
+        t0 = time.perf_counter()
+        run_eval_epoch(model32, BatchedLoader(data["test"], collate, bs),
+                       lambda rec, at: cpu_evals.append(rec), n_train, torch.device(cpu_device))
+        cpu_eval_s = time.perf_counter() - t0
+        del model32
+        gpu_loss, cpu_loss = evals[0]["val_epoch_total_loss"], cpu_evals[-1]["val_epoch_total_loss"]
+        eval_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+        print(f"run (a): first eval val_epoch_total_loss bf16 GPU {gpu_loss:.6f}, fp32 CPU "
+              f"{cpu_loss:.6f} (relative {eval_rel:.3e}; CPU eval {cpu_eval_s:.1f} s)", flush=True)
+        assert eval_rel <= RUN_EVAL_RTOL, eval_rel
+        # wall ms of each step but an epoch's first (the stamps are the
+        # step records, each after the step's sync); with
+        # n_step_checkpoint 2, steps 3 and 7 also hold a save's copy to
+        # the host, and its write runs on a thread beside the next steps
+        step_ms = {s: 1e3 * (stamps[s - 1] - stamps[s - 2])
+                   for s in range(1, n_steps + 1) if (s - 1) % n_train}
+
+        # (b) restart on the split backward, deterministic algorithms on
+        base = dict(epochs=2, n_step_checkpoint=0, checkpoint_keep=2, run_eval_loop=True)
+
+        def stop_after_first_eval(rec):
+            if "val_epoch_total_loss" in rec:
+                raise StopRun
+
+        def sigterm_at_step_2(rec):
+            if rec["step"] == 2 and "total_loss" in rec:
+                signal.raise_signal(signal.SIGTERM)
+
+        old_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        flash.default_bwd_impl = "split"
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                straight = train(run_config(config, tmp / "b0", **base), device.type, rows=rows)
+                try:
+                    train(run_config(config, tmp / "b1", **base), device.type, rows=rows,
+                          log=stop_after_first_eval)
+                    raise AssertionError("the run went on past epoch 0")
+                except StopRun:
+                    pass
+                restarted = train(run_config(config, tmp / "b2", restart=str(tmp / "b1" / "0"),
+                                             **base), device.type, rows=rows)
+                try:
+                    train(run_config(config, tmp / "b3", **base), device.type, rows=rows,
+                          log=sigterm_at_step_2)
+                    raise AssertionError("SIGTERM did not stop the run")
+                except PreemptedError as e:
+                    assert e.step == 2, e.step
+                assert json.loads((tmp / "b3" / "preempted.json").read_text())["step"] == 2
+                resumed = train(run_config(config, tmp / "b4", restart=str(tmp / "b3"), **base),
+                                device.type, rows=rows)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            flash.default_bwd_impl = "fused"
+            if old_cublas is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cublas
+        notes = sorted({str(w.message).split("\n")[0] for w in caught})
+        print(f"run (b): warnings under deterministic algorithms: {notes or 'none'}", flush=True)
+        ref = final_params(straight)
+        ref_steps = {r["step"]: r["total_loss"] for r in step_records(straight)}
+        for name, out_b, first in (("epoch restart", restarted, n_train + 1),
+                                   ("mid-epoch resume", resumed, 3)):
+            got = step_records(out_b)
+            assert [r["step"] for r in got] == list(range(first, n_steps + 1)), (name, got)
+            loss_gap = max(abs(r["total_loss"] - ref_steps[r["step"]]) for r in got)
+            p = final_params(out_b)
+            equal = all(torch.equal(p[k], ref[k]) for k in ref)
+            rel = rel_l2(torch.cat([p[k].reshape(-1) for k in ref]),
+                         torch.cat([ref[k].reshape(-1) for k in ref]))
+            print(f"run (b): {name}: final parameters bitwise equal {equal} (relative L2 "
+                  f"{rel:.3e}), per-step total_loss max gap {loss_gap:.3e}", flush=True)
+            assert equal and loss_gap == 0.0, (name, rel, loss_gap)
+
+        # (c) remat + grad_accum 2 + bf16 moments, one epoch
+        reset_launches()
+        out_c = train(run_config(config, tmp / "c", epochs=1, remat=True, grad_accum=2,
+                                 moment_dtype="bf16", run_eval_loop=False),
+                      device.type, rows=rows)
+        counts_c = launches_now()
+        print(f"run (c): launches {counts_c}", flush=True)
+        assert counts_c == {"flash_fwd": 2 * 2 * depth * n_train, "geglu_ff": 0,
+                            "flash_bwd": 2 * depth * n_train, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}, counts_c
+        assert_finite_steps(step_records(out_c), n_train)
+        moments = load_state(Path(out_c) / "0")["optimizer"]["state"]
+        assert moments and all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.bfloat16
+                               for s in moments.values())
+
+        def first_step(cfg):
+            model = build_trainer(cfg, device.type, params=final)[0]
+            reset_launches()
+            loss = float(forward_backward(model, batch)["total_loss"])
+            return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}, flash.launches
+
+        plain_loss, plain_g, plain_k1 = first_step(run_config(config, tmp / "g"))
+        remat_loss, remat_g, remat_k1 = first_step(run_config(config, tmp / "g", remat=True))
+        assert (plain_k1, remat_k1) == (depth, 2 * depth), (plain_k1, remat_k1)
+        remat_rel = rel_l2(torch.cat([remat_g[n].reshape(-1) for n in plain_g]),
+                           torch.cat([plain_g[n].reshape(-1) for n in plain_g]))
+        remat_attn = max(rel_l2(remat_g[n], plain_g[n]) for n in attention_leaves(plain_g))
+        print(f"run (c): remat vs plain first step: loss {remat_loss:.6f} vs {plain_loss:.6f}, "
+              f"gradient relative L2 {remat_rel:.3e}, attention projections at most "
+              f"{remat_attn:.3e}", flush=True)
+        assert remat_rel <= TRAIN_GRAD_REL_L2 and remat_attn <= TRAIN_ATTN_GRAD_REL_L2
+
+        # (d) times and memory, outside the counted runs
+        def step_memory(cfg):
+            model, opt, sched = build_trainer(cfg, device.type, num_training_steps=8, params=final)
+            train_step(model, opt, sched, batch, clip=float(cfg.clip))
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            train_step(model, opt, sched, batch, clip=float(cfg.clip))
+            torch.cuda.synchronize()
+            return model, opt, sched, before, torch.cuda.max_memory_allocated(), \
+                optimizer_state_bytes(opt)
+
+        model, opt, sched, before, peak, opt32 = step_memory(run_config(config, tmp / "m"))
+        eval_dl = BatchedLoader(data["test"], collate, bs)
+        eval_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_eval_epoch(model, eval_dl, lambda rec, at: None, 0, device)  # ends in a copy
+            eval_ms.append(1e3 * (time.perf_counter() - t0))
+        saver = Checkpointer()
+        state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                 "schedule": sched.state_dict(), "step": 1, "epoch": 0}
+        save_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            saver.save_state(state, tmp / "s", asynchronous=False)
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        saver.save_state(state, tmp / "s", asynchronous=True)
+        async_return_ms = 1e3 * (time.perf_counter() - t0)
+        saver.wait_for_saves()
+        async_ms = 1e3 * (time.perf_counter() - t0)
+        del model, opt, sched, state, saver
+        torch.cuda.empty_cache()
+        *_, before_r, peak_r, _ = step_memory(run_config(config, tmp / "m", remat=True))
+        torch.cuda.empty_cache()
+        *_, opt16 = step_memory(run_config(config, tmp / "m", moment_dtype="bf16"))
+        torch.cuda.empty_cache()
+        assert 2 * opt16 == opt32, (opt16, opt32)
+        assert peak_r - before_r < peak - before, (peak_r - before_r, peak - before)
+    mib = 2.0**-20
+    print(host_description(), flush=True)
+    print(
+        f"run: wall ms per step inside the run "
+        f"{', '.join(f'step {k} {x:.3f}' for k, x in step_ms.items())} (median "
+        f"{float(np.median(list(step_ms.values()))):.3f}; of the steps that follow no "
+        f"save {float(np.median([x for k, x in step_ms.items() if k % 4 != 3])):.3f}; "
+        f"host clock, each step ends in a sync); last tokens_per_sec "
+        f"{steps[-1]['tokens_per_sec']:.1f}; "
+        f"eval pass ({n_eval} batch) ms {', '.join(f'{x:.3f}' for x in eval_ms)}; checkpoint save "
+        f"ms synchronous {', '.join(f'{x:.3f}' for x in save_ms)} (the first allocates the "
+        f"host buffers), asynchronous returns in {async_return_ms:.3f}, written in "
+        f"{async_ms:.3f}",
+        flush=True,
+    )
+    print(
+        f"run: peak memory of a step (max_memory_allocated) {peak * mib:.1f} MiB without "
+        f"remat ({(peak - before) * mib:.1f} above the {before * mib:.1f} held before it), "
+        f"{peak_r * mib:.1f} MiB with remat ({(peak_r - before_r) * mib:.1f} above "
+        f"{before_r * mib:.1f}); optimizer state {opt32 * mib:.1f} MiB with fp32 moments, "
+        f"{opt16 * mib:.1f} MiB with bf16",
+        flush=True,
+    )
+    return {"step_ms": step_ms, "eval_ms": eval_ms, "save_ms": save_ms}
 
 
 def probe_tol(plain: torch.Tensor) -> torch.Tensor:
@@ -1297,6 +1635,9 @@ def main() -> int:
     config = training_config(str(CONFIG))
     counts = check_slice(config, device)
     counts.update(check_train(config, device))
+    t8 = time.perf_counter()
+    check_run(config, device)
+    print(f"training run: {time.perf_counter() - t8:.1f} s", flush=True)
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))

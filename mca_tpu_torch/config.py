@@ -5,15 +5,19 @@ defaults, the YAML loaders and ``get_model_config``, so the port reads
 the repo's configs (and the reference corpus) unchanged without
 importing the JAX package.
 
-One deliberate difference: loading a config creates no output
-directory.  The serving entry point only reads a config; the JAX
-loader's timestamped ``training_output_*`` directory belongs to
-training, which comes with a later slice.
+One deliberate difference: :func:`training_config` creates no output
+directory unless asked (``make_output_dir=True``, which the training
+entry point passes): serving only reads a config.  With it, an empty
+``output_dir`` becomes a timestamped ``training_output_*`` directory,
+and the merged config is dumped there as ``config.yaml``, as the JAX
+loader does by default.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+from datetime import datetime
 from typing import Any, Dict
 
 
@@ -145,10 +149,36 @@ def load_yaml(filename: str) -> Dict[str, Any]:
         return yaml.safe_load(stream) or {}
 
 
-def training_config(filename: str) -> Config:
-    """Load a training YAML over the defaults.  Unlike the JAX loader it
-    creates no output directory: serving only reads the config."""
-    return get_cfg_defaults_train().merge(load_yaml(filename))
+def _auto_output_dir(prefix: str = "training_output") -> str:
+    """A timestamped directory name, deduplicated with ``_i``."""
+    base = datetime.now().strftime(f"{prefix}_%H_%M_%d_%m_%Y")
+    out = base
+    i = 1
+    while os.path.isdir(out):
+        out = f"{base}_{i}"
+        i += 1
+    return out
+
+
+def dump_configs(config: Config, output_dir: str) -> None:
+    """Write the merged config to ``<output_dir>/config.yaml``."""
+    import yaml
+
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(config.to_plain(), f, sort_keys=False)
+
+
+def training_config(filename: str, make_output_dir: bool = False) -> Config:
+    """Load a training YAML over the defaults.  ``make_output_dir``: give
+    an empty ``output_dir`` a timestamped name and dump the merged
+    config into it (the JAX loader's default; training passes it)."""
+    config = get_cfg_defaults_train().merge(load_yaml(filename))
+    if make_output_dir:
+        if not config.output_dir:
+            config.output_dir = _auto_output_dir()
+        dump_configs(config, config.output_dir)
+    return config
 
 
 def training_config_from_dict(d: Dict[str, Any]) -> Config:

@@ -20,8 +20,13 @@ it moves with the module.  Parameters stay fp32; ``precision='bf16'``
 runs the transformer blocks in bf16 with fp32 norms and softmax
 statistics.
 
+``remat`` wraps each block in ``torch.utils.checkpoint`` while
+gradients are on, as the JAX package wraps it in ``nn.remat``: the
+backward recomputes the block's forward (the flash forward included)
+instead of keeping its activations.
+
 Not ported yet (they raise): mean pooling, pipeline / sequence
-parallelism, int8 quantization, MoE, rematerialisation (``remat``).
+parallelism, int8 quantization, MoE.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mca_tpu_torch import masks as masks_lib
 from mca_tpu_torch.encoders import build_encoder
@@ -72,10 +78,6 @@ class MCA(nn.Module):
         super().__init__()
         if mean_pool:
             raise NotImplementedError("mean_pool is not ported yet")
-        if remat:
-            raise NotImplementedError(
-                "remat (activation rematerialisation) is not ported yet"
-            )
         if int(pipeline_stages or 0) > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline / sequence parallelism come with the "
@@ -94,6 +96,7 @@ class MCA(nn.Module):
             no_fusion=no_fusion,
         )
         self.no_fusion = no_fusion
+        self.remat = bool(remat)
         self.dtype = dtype_of(precision)
         self.encoders = nn.ModuleDict(
             {
@@ -167,7 +170,10 @@ class MCA(nn.Module):
 
         attn_mask = self.mask_set.attn_mask
         for layer in self.layers:
-            x = layer(x, attn_mask, padding)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, attn_mask, padding, use_reentrant=False)
+            else:
+                x = layer(x, attn_mask, padding)
         x = self.norm(x.float())
 
         ret = self.return_tokens[None].expand(bsz, -1, -1)

@@ -25,8 +25,12 @@ Usage::
         --allow-random-weights --port 8777
     curl -X POST :8777/embed -d '{"rows": [{"gene": {"values": [...]}, ...}]}'
 
-Checkpoint restore (``--restart``), AOT artifacts (``--aot``) and int8
-serving (``--quantize int8``) are not ported yet and raise.
+``--restart DIR`` (``restart=``) serves the parameters of a training
+checkpoint: a train-state directory (``output_dir`` or
+``output_dir/<epoch>``) or the final ``output_dir``'s ``model``
+(:func:`mca_tpu_torch.checkpoint.load_params`).  AOT artifacts
+(``--aot``) and int8 serving (``--quantize int8``) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.models import build_model
@@ -55,7 +60,8 @@ class EmbeddingService:
     ``params`` is a state dict under the port's (= the torch
     reference's) names, e.g. from
     :func:`mca_tpu_torch.interop.state_dict_from_jax_params`; without
-    it the weights are random, drawn from ``seed``.
+    it the weights are random, drawn from ``seed``.  ``restart`` (a
+    checkpoint directory) takes the parameters from there instead.
     """
 
     def __init__(
@@ -70,11 +76,8 @@ class EmbeddingService:
         device: str = "cuda",
         seed: int = 0,
     ):
-        if restart:
-            raise NotImplementedError(
-                "restart: checkpoint restore comes with the checkpoint "
-                "slice; pass params= (a state dict)"
-            )
+        if restart and params is not None:
+            raise ValueError("pass params= or restart=, not both")
         if quantize != "none":
             raise NotImplementedError(
                 "quantize: int8 serving comes with the quant slice"
@@ -86,6 +89,8 @@ class EmbeddingService:
                 "device='cpu' to run the plain versions on the CPU"
             )
         self.config = config
+        if restart:
+            params = checkpoint.load_params(restart)
         self.model = build_model(get_model_config(config), fused_ff=True)
         if params is None:
             self.model.init_weights(torch.Generator().manual_seed(seed))
@@ -357,7 +362,7 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("config", help="train yaml")
-    p.add_argument("--restart", default=None, help="checkpoint dir (not ported yet)")
+    p.add_argument("--restart", default=None, help="checkpoint dir: a train state or a final model")
     p.add_argument("--aot", default=None, help="AOT artifact (not ported yet)")
     p.add_argument("--port", type=int, default=8777)
     p.add_argument("--max-batch", type=int, default=8)

@@ -77,10 +77,9 @@ def main(argv=None) -> None:
     flash.default_bwd_impl = args.bwd_impl
     config = training_config(args.config)
     config.num_warmup_steps = 2
+    config.seed = args.seed
     n = args.steps
-    model, opt, sched = build_trainer(
-        config, "cuda", num_training_steps=4 * n + 2, seed=args.seed
-    )
+    model, opt, sched = build_trainer(config, "cuda", num_training_steps=4 * n + 2)
     rows = synthetic_rows(config, int(config.batch_size))
     batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), "cuda")
     clip = float(config.clip or 0.0)

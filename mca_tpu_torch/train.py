@@ -1,82 +1,127 @@
-"""MCA pretraining steps on the GPU, ported from the core of ``mca_tpu/train.py``.
+"""MCA pretraining on the GPU, ported from ``mca_tpu/train.py``.
 
-    python -m mca_tpu_torch.train configs/tcga_mca.yaml --synthetic 64 \\
-        --steps 10 [--device cpu] [--metrics out.jsonl]
+    python -m mca_tpu_torch.train cfg.yaml [--device cpu] [--synthetic N]
+
+:func:`train` is ``mca_tpu.train.train``: the HF on-disk dataset
+(``dataset:``) split by ``split`` / ``ds_seed``, batches reshuffled
+every epoch from ``seed``, ``epochs`` passes with an eval pass after
+each (``run_eval_loop``), a checkpoint per epoch under
+``output_dir/<epoch>`` (the newest ``checkpoint_keep`` kept) and every
+``n_step_checkpoint`` steps under ``output_dir``, ``restart:`` from
+either (a step inside an epoch resumes there, skipping the batches
+already trained), the final parameters under ``output_dir/model`` and
+``output_dir/model.safetensors``, and every record in
+``output_dir/metrics.jsonl``.  ``--synthetic N`` trains on N TCGA-shaped
+rows made from ``seed`` instead of ``dataset:``.
 
 One step is the JAX package's ``_step_body``: the MCA forward with the
 loss graph, backward (through the flash-attention backward kernels on
 CUDA), the global gradient norm, optional global-norm clipping with
 optax's semantics, AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01
 on every parameter) under the HF learning-rate schedule, then the
-clamp of ``logit_scale`` to ``[LOGIT_SCALE_MIN, LOGIT_SCALE_MAX]``.  It
-returns the JAX step's metrics: ``total_loss``, the per-pair losses
-whose names have no ``|``, ``fcl_loss``, ``no-fcl_loss``, ``param_norm``
-(after the update), ``grad_norm`` (before clipping) and ``lr``.
+clamp of ``logit_scale`` to ``[LOGIT_SCALE_MIN, LOGIT_SCALE_MAX]``.
+``grad_accum: N`` splits the batch into N strided microbatches (rows
+``i, i+N, ...``), each with its own contrastive loss, and averages their
+gradients; ``moment_dtype: bf16`` stores AdamW's moments in bf16
+(:class:`AdamW`); ``remat: true`` recomputes each block's activations
+in the backward.  The model is built with the unfused, differentiable
+feed-forward, as the JAX package trains (``MCA_FUSED_FF=0``).
+Parameters are fp32; ``precision: bf16`` runs the blocks in bf16.
 
-The model is built with the unfused, differentiable feed-forward, as
-the JAX package trains (``MCA_FUSED_FF=0``).  Parameters and optimizer
-state are fp32; ``precision: bf16`` runs the transformer blocks in
-bf16.  The entry point runs on ``cuda`` and raises without one; pass
-``--device cpu`` for the plain versions.
+Guards: ``halt_on_nan`` (default true) saves the diverged state to
+``output_dir/diverged`` and raises :class:`DivergenceError` at the
+first step whose ``total_loss`` or ``grad_norm`` is not finite;
+``preempt_save`` (default true) turns SIGTERM into a checkpoint under
+``output_dir``, a ``preempted.json`` marker and :class:`PreemptedError`
+at the next step boundary (the CLI exits 75).
 
-Data: ``--synthetic N`` trains on N TCGA-shaped rows from
-:func:`mca_tpu_torch.data.synthetic.make_tcga_like` (p_missing 0.25),
-cycled in batches of ``batch_size``.  The HF on-disk dataset loader,
-checkpointing / ``--restart``, the eval loop, gradient accumulation
-(``grad_accum``) and half-width moments (``moment_dtype: bf16``) are not
-ported yet: a config that asks for the last two is refused.
-
-``halt_on_nan`` (default true) stops :func:`train` with
-:class:`DivergenceError` at the first step whose ``total_loss`` or
-``grad_norm`` is not finite, as the JAX package does.
+``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
+the JAX package dispatches XLA, not what is trained; they have no
+counterpart here and are ignored.  ``stage_dtype`` other than fp32 and
+a ``trace_dir`` raise ``NotImplementedError``.  The entry point runs on
+``cuda`` and raises without one; pass ``--device cpu`` for the plain
+versions of the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
+import os
+import shutil
+import signal
 import sys
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence
+import threading
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.data.synthetic import make_tcga_like
+from mca_tpu_torch.eval_metrics import epoch_metrics
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
 from mca_tpu_torch.models import MCA, build_model
+from mca_tpu_torch.utils.logging import JSONLLogger, ThroughputMeter
+
+logger = logging.getLogger(__name__)
 
 
 class DivergenceError(RuntimeError):
     """Raised by the ``halt_on_nan`` guard when ``total_loss`` or
     ``grad_norm`` goes non-finite (``mca_tpu.train.DivergenceError``):
-    from that step on every gradient and parameter is NaN.  The JAX
-    package also saves the diverged state for inspection; that waits for
-    the port of checkpointing."""
+    from that step on every gradient and parameter is NaN.  The state
+    at that step is saved to ``output_dir/diverged`` first."""
+
+
+class PreemptedError(RuntimeError):
+    """Raised after SIGTERM at a step boundary, once the train state is
+    saved under ``output_dir`` (``restart: <output_dir>`` continues the
+    same trajectory) and ``preempted.json`` is written."""
+
+    def __init__(self, step: int, path: str):
+        super().__init__(
+            f"preempted at step {step}; state saved to {path} "
+            f"(resume with restart: {path})"
+        )
+        self.step = step
+        self.path = path
+
+
+def plain(c) -> Dict[str, Any]:
+    return c.to_plain() if hasattr(c, "to_plain") else dict(c)
 
 
 def check_training_keys(config) -> None:
-    """Refuse the training keys the port does not honour yet, rather
-    than train something other than the config asks for: ``grad_accum``
-    other than 1 (the JAX package takes microbatch-local losses) and
-    ``moment_dtype: bf16`` raise ``NotImplementedError``; a
-    ``moment_dtype`` other than fp32 or bf16 raises ``ValueError``, as
-    the JAX package does."""
-    grad_accum = int(config.get("grad_accum", 1) or 1)
-    if grad_accum != 1:
-        raise NotImplementedError(
-            f"grad_accum: {grad_accum}: gradient accumulation over "
-            "microbatch-local losses is not ported yet"
+    """Refuse what the port cannot train as asked, as the JAX package
+    does: ``grad_accum`` that does not divide ``batch_size`` and a
+    ``moment_dtype`` other than fp32 or bf16 raise ``ValueError``; a
+    ``stage_dtype`` other than fp32 (host-side narrowing of the input
+    batches) and a ``trace_dir`` (a profiler trace) are not ported and
+    raise ``NotImplementedError``."""
+    n_accum = int(config.get("grad_accum", 1) or 1)
+    if n_accum < 1 or int(config.batch_size) % n_accum:
+        raise ValueError(
+            f"grad_accum={n_accum} must divide batch_size={config.batch_size}"
         )
     moment_dtype = str(config.get("moment_dtype", "fp32"))
-    if moment_dtype == "bf16":
-        raise NotImplementedError(
-            "moment_dtype: bf16: half-width AdamW moments are not ported yet"
-        )
-    if moment_dtype != "fp32":
+    if moment_dtype not in ("fp32", "bf16"):
         raise ValueError(f"moment_dtype must be fp32 or bf16, got {moment_dtype!r}")
+    stage_dtype = config.get("stage_dtype", "fp32")
+    if stage_dtype not in ("fp32", "", None):
+        raise NotImplementedError(
+            f"stage_dtype: {stage_dtype}: narrowed input staging is not ported yet"
+        )
+    if config.get("trace_dir", ""):
+        raise NotImplementedError(
+            "trace_dir: the torch.profiler counterpart of the JAX trace is "
+            "not ported yet"
+        )
 
 
 def check_finite(metrics: Mapping[str, float], step: int) -> None:
@@ -151,16 +196,62 @@ def clamp_logit_scale(model: torch.nn.Module) -> None:
             p.clamp_(LOGIT_SCALE_MIN, LOGIT_SCALE_MAX)
 
 
+class AdamW(torch.optim.Optimizer):
+    """AdamW with optax's arithmetic (``optax.adamw``: moments, bias
+    correction, ``m / (sqrt(v) + eps) + wd * p`` scaled by ``-lr``) whose
+    moments are stored in ``moment_dtype``: each update upcasts them to
+    fp32, computes in fp32 from the unrounded new moments, and rounds
+    the new moments back for storage (``mca_tpu.train._with_state_dtype``).
+    ``torch.optim.AdamW`` keeps its moments in the parameters' dtype, so
+    the port uses it for ``moment_dtype: fp32`` and this for bf16."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, moment_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, (b1, b2) = group["lr"], group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                st["step"] += 1
+                t = int(st["step"])
+                g = p.grad.float()
+                mu = g * (1 - b1) + st["exp_avg"].float() * b1
+                nu = g.square() * (1 - b2) + st["exp_avg_sq"].float() * b2
+                u = (mu / (1 - b1**t)) / ((nu / (1 - b2**t)).sqrt() + group["eps"])
+                p.add_((u + group["weight_decay"] * p) * -lr)
+                st["exp_avg"].copy_(mu)
+                st["exp_avg_sq"].copy_(nu)
+
+    def load_state_dict(self, state_dict):
+        # the base class casts floating state to the parameters' dtype
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].to(self.moment_dtype)
+
+
 def make_optimizer(
     model: torch.nn.Module, config, num_training_steps: int
 ):
     """AdamW with the torch defaults the JAX package copies (weight decay
-    0.01 on every parameter) and the HF schedule as a ``LambdaLR``:
+    0.01 on every parameter; ``moment_dtype: bf16`` takes
+    :class:`AdamW`) and the HF schedule as a ``LambdaLR``:
     ``schedule.get_last_lr()[0]`` is the rate of the next step."""
-    optimizer = torch.optim.AdamW(
-        model.parameters(), lr=float(config.lr), betas=(0.9, 0.999),
-        eps=1e-8, weight_decay=0.01,
-    )
+    kwargs = dict(lr=float(config.lr), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    if str(config.get("moment_dtype", "fp32")) == "bf16":
+        optimizer = AdamW(model.parameters(), moment_dtype=torch.bfloat16, **kwargs)
+    else:
+        optimizer = torch.optim.AdamW(model.parameters(), **kwargs)
     schedule = torch.optim.lr_scheduler.LambdaLR(
         optimizer,
         hf_lr_factor(
@@ -182,18 +273,46 @@ def scalar_losses(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return scal
 
 
-def forward_backward(model: MCA, batch) -> Dict[str, Any]:
-    """The loss forward and its backward: every parameter ends with a
+def forward_backward(model: MCA, batch, n_accum: int = 1) -> Dict[str, torch.Tensor]:
+    """The loss forward and its backward; returns the step's scalar
+    losses (:func:`scalar_losses`).  Every parameter ends with a
     ``.grad`` (zeros where the loss does not reach it, so AdamW decays
-    it as optax does).  Returns the model's output dict."""
+    it as optax does).
+
+    ``n_accum > 1`` (``mca_tpu.train._accum_grads``): microbatch ``i``
+    is rows ``i, i + n_accum, ...``, each with its own contrastive loss;
+    the gradients of the backward passes are summed, then scaled by
+    ``1 / n_accum``; each metric is the mean over the microbatches where
+    it is finite (a pair absent from one microbatch is NaN there), NaN
+    where none had it."""
     for p in model.parameters():
         p.grad = None
-    out = model(batch, no_loss=False)
-    out["loss"].backward()
+    if n_accum == 1:
+        out = model(batch, no_loss=False)
+        out["loss"].backward()
+        scal = {k: v.detach().float() for k, v in scalar_losses(out).items()}
+    else:
+        total = count = names = None
+        for i in range(n_accum):
+            micro = {m: {k: v[i::n_accum] for k, v in f.items()} for m, f in batch.items()}
+            out = model(micro, no_loss=False)
+            out["loss"].backward()
+            s = scalar_losses(out)
+            names = list(s)
+            v = torch.stack([x.detach().float() for x in s.values()])
+            finite = torch.isfinite(v)
+            v = torch.where(finite, v, torch.zeros_like(v))
+            total = v if total is None else total + v
+            count = finite.float() if count is None else count + finite.float()
+        mean = torch.where(count > 0, total / count, torch.full_like(total, math.nan))
+        scal = dict(zip(names, mean.unbind()))
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(1.0 / n_accum)
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    return out
+    return scal
 
 
 def train_step(
@@ -202,11 +321,12 @@ def train_step(
     schedule,
     batch,
     clip: float = 0.0,
+    n_accum: int = 1,
 ) -> Dict[str, float]:
     """One training step (``mca_tpu.train._step_body``); returns the
     step's metrics as floats."""
     lr = schedule.get_last_lr()[0]
-    out = forward_backward(model, batch)
+    scal = forward_backward(model, batch, n_accum)
     grads = [p.grad for p in model.parameters()]
     grad_norm = global_norm(grads)
     if clip:
@@ -216,11 +336,8 @@ def train_step(
     clamp_logit_scale(model)
     with torch.no_grad():
         param_norm = global_norm(list(model.parameters()))
-    scal = scalar_losses(out)
     names = list(scal) + ["param_norm", "grad_norm"]
-    values = torch.stack(
-        [v.detach().float() for v in scal.values()] + [param_norm, grad_norm]
-    ).tolist()
+    values = torch.stack(list(scal.values()) + [param_norm, grad_norm]).tolist()
     return {**dict(zip(names, values)), "lr": lr}
 
 
@@ -238,18 +355,17 @@ def build_trainer(
     config,
     device: str = "cuda",
     num_training_steps: int = 1000,
-    seed: int = 0,
     params: Optional[Mapping[str, Any]] = None,
 ):
     """``(model, optimizer, schedule)`` on ``device``: the model built
     for training (unfused feed-forward) with random weights from
-    ``seed``, or ``params`` (a state dict under the port's names).
-    Refuses the keys :func:`check_training_keys` names."""
+    ``config.seed``, or ``params`` (a state dict under the port's
+    names).  Refuses the keys :func:`check_training_keys` names."""
     check_training_keys(config)
     dev = require_device(device)
     model = build_model(get_model_config(config), fused_ff=False)
     if params is None:
-        model.init_weights(torch.Generator().manual_seed(seed))
+        model.init_weights(torch.Generator().manual_seed(int(config.seed)))
     else:
         model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in params.items()}, strict=True
@@ -266,21 +382,6 @@ def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
     return make_tcga_like(n, widths=widths, p_missing=0.25, seed=seed)
 
 
-def batches(config, rows: Sequence[Dict[str, Any]], device) -> Iterator[dict]:
-    """Full batches of ``batch_size`` rows in order, cycling, collated
-    and on ``device``."""
-    bs = int(config.batch_size)
-    if len(rows) < bs:
-        raise ValueError(f"{len(rows)} rows make no batch of {bs}")
-    modalities = config.modality_config
-    collate = MultimodalCollator(
-        modalities.to_plain() if hasattr(modalities, "to_plain") else dict(modalities)
-    )
-    while True:
-        for i in range(0, len(rows) - bs + 1, bs):
-            yield to_device(collate(rows[i : i + bs]), device)
-
-
 def to_device(batch: Mapping[str, Mapping[str, np.ndarray]], device) -> dict:
     return {
         m: {k: torch.from_numpy(v).to(device) for k, v in fields.items()}
@@ -288,75 +389,306 @@ def to_device(batch: Mapping[str, Mapping[str, np.ndarray]], device) -> dict:
     }
 
 
+def make_wandb_config(config) -> Optional[Dict[str, Any]]:
+    """``wandb.init`` kwargs for the run, or None when wandb is off
+    (``mca_tpu.train.make_wandb_config``): ``wandb_restart: <id>``
+    resumes that run (``resume="must"``); otherwise a ``restart:`` from
+    a preempted run's directory resumes the run its ``preempted.json``
+    names (``resume="allow"``)."""
+    if not config.wandb:
+        return None
+    wandb_cfg = {
+        "project": config.wandb_name,
+        "entity": config.wandb_account_name or None,
+        "config": config.to_plain(),
+    }
+    if config.get("wandb_restart", ""):
+        wandb_cfg["id"] = config.wandb_restart
+        wandb_cfg["resume"] = "must"
+    elif config.restart:
+        try:
+            with open(os.path.join(config.restart, "preempted.json")) as f:
+                wandb_id = json.load(f).get("wandb_id")
+        except (OSError, ValueError):
+            wandb_id = None
+        if wandb_id:
+            wandb_cfg["id"] = wandb_id
+            wandb_cfg["resume"] = "allow"
+    return wandb_cfg
+
+
+def run_eval_epoch(model: MCA, eval_dl, record: Callable, step: int, device) -> None:
+    """The eval pass (``mca_tpu.train.run_eval_epoch``): the training
+    model in ``eval()`` under ``no_grad`` over ``eval_dl``; per batch a
+    ``val_step_*`` record of the total and per-pair losses, then one
+    ``val_epoch_*`` record with their means and uniformity / alignment,
+    raw and ``norm_``, for the modalities present in at least one row
+    (with the reference's ``unformity_avg`` spelling).  Everything stays
+    on the device until one copy to the host at the end."""
+    mask_names = tuple(sorted(model.modality_types))
+    fusion = not model.no_fusion
+    emb_names = mask_names + (("fusion",) if fusion else ())
+    emb, msk, losses, lvs, loss_names = [], [], [], [], None
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            for batch in eval_dl:
+                out = model(to_device(batch, device), no_loss=False)
+                loss_names = loss_names or tuple(sorted(out["losses"]))
+                emb.append(torch.stack([out[k] for k in emb_names]))
+                msk.append(torch.stack([out["modality_sample_mask"][k] for k in mask_names]))
+                losses.append(out["loss"].float())
+                lvs.append(torch.stack([out["losses"][k].float() for k in loss_names]))
+            if not emb:
+                return
+            unif, align, counts = epoch_metrics(
+                emb, msk, emb_names=emb_names, mask_names=mask_names, fusion=fusion
+            )
+            named = ([(("unif", k, v), unif[k][v]) for k in unif for v in ("raw", "norm")]
+                     + [(("align", k, v), align[k][v]) for k in align for v in ("raw", "norm")]
+                     + [(("count", k), counts[k].float()) for k in counts])
+            n, n_loss = len(losses), len(loss_names)
+            host = torch.cat([torch.stack(losses), torch.stack(lvs).reshape(-1),
+                              torch.stack([t for _, t in named])]).cpu()
+    finally:
+        model.train(was_training)
+    step_losses = host[:n].tolist()
+    pair = host[n : n + n * n_loss].reshape(n, n_loss).numpy()
+    scal = dict(zip((name for name, _ in named), host[n + n * n_loss :].tolist()))
+    plain_loss = [(j, k) for j, k in enumerate(loss_names) if "|" not in k]
+    for i in range(n):
+        step_log = {"val_step_total_loss": step_losses[i]}
+        for j, k in plain_loss:
+            step_log["val_step_" + k] = float(pair[i, j])
+        record(step_log, step)
+    epoch_log = {"val_epoch_total_loss": float(np.mean(step_losses))}
+    for j, k in plain_loss:
+        epoch_log["val_epoch_" + k] = float(pair[:, j].mean())
+    for variant, prefix in (("raw", ""), ("norm", "norm_")):
+        u = {f"val_epoch_{prefix}uniformity_{k}": scal[("unif", k, variant)]
+             for k in unif if scal[("count", k)] > 0}
+        epoch_log.update(u)
+        if u:
+            epoch_log[f"val_epoch_{prefix}unformity_avg"] = float(np.mean(list(u.values())))
+        a = {f"val_epoch_{prefix}alignment_{k}": scal[("align", k, variant)]
+             for k in align if scal[("count", k)] > 0}
+        epoch_log.update(a)
+        if a:
+            epoch_log[f"val_epoch_{prefix}alignment_avg"] = float(np.mean(list(a.values())))
+    record(epoch_log, step)
+
+
+def _prune_checkpoints(output_dir: str, epoch: int, keep: int) -> None:
+    """Keep only the newest ``keep`` per-epoch checkpoint directories."""
+    for old in range(epoch - keep + 1):
+        path = os.path.join(output_dir, str(old))
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+
+
 def train(
     config,
     device: str = "cuda",
-    steps: Optional[int] = None,
+    params: Optional[Mapping[str, Any]] = None,
     rows: Optional[Sequence[Dict[str, Any]]] = None,
-    seed: int = 0,
-    log: Optional[Callable[[Dict[str, float]], None]] = None,
-) -> List[Dict[str, float]]:
-    """Train on ``rows`` for ``steps`` steps (default: ``epochs`` passes
-    over the rows); ``log`` gets each step's metrics.  Returns them.
+    log: Optional[Callable[[Dict[str, Any]], None]] = None,
+) -> str:
+    """Run pretraining (``mca_tpu.train.train``); returns ``output_dir``.
 
-    With ``halt_on_nan`` (the default) a step whose ``total_loss`` or
-    ``grad_norm`` is not finite is logged, then :class:`DivergenceError`
-    is raised.  The metrics are floats already (one ``.tolist()`` a
-    step), so the guard adds no device sync."""
+    ``params``: initial weights (a state dict under the port's names)
+    in place of random ones from ``config.seed``.  ``rows``: row dicts
+    held in memory in place of ``dataset:``, split as the HF split
+    would split them.  ``log``: called with every record written to
+    ``metrics.jsonl`` (its ``step`` included), before the guards act."""
     dev = require_device(device)
-    if rows is None:
-        raise NotImplementedError(
-            f"dataset {config.get('dataset')!r}: the HF on-disk dataset "
-            "loader (mca_tpu.data.dataset.setup_data, datasets."
-            "load_from_disk) is not ported yet; pass synthetic rows "
-            "(--synthetic N)"
-        )
-    if steps is None:
-        steps = int(config.epochs) * (len(rows) // int(config.batch_size))
-    model, optimizer, schedule = build_trainer(
-        config, device, num_training_steps=steps, seed=seed
+    check_training_keys(config)
+    output_dir = config.output_dir
+    if not output_dir:
+        raise ValueError("output_dir is empty: set it, or load the config with "
+                         "training_config(..., make_output_dir=True)")
+    if rows is None and not config.dataset:
+        raise ValueError("no data: set dataset: to a save_to_disk directory, or pass rows")
+    modalities = plain(config.modality_config)
+    data = setup_data(
+        config.dataset if rows is None else rows,
+        split=config.split, ds_frac=config.ds_frac, ds_seed=config.ds_seed,
+        predrop=config.predrop, predrop_config=modalities,
     )
-    halt_on_nan = bool(config.get("halt_on_nan", True))
-    history = []
-    data = batches(config, rows, dev)
-    for step in range(steps):
-        metrics = train_step(
-            model, optimizer, schedule, next(data), clip=float(config.clip or 0.0)
-        )
-        metrics["step"] = step
-        history.append(metrics)
+    collator = MultimodalCollator(modalities)
+    bs = int(config.batch_size)
+    preload = bool(config.get("preload_dataset", True))
+    prefetch = int(config.get("prefetch_batches", 0))
+    train_dl = BatchedLoader(data["train"], collator, bs, shuffle=True,
+                             seed=int(config.seed), preload=preload, prefetch=prefetch)
+    eval_dl = BatchedLoader(data["test"], collator, bs, preload=preload, prefetch=prefetch)
+    n_accum = int(config.get("grad_accum", 1) or 1)
+    steps_per_epoch = len(train_dl)
+    model, optimizer, schedule = build_trainer(
+        config, device, num_training_steps=int(config.epochs) * steps_per_epoch,
+        params=params,
+    )
+    saver = checkpoint.Checkpointer()
+    step = 0
+
+    def state(epoch: int) -> Dict[str, Any]:
+        return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "schedule": schedule.state_dict(), "step": step, "epoch": epoch}
+
+    start_epoch, resume_skip = int(config.start_epoch), 0
+    if config.restart:
+        logger.info("Loading saved state from %s", config.restart)
+        saved = checkpoint.load_state(config.restart)
+        model.load_state_dict(saved["model"])
+        optimizer.load_state_dict(saved["optimizer"])
+        schedule.load_state_dict(saved["schedule"])
+        step = int(saved["step"])
+        full_epochs, into_epoch = divmod(step, steps_per_epoch) if steps_per_epoch else (0, 0)
+        if start_epoch == 0 and full_epochs > 0:
+            logger.info("restored step %d implies start_epoch %d", step, full_epochs)
+            start_epoch = full_epochs
+        if into_epoch:
+            if full_epochs == start_epoch:
+                resume_skip = into_epoch
+                logger.info("mid-epoch resume: skipping %d batches of epoch %d",
+                            into_epoch, full_epochs)
+            else:
+                logger.warning("restored step %d sits inside epoch %d but start_epoch=%d: "
+                               "the batches of this epoch are trained again",
+                               step, full_epochs, start_epoch)
+
+    sink = JSONLLogger(output_dir, wandb_config=make_wandb_config(config))
+
+    def record(rec: Dict[str, Any], at: int) -> None:
+        sink.log(rec, step=at)
         if log is not None:
-            log(metrics)
-        if halt_on_nan:
-            check_finite(metrics, step)
-    return history
+            log({**rec, "step": at})
+
+    meter = ThroughputMeter(bs * (
+        sum(int(e["max_tokens"]) for e in config.encoder_configs.values())
+        + int(config.num_fusion_tokens)
+    ))
+    halt_on_nan = bool(config.get("halt_on_nan", True))
+    log_every = max(int(config.get("log_every", 1) or 1), 1)
+    n_step = int(config.n_step_checkpoint or 0)
+    keep = int(config.get("checkpoint_keep", 0) or 0)
+    clip = float(config.clip or 0.0)
+    logger.info("Number of training samples: %d, batches per epoch: %d",
+                len(data["train"]), steps_per_epoch)
+
+    # SIGTERM only sets a flag; the loop saves and stops at the next step
+    # boundary.  A handler can be installed from the main thread only.
+    preempted = [False]
+    old_sigterm = None
+    if bool(config.get("preempt_save", True)) and (
+        threading.current_thread() is threading.main_thread()
+    ):
+        def on_sigterm(signum, frame):
+            preempted[0] = True
+
+        old_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+
+    try:
+        for epoch in range(start_epoch, int(config.epochs)):
+            train_dl.set_epoch(epoch)
+            nb_done = resume_skip
+            if resume_skip:
+                train_dl.skip_batches(resume_skip)
+                resume_skip = 0
+            last_bucket = nb_done // n_step if n_step else 0
+            stream = iter(train_dl)
+            try:
+                for batch in stream:
+                    metrics = train_step(model, optimizer, schedule, to_device(batch, dev),
+                                         clip=clip, n_accum=n_accum)
+                    step += 1
+                    meter.step()
+                    if step % log_every == 0:
+                        record({**metrics, "tokens_per_sec": meter.tokens_per_sec,
+                                "epoch": epoch}, step)
+                    if halt_on_nan:
+                        try:
+                            check_finite(metrics, step)
+                        except DivergenceError:
+                            _forensic_save(saver, state(epoch), output_dir)
+                            raise
+                    nb_done += 1
+                    if preempted[0]:
+                        saver.wait_for_saves()
+                        saver.save_state(state(epoch), output_dir)
+                        with open(os.path.join(output_dir, "preempted.json"), "w") as f:
+                            json.dump({"step": step, "epoch": epoch, "signal": "SIGTERM",
+                                       "wandb_id": sink.wandb_id}, f)
+                        logger.warning("preempted at step %d; state saved, resume with "
+                                       "restart: %s", step, output_dir)
+                        raise PreemptedError(step, output_dir)
+                    if n_step and nb_done // n_step != last_bucket:
+                        last_bucket = nb_done // n_step
+                        saver.save_state(state(epoch), output_dir, asynchronous=True)
+            finally:
+                close = getattr(stream, "close", None)
+                if close is not None:  # stops a prefetch thread on every exit
+                    close()
+            saver.save_state(state(epoch), os.path.join(output_dir, str(epoch)),
+                             asynchronous=True)
+            if keep:
+                saver.wait_for_saves()  # no directory is pruned mid-write
+                _prune_checkpoints(output_dir, epoch, keep)
+            if config.run_eval_loop:
+                run_eval_epoch(model, eval_dl, record, step, dev)
+        saver.wait_for_saves()
+        final = model.state_dict()
+        checkpoint.save_params(final, output_dir)
+        if config.get("export_safetensors", True):
+            try:
+                checkpoint.export_safetensors(final, os.path.join(output_dir, "model.safetensors"))
+            except Exception:  # the model/ save above holds the same weights
+                logger.exception("safetensors export failed (non-fatal)")
+        try:
+            # the marker means "preempted and unfinished"
+            os.remove(os.path.join(output_dir, "preempted.json"))
+        except FileNotFoundError:
+            pass
+    finally:
+        if old_sigterm is not None:
+            signal.signal(signal.SIGTERM, old_sigterm)
+        sink.close()
+    return output_dir
+
+
+def _forensic_save(saver: checkpoint.Checkpointer, state: Dict[str, Any],
+                   output_dir: str) -> None:
+    """The diverged state (NaN parameters and moments included) under
+    ``output_dir/diverged`` for inspection; a failure is logged, so the
+    :class:`DivergenceError` still reaches the caller."""
+    try:
+        saver.wait_for_saves()
+        saver.save_state(state, os.path.join(output_dir, "diverged"))
+        logger.error("training diverged; state saved to %s/diverged", output_dir)
+    except Exception:
+        logger.exception("forensic checkpoint failed")
 
 
 def main(argv=None) -> None:
     from mca_tpu_torch.config import training_config
 
-    p = argparse.ArgumentParser(description=__doc__)
+    logging.basicConfig(level=logging.INFO)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("config", help="train yaml")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="train on N synthetic TCGA-shaped rows")
-    p.add_argument("--steps", type=int, default=None)
+                   help="train on N synthetic TCGA-shaped rows made from the "
+                        "config's seed instead of dataset:")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--metrics", default=None,
-                   help="JSONL file for the per-step metrics (default: stdout)")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
-    config = training_config(args.config)
-    rows = synthetic_rows(config, args.synthetic) if args.synthetic else None
-    sink = open(args.metrics, "w") if args.metrics else sys.stdout
+    config = training_config(args.config, make_output_dir=True)
+    rows = synthetic_rows(config, args.synthetic, seed=int(config.seed)) if args.synthetic else None
     try:
-        train(
-            config, device=args.device, steps=args.steps, rows=rows,
-            seed=args.seed,
-            log=lambda m: print(json.dumps(m), file=sink, flush=True),
-        )
-    finally:
-        if sink is not sys.stdout:
-            sink.close()
+        train(config, device=args.device, rows=rows)
+    except PreemptedError as e:
+        # EX_TEMPFAIL: reschedule with restart: <output_dir>
+        logger.warning("%s", e)
+        sys.exit(75)
 
 
 if __name__ == "__main__":

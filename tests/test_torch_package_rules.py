@@ -35,6 +35,10 @@ def test_no_jax_or_jax_package_imports():
     files = sorted((ROOT / "mca_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("data/dataset.py", "utils/logging.py", "eval_metrics.py",
+                   "checkpoint.py", "train.py"):
+        assert f"mca_tpu_torch/{module}" in names, module
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
         for f in files
@@ -44,25 +48,68 @@ def test_no_jax_or_jax_package_imports():
     assert bad == []
 
 
+def _module_level_imports(tree):
+    """Imports outside every function body of a module."""
+    todo = list(ast.iter_child_nodes(tree))
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+def test_hf_packages_are_imported_inside_functions_only():
+    """The card has neither ``datasets`` nor ``pyarrow``: the loader
+    imports them where it reads an HF dataset, so the port imports
+    without them."""
+    files = sorted((ROOT / "mca_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    top = [
+        (f.relative_to(ROOT).as_posix(), mod)
+        for f in files
+        for mod in _module_level_imports(ast.parse(f.read_text()))
+        if mod.split(".")[0] in ("datasets", "pyarrow", "safetensors", "wandb")
+    ]
+    assert top == []
+    inside = {mod.split(".")[0] for mod in _imported_modules(ROOT / "mca_tpu_torch/data/dataset.py")}
+    assert {"datasets", "pyarrow"} <= inside
+
+
 def test_service_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the raise is for hosts without one")
     cfg = training_config_from_dict(tiny_config("tcga", batch_size=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         EmbeddingService(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingService(cfg, restart="no-such-checkpoint")
 
 
-def test_train_entry_point_defaults_to_cuda_and_raises_without_it():
+def test_train_entry_point_defaults_to_cuda_and_raises_without_it(tmp_path):
+    import yaml
+
     for fn in (port_train.train, port_train.build_trainer):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the raise is for hosts without one")
     cfg = training_config_from_dict(tiny_config("tcga", batch_size=2))
+    cfg.output_dir = str(tmp_path / "out")
     rows = port_train.synthetic_rows(cfg, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
-        port_train.train(cfg, steps=1, rows=rows)
+        port_train.train(cfg, rows=rows)
     with pytest.raises(RuntimeError, match="CUDA"):
-        port_train.main(["configs/tcga_mca.yaml", "--synthetic", "8", "--steps", "1"])
+        port_train.build_trainer(cfg)
+    cfg_path = tmp_path / "tcga.yaml"
+    cfg_path.write_text(yaml.safe_dump({**yaml.safe_load(open(ROOT / "configs/tcga_mca.yaml")),
+                                        "output_dir": str(tmp_path / "cli")}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main([str(cfg_path), "--synthetic", "8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main([str(cfg_path)])  # the dataset: path is not read first
+    assert not (tmp_path / "out").exists()
 
 
 def _meta(*shape, dtype=torch.bfloat16):

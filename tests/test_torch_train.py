@@ -32,6 +32,7 @@ from mca_tpu.train import hf_lr_schedule as jax_hf_lr_schedule
 from mca_tpu.train import init_state, make_optimizer, make_train_step
 from mca_tpu_torch import train as port_train
 from mca_tpu_torch.config import get_model_config, training_config_from_dict
+from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.synthetic import make_tcga_like
 from mca_tpu_torch.interop import state_dict_from_jax_params
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
@@ -41,6 +42,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 WIDTHS = {"gene": 12, "protein": 8, "methylation": 10, "mirna": 6}
 STEPS = 6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these tiny shapes: the suite runs several
+    pytest workers on shared cores, where per-worker thread pools
+    oversubscribe them and slow every small op many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(precision="fp32"):
@@ -213,15 +225,180 @@ def test_cli_writes_one_metrics_line_per_step(tmp_path):
     import yaml
 
     cfg_path = tmp_path / "tiny.yaml"
-    cfg_path.write_text(yaml.safe_dump(_cfg()))
-    out = tmp_path / "metrics.jsonl"
-    port_train.main([str(cfg_path), "--synthetic", "12", "--steps", "3",
-                     "--device", "cpu", "--metrics", str(out)])
-    lines = [json.loads(x) for x in out.read_text().splitlines()]
-    assert [m["step"] for m in lines] == [0, 1, 2]
-    assert all(np.isfinite(m["total_loss"]) for m in lines)
-    assert lines[0]["lr"] == 0.0 and lines[1]["lr"] > 0  # 2 warm-up steps
+    out = tmp_path / "out"
+    # 12 rows, split 0.25: 9 train rows, 2 batches of 4 an epoch
+    cfg_path.write_text(yaml.safe_dump({**_cfg(), "epochs": 2, "output_dir": str(out)}))
+    port_train.main([str(cfg_path), "--synthetic", "12", "--device", "cpu"])
+    lines = [json.loads(x) for x in (out / "metrics.jsonl").read_text().splitlines()]
+    steps = [m for m in lines if "total_loss" in m]
+    assert [m["step"] for m in steps] == [1, 2, 3, 4]
+    assert all(np.isfinite(m["total_loss"]) for m in steps)
+    assert steps[0]["lr"] == 0.0 and steps[1]["lr"] > 0  # 2 warm-up steps
 
-    cfg_path.write_text(yaml.safe_dump({**_cfg(), "dataset": "data/tcga_dataset"}))
-    with pytest.raises(NotImplementedError, match="dataset loader"):
+    cfg_path.write_text(yaml.safe_dump({**_cfg(), "dataset": str(tmp_path / "missing"),
+                                        "output_dir": str(out)}))
+    with pytest.raises(FileNotFoundError):  # the loader now reads dataset:
         port_train.main([str(cfg_path), "--device", "cpu"])
+
+
+def test_initial_weights_and_shuffle_follow_config_seed(tmp_path):
+    """The seed repair: ``config.seed`` draws the initial weights and
+    orders the batches, as in the JAX package (the port once took a
+    separate seed of 0 and cycled the rows in order)."""
+    rows = make_tcga_like(12, widths=WIDTHS, p_missing=0.25, seed=0)
+    cfg = training_config_from_dict({**_cfg(), "seed": 5})
+    model = port_train.build_trainer(cfg, "cpu")[0]
+    want = build_model(get_model_config(cfg), fused_ff=False)
+    want.init_weights(torch.Generator().manual_seed(5))
+    for k, v in want.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+    other = port_train.build_trainer(training_config_from_dict({**_cfg(), "seed": 6}), "cpu")[0]
+    assert not torch.equal(other.return_tokens, model.return_tokens)
+
+    # the run's first step: those weights on the first batch that the
+    # loader, shuffled from config.seed, draws
+    from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
+
+    cfg.output_dir = str(tmp_path / "run")
+    logged = []
+    port_train.train(cfg, device="cpu", rows=rows, log=logged.append)
+    model, opt, sched = port_train.build_trainer(cfg, "cpu", num_training_steps=2)
+    train_rows = setup_data(rows, split=cfg.split, ds_seed=cfg.ds_seed)["train"]
+    loader = BatchedLoader(train_rows, MultimodalCollator(cfg.modality_config.to_plain()),
+                           cfg.batch_size, shuffle=True, seed=5)
+    first = port_train.train_step(model, opt, sched, _port_batch(next(iter(loader))),
+                                  clip=cfg.clip)
+    assert logged[0]["total_loss"] == first["total_loss"]
+    in_order = port_train.train_step(
+        *port_train.build_trainer(cfg, "cpu", num_training_steps=2),
+        _port_batch(MultimodalCollator(cfg.modality_config.to_plain())(train_rows[:4])),
+        clip=cfg.clip,
+    )
+    assert in_order["total_loss"] != first["total_loss"]
+
+
+def _accum_case(monkeypatch, cfg_dict, batch_np, steps=2):
+    """``steps`` steps of JAX's ``make_train_step(n_accum=2)`` and of the
+    port's ``train_step(n_accum=2)`` from the same weights."""
+    jcfg, jmodel = _jax_setup(monkeypatch, cfg_dict)
+    tx = make_optimizer(jcfg, num_training_steps=STEPS)
+    schedule = jax_hf_lr_schedule(jcfg.lr_scheduler_type, jcfg.lr, jcfg.num_warmup_steps, STEPS)
+    bj = jax.tree.map(jnp.asarray, batch_np)
+    state = init_state(jmodel, tx, bj, seed=0)
+    params0 = jax.tree.map(np.asarray, state["params"])
+    step = make_train_step(jmodel, tx, schedule, n_accum=2)
+    jhist = []
+    for _ in range(steps):
+        state, metrics = step(state, bj)
+        jhist.append({k: float(v) for k, v in metrics.items()})
+    cfg = training_config_from_dict(cfg_dict)
+    model, opt, sched = port_train.build_trainer(
+        cfg, "cpu", num_training_steps=STEPS, params=state_dict_from_jax_params(params0)
+    )
+    phist = [port_train.train_step(model, opt, sched, _port_batch(batch_np), clip=cfg.clip,
+                                   n_accum=2) for _ in range(steps)]
+    jparams = state_dict_from_jax_params(jax.tree.map(np.asarray, state["params"]))
+    return jhist, phist, jparams, model
+
+
+def test_grad_accum_step_matches_jax(monkeypatch):
+    cfg_dict = {**_cfg(), "batch_size": 8, "grad_accum": 2}
+    rows = make_tcga_like(8, widths=WIDTHS, p_missing=0.25, seed=0)
+    batch_np = JaxCollator(jax_config(cfg_dict).modality_config.to_plain())(rows)
+    jhist, phist, jparams, model = _accum_case(monkeypatch, cfg_dict, batch_np)
+    for j, p in zip(jhist, phist):
+        assert set(p) == set(j)
+        for k, v in j.items():
+            if np.isnan(v):
+                assert np.isnan(p[k]), k
+            else:  # fp32 both sides, sums in another order
+                np.testing.assert_allclose(p[k], v, rtol=1e-5, err_msg=k)
+    assert phist[1]["lr"] > 0
+    for k, v in jparams.items():
+        # one AdamW step at lr 5e-4 moves every weight by about lr
+        # whatever its gradient: agreement to 1e-5 relative, with a floor
+        # of 1e-5 of the tensor's largest entry
+        np.testing.assert_allclose(model.state_dict()[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(v.abs().max()), err_msg=k)
+
+
+def test_grad_accum_averages_a_pair_over_the_microbatches_that_have_it(monkeypatch):
+    """mirna is present only in rows 1 and 3 (microbatch 1, the rows
+    i + 2k): its pair losses come from that microbatch alone, not NaN;
+    protein is absent everywhere, so its pairs stay NaN; the gradient
+    stays finite (``tests/test_grad_accum.py`` is the JAX oracle)."""
+    cfg_dict = {**_cfg(), "grad_accum": 2}
+    rows = make_tcga_like(4, widths=WIDTHS, p_missing=0.0, seed=3)
+    for i, r in enumerate(rows):
+        r["protein"]["values"][:] = -10000.0
+        if i % 2 == 0:
+            r["mirna"]["values"][:] = -10000.0
+    batch_np = JaxCollator(jax_config(cfg_dict).modality_config.to_plain())(rows)
+    jhist, phist, _, model = _accum_case(monkeypatch, cfg_dict, batch_np, steps=1)
+    j, p = jhist[0], phist[0]
+    mirna = [k for k in p if "mirna" in k and "protein" not in k]
+    protein = [k for k in p if "protein" in k]
+    assert mirna and protein
+    for k in mirna:
+        assert np.isfinite(p[k]) and np.isfinite(j[k]), k
+        np.testing.assert_allclose(p[k], j[k], rtol=1e-5, err_msg=k)
+    for k in protein:
+        assert np.isnan(p[k]) and np.isnan(j[k]), k
+    assert np.isfinite(p["grad_norm"]) and np.isfinite(p["total_loss"])
+    np.testing.assert_allclose(p["grad_norm"], j["grad_norm"], rtol=1e-5)
+    assert all(torch.isfinite(q.grad).all() for q in model.parameters())
+
+
+def test_bf16_moments_trajectory_matches_jax(monkeypatch, tmp_path):
+    cfg_dict = {**_cfg(), "moment_dtype": "bf16"}
+    batches = _batches(cfg_dict)
+    params0, jhist = _jax_trajectory(monkeypatch, cfg_dict, batches)
+    cfg = training_config_from_dict(cfg_dict)
+    model, opt, sched = port_train.build_trainer(
+        cfg, "cpu", num_training_steps=STEPS, params=state_dict_from_jax_params(params0)
+    )
+    assert isinstance(opt, port_train.AdamW)
+    phist = []
+    for i in range(STEPS):
+        phist.append(port_train.train_step(model, opt, sched, _port_batch(batches[i % 2]),
+                                           clip=cfg.clip))
+        if i == 2:  # the moments survive a checkpoint round trip
+            from mca_tpu_torch import checkpoint
+
+            checkpoint.Checkpointer().save_state(
+                {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                 "schedule": sched.state_dict(), "step": 3, "epoch": 0}, tmp_path)
+            saved = checkpoint.load_state(tmp_path)
+            model, opt, sched = port_train.build_trainer(cfg, "cpu", num_training_steps=STEPS,
+                                                         params=saved["model"])
+            opt.load_state_dict(saved["optimizer"])
+            sched.load_state_dict(saved["schedule"])
+            for st, want in zip(opt.state.values(), saved["optimizer"]["state"].values()):
+                assert st["exp_avg"].dtype == torch.bfloat16
+                assert torch.equal(st["exp_avg"], want["exp_avg"])
+    moments = [t for st in opt.state.values() for k, t in st.items() if k != "step"]
+    assert moments and all(t.dtype == torch.bfloat16 for t in moments)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for i, (p, j) in enumerate(zip(phist, jhist)):
+        # the same tolerance as the fp32 trajectory: both round the same
+        # fp32 moments to bf16, so they part only where the fp32 values
+        # straddle a rounding boundary
+        for k in ("total_loss", "fcl_loss", "no-fcl_loss", "grad_norm", "param_norm"):
+            np.testing.assert_allclose(p[k], j[k], rtol=1e-4, err_msg=f"step {i} {k}")
+
+
+def test_bf16_adamw_moves_like_fp32_adamw():
+    """With fp32 storage the optax-semantics AdamW is torch's AdamW to
+    rounding (the fp32 route keeps torch's, unchanged)."""
+    torch.manual_seed(0)
+    p0 = torch.randn(64, 32)
+    a = torch.nn.Parameter(p0.clone())
+    b = torch.nn.Parameter(p0.clone())
+    opt_a = torch.optim.AdamW([a], lr=1e-2, weight_decay=0.01)
+    opt_b = port_train.AdamW([b], lr=1e-2, moment_dtype=torch.float32)
+    for _ in range(5):
+        g = torch.randn(64, 32)
+        a.grad, b.grad = g.clone(), g.clone()
+        opt_a.step()
+        opt_b.step()
+    torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
