@@ -98,8 +98,33 @@ Phases (each asserted; any failure exits non-zero):
    step's.  (d) Prints ms per step, per eval pass and per checkpoint
    save (synchronous and asynchronous), peak memory with and without
    ``remat`` and the optimizer state's bytes, fp32 and bf16 moments.
-9. one ``{"kernels": [...]}`` line (eight kernels, launches from phases
-   2-7), then the last line ``{"ok": true, "device": {...}}``.
+9. the evaluation path, on phase 8's rows and run directory. (a) The
+   main path, launch counts at 0 just before it: ``infer`` from phase
+   8's final ``model/``: 4 train batches and 1 eval batch, K1 and K5 5
+   times a batch and no backward kernel; six files with 4 + 11 + 1
+   embedding keys (str, frozenset, ``fusion``), 32 and 8 rows, the rows'
+   own labels; the eval split against the same weights in fp32 on the
+   CPU (relative L2 per key); ``infer`` from ``1/`` (a train state)
+   bitwise equal. (b) ``infer`` for MMA/Zorro (``tcga_mma_d40.yaml``,
+   ``predrop``) and EAO (``tcga_eao.yaml``: ten unmasked passes, T 198
+   to 1600) at full width, weights from seed 0: K1 and K5 25 and 250
+   times, the eval split against fp32 on the CPU; K1 and K5 against
+   their plain versions at every shape the family's infer gives them:
+   K1 under the Zorro mask at MMA's T 2548 and unmasked at each of
+   EAO's seven pass lengths (198, 662, 800, 860, 998, 1462, 1600),
+   with ragged key padding and a sample without the modality, and K5
+   on 8 x T rows of each; a planted fault (a dropped tile, a zeroed
+   W2 chunk) must fail each check. (c)
+   ``probe`` on (a)'s files with ``tcga_probe.yaml``'s settings (BCE,
+   linear, 1024 epochs): the host and device loops agree on a full
+   batch, the card's host loop agrees with the CPU's every epoch; EAO's
+   files probed on ``combo:0,1`` give finite metrics. (d) Prints wall
+   and device ms per ``infer`` batch and rows/s for each family, ms to
+   write a split's files, and probe ms per epoch for each loop.
+10. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+   2-7 and phase 9's MCA, MMA and EAO infer runs, each counted from 0,
+   so K1's and K5's each include phase 9's 25 + 25 + 250), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -112,6 +137,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import signal
 import struct
 import subprocess
@@ -128,12 +154,14 @@ import torch
 
 import mca_tpu_torch
 from mca_tpu_torch import _build
-from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state
-from mca_tpu_torch.config import get_model_config, training_config
+from mca_tpu_torch import infer as infer_lib
+from mca_tpu_torch import probe as probe_lib
+from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state, save_params
+from mca_tpu_torch.config import embedding_eval_config, get_model_config, training_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.data.synthetic import tabular_rows
-from mca_tpu_torch.masks import build_masks
+from mca_tpu_torch.masks import adjusted_powerset, build_masks
 from mca_tpu_torch.models import build_model
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
@@ -233,6 +261,20 @@ RUN_SPLIT = 0.2
 # the CPU from the same weights: an average of pair losses, as phase 6's
 # first-step loss (TRAIN_LOSS_RTOL)
 RUN_EVAL_RTOL = 1e-2
+# phase 9: the families it runs infer for, at full width, with weights
+# from seed 0; K1 and K5 are held against their plain versions at every
+# shape each family's infer gives them (family_shapes)
+EVAL_CONFIGS = {"mma": ROOT / "configs" / "tcga_mma_d40.yaml",
+                "eao": ROOT / "configs" / "tcga_eao.yaml"}
+PROBE_CONFIG = ROOT / "configs" / "tcga_probe.yaml"
+# the probe's host and device loops on one full batch: order cannot
+# matter, so they differ only in the order of their fp32 sums (the JAX
+# package's pin for its scanned loop, tests/test_e2e.py)
+PROBE_LOOPS_RTOL = 2e-4
+# the probe's host loop on the card against the CPU from the same head:
+# fp32 products and sums in another order, carried through 1024 AdamW
+# steps (normalised updates, so a rounding gap moves a step by about lr)
+PROBE_CPU_RTOL = 1e-3
 PEAK_FP32 = 67e12  # FLOP/s, outside the tensor cores (an FFMA counts 2)
 PEAK_FP32_ISSUE = PEAK_FP32 / 2  # fp32 instructions/s: 128 lanes a clock per SM
 PEAK_MUFU = roofline_tool.rate_ceilings(1980.0, 132)["exp_elems_s"]  # 132 SMs at 1980 MHz
@@ -306,11 +348,18 @@ def bf16_err(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> float:
     return diff
 
 
-def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0):
-    """q, k, v at the model's shapes, the real MCA mask, and key padding
-    with ragged modality tails and one sample missing a modality."""
-    ms = build_masks(list(dims), fusion, [4, 3, 2], fcl=True)
-    t = ms.seq_len
+def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0,
+                 masked=True, combos=(4, 3, 2), zorro=False):
+    """q, k, v at the model's shapes, the real MCA mask (MMA's with
+    ``zorro``), and key padding with ragged modality tails and one
+    sample missing a modality (the second, or the only one).
+    ``masked=False``: one EAO pass over the modalities ``dims``, no
+    static mask (None) and no fusion tokens."""
+    if masked:
+        ms = build_masks(list(dims), fusion, list(combos), zorro=zorro, fcl=True)
+        mask, t = ms.attn_mask, ms.seq_len
+    else:
+        mask, t = None, sum(dims)
     g = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (
         torch.randn((b, h, t, 64), generator=g, device=device).to(torch.bfloat16)
@@ -323,19 +372,27 @@ def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0)
         for m in range(len(dims)):
             cut = int(rng.integers(dims[m] // 2, dims[m] + 1))
             pad[i, starts[m] + cut : starts[m + 1]] = True
-    pad[1, starts[1] : starts[2]] = True  # sample 1 misses modality 1
-    return ms.attn_mask, q, k, v, pad.to(device)
+    missing = min(1, len(dims) - 1)
+    pad[1, starts[missing] : starts[missing + 1]] = True  # sample 1 misses it
+    return mask, q, k, v, pad.to(device)
 
 
-def check_flash(device, b=8, h=8) -> dict:
-    mask, q, k, v, pad = flash_inputs(device, b=b, h=h)
+def hold_flash(mask, q, k, v, pad) -> dict:
+    """K1 on ``(q, k, v)`` against its plain version: live rows within
+    bf16 tolerance, dead rows exactly 0 with lse NEG_INF, and a planted
+    fault (the plain forward with one 64 x 64 tile dropped: of the tiles
+    off the ragged edge that the padding leaves some entry live, and
+    that the static mask leaves partly blocked where it blocks any, the
+    one with the median live count) outside the same tolerance.
+    ``mask`` None is the unmasked call, as EAO's passes make it."""
     b, h, t, d = q.shape
     scale = d**-0.5
+    static = flash.all_live_mask(t) if mask is None else mask
     with torch.inference_mode():
         out, lse = flash.flash_attention(q, k, v, mask, pad, scale)
         ref, ref_lse = flash.flash_attention_reference(q, k, v, mask, pad, scale)
         torch.cuda.synchronize()
-        blocked = torch.from_numpy(mask).to(device)[None] | pad[:, None, :]
+        blocked = torch.from_numpy(static).to(q.device)[None] | pad[:, None, :]
         live = ~blocked.all(dim=2)  # [B, T]
         live_bh = live[:, None, :].expand(b, h, t)
         err = bf16_err(out[live_bh], ref[live_bh], FLASH_ATOL)
@@ -343,18 +400,29 @@ def check_flash(device, b=8, h=8) -> dict:
         assert bool((lse[~live_bh] == flash.NEG_INF).all())
         lse_err = float((lse[live_bh] - ref_lse[live_bh]).abs().max())
         assert lse_err < 1e-3, lse_err
-        assert int((~live).sum()) > 0  # the check covered dead rows
-        # the planted fault: the plain forward with one partly masked tile
-        # dropped must put live entries outside the same tolerance
-        qi, kj, n_live = planted_tile(mask, pad)
-        faulty_mask = mask.copy()
+        # the check covered dead rows (unmasked, only a sample that misses
+        # every modality of the pass has them)
+        assert int((~live).sum()) > 0 or not bool(pad.all(dim=1).any()) and mask is None
+        qi, kj, n_live = planted_tile(static, pad, partial=mask is not None)
+        faulty_mask = static.copy()
         faulty_mask[qi * flash.BLOCK : (qi + 1) * flash.BLOCK,
                     kj * flash.BLOCK : (kj + 1) * flash.BLOCK] = True
         faulty = flash.flash_attention_reference(q, k, v, faulty_mask, pad, scale)[0]
         flagged = outside_bf16(out[live_bh], faulty[live_bh], FLASH_ATOL)
         del faulty
         assert flagged > 0, "planted fault passes: a dropped tile"
+    return {"err": err, "lse_err": lse_err, "blocked": blocked, "lse": lse,
+            "planted": (qi, kj, n_live, flagged)}
 
+
+def check_flash(device, b=8, h=8) -> dict:
+    mask, q, k, v, pad = flash_inputs(device, b=b, h=h)
+    b, h, t, d = q.shape
+    scale = d**-0.5
+    held = hold_flash(mask, q, k, v, pad)
+    err, lse_err, blocked, lse = held["err"], held["lse_err"], held["blocked"], held["lse"]
+    qi, kj, n_live, flagged = held["planted"]
+    with torch.inference_mode():
         sdpa_mask = ~blocked[:, None]  # True = may attend
         ms = cuda_ms(lambda: flash.flash_attention(q, k, v, mask, pad, scale), 20)
         plain_ms = cuda_ms(
@@ -408,18 +476,19 @@ def tile_live(mask: np.ndarray, pad: torch.Tensor, i: int, j: int) -> int:
     return int((live & ~pad.cpu()[:, None, j * bl : (j + 1) * bl]).sum())
 
 
-def planted_tile(mask: np.ndarray, pad: torch.Tensor):
+def planted_tile(mask: np.ndarray, pad: torch.Tensor, partial: bool = True):
     """The (q tile, kv tile) that the planted fault drops, and its live
     entries over the batch: of the tiles that the static mask leaves
-    partly blocked (off the ragged edge) and the padding leaves some
-    entry live, the one with the median count of live entries."""
+    partly blocked (any tile, without ``partial``) off the ragged edge
+    and the padding leaves some entry live, the one with the median
+    count of live entries."""
     row_ptr, col_idx, full = flash.tile_schedule(mask)
     nt = len(row_ptr) - 1
     tiles = []
     for i in range(nt - 1):
         for n in range(row_ptr[i], row_ptr[i + 1]):
             j = int(col_idx[n])
-            if not full[n] and j < nt - 1:
+            if (not full[n] or not partial) and j < nt - 1:
                 cnt = tile_live(mask, pad, i, j)
                 if cnt:
                     tiles.append((cnt, i, j))
@@ -634,29 +703,42 @@ def check_flash_bwd(device) -> list:
     return entries
 
 
-def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
+def ff_inputs(device, n, dim=512, inner=1365, seed=0) -> tuple:
+    """x [n, dim] and the GEGLU weights W1 [dim, 2 inner], W2 [inner,
+    dim] at the model's init scale, bf16, and K5's prepared weights."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((n, dim), generator=g, device=device).to(torch.bfloat16)
     w1 = ((torch.rand((dim, 2 * inner), generator=g, device=device) * 2 - 1)
           * dim**-0.5).to(torch.bfloat16)
     w2 = ((torch.rand((inner, dim), generator=g, device=device) * 2 - 1)
           * inner**-0.5).to(torch.bfloat16)
-    prepared = ff.prepare_geglu_weights(w1, w2, torch.bfloat16)
-    # the padded halves, contiguous: rows of 2816 bytes, 16-byte aligned
-    w1u, w1g, w2p = (w.contiguous() for w in ff.split_geglu_weights(*prepared))
+    return x, w1, w2, ff.prepare_geglu_weights(w1, w2, torch.bfloat16)
+
+
+def hold_ff(x, w1, w2, prepared) -> dict:
+    """K5 on ``x`` against its plain version within bf16 tolerance, and a
+    planted fault (the plain FF with one 64-wide inner chunk's W2 rows
+    zeroed) outside the same tolerance."""
     with torch.inference_mode():
         out = ff.geglu_ff(x, *prepared)
         ref = ff.geglu_ff_reference(x, w1, w2)
         torch.cuda.synchronize()
         err = bf16_err(out, ref, FF_ATOL)
-        # the planted fault: the plain FF with one 64-wide inner chunk's W2
-        # rows zeroed must put entries outside the same tolerance
         chunk = prepared[1].shape[1] // ff.INNER_MULTIPLE // 2
         w2_fault = prepared[1].clone()
         w2_fault[:, chunk * ff.INNER_MULTIPLE : (chunk + 1) * ff.INNER_MULTIPLE] = 0
         flagged = outside_bf16(out, ff.geglu_ff_plain(x, prepared[0], w2_fault), FF_ATOL)
         assert flagged > 0, "planted fault passes: a W2 chunk zeroed"
+    return {"err": err, "out": out, "planted": (chunk, flagged)}
 
+
+def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
+    x, w1, w2, prepared = ff_inputs(device, n, dim, inner, seed)
+    # the padded halves, contiguous: rows of 2816 bytes, 16-byte aligned
+    w1u, w1g, w2p = (w.contiguous() for w in ff.split_geglu_weights(*prepared))
+    held = hold_ff(x, w1, w2, prepared)
+    err, out, (chunk, flagged) = held["err"], held["out"], held["planted"]
+    with torch.inference_mode():
         def chain():  # the unpadded [512, 2730] W1: rows of 5460 bytes
             u, gate = (x @ w1).chunk(2, dim=-1)
             return (torch.nn.functional.gelu(gate) * u) @ w2
@@ -1024,206 +1106,203 @@ def optimizer_state_bytes(opt) -> int:
                for k, t in st.items() if k != "step" and torch.is_tensor(t))
 
 
-def check_run(config, device, cpu_device="cpu") -> dict:
-    """Phase 8, the training run (module docstring); returns what it
-    measured."""
-    rows = synthetic_rows(config, RUN_ROWS, seed=int(config.seed))
+def check_run(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
+    """Phase 8, the training run (module docstring), on ``rows`` into
+    ``tmp``; returns what it measured."""
     depth, bs = int(config.layers), int(config.batch_size)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
-        tmp = Path(tmp)
-        data = setup_data(rows, split=RUN_SPLIT, ds_seed=int(config.ds_seed))
-        collate = MultimodalCollator(config.modality_config.to_plain())
-        n_train, n_eval = len(data["train"]) // bs, len(data["test"]) // bs
-        assert (n_train, n_eval) == (4, 1), (n_train, n_eval)
-        batch = to_device(collate(data["train"][:bs]), device)
+    data = setup_data(rows, split=RUN_SPLIT, ds_seed=int(config.ds_seed))
+    collate = MultimodalCollator(config.modality_config.to_plain())
+    n_train, n_eval = len(data["train"]) // bs, len(data["test"]) // bs
+    assert (n_train, n_eval) == (4, 1), (n_train, n_eval)
+    batch = to_device(collate(data["train"][:bs]), device)
 
-        # (a) the main path, with every launch count at 0 just before it
+    # (a) the main path, with every launch count at 0 just before it
+    flash.default_bwd_impl = "fused"
+    stamps, epoch0 = [], {}
+
+    def log_a(rec):
+        if "total_loss" in rec:
+            stamps.append(time.perf_counter())
+        if "val_epoch_total_loss" in rec and not epoch0:
+            epoch0.update(load_params(tmp / "a" / "0"))  # what this eval ran on
+
+    cfg = run_config(config, tmp / "a", epochs=2, n_step_checkpoint=2,
+                     checkpoint_keep=1, run_eval_loop=True)
+    reset_launches()
+    out = train(cfg, device=device.type, rows=rows, log=log_a)
+    counts = launches_now()
+    n_steps = 2 * n_train
+    print(f"run (a): launches {counts}", flush=True)
+    assert counts == {"flash_fwd": depth * (n_steps + 2 * n_eval), "geglu_ff": 0,
+                      "flash_bwd": depth * n_steps, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}, counts
+    steps = step_records(out)
+    assert_finite_steps(steps, n_steps)
+    assert [r["epoch"] for r in steps] == [0] * n_train + [1] * n_train
+    evals = [r for r in run_records(out) if "val_epoch_total_loss" in r]
+    assert len(evals) == 2 and [r["step"] for r in evals] == [n_train, n_steps], evals
+    for r in evals:
+        bad = {k: v for k, v in r.items() if k.startswith("val_epoch_") and not math.isfinite(v)}
+        assert not bad, bad
+    assert (Path(out) / "1" / "state").is_dir() and not (Path(out) / "0").exists()
+    final = final_params(out)
+    st = read_safetensors(Path(out) / "model.safetensors")
+    assert st.keys() == final.keys(), st.keys() ^ final.keys()
+    assert all(torch.equal(st[k], final[k]) for k in final)
+    # the first eval again, in fp32 on the CPU from the epoch-0 weights
+    cfg32 = run_config(config, tmp / "cpu", precision="fp32")
+    model32 = build_trainer(cfg32, cpu_device, params=epoch0)[0]
+    cpu_evals = []
+    t0 = time.perf_counter()
+    run_eval_epoch(model32, BatchedLoader(data["test"], collate, bs),
+                   lambda rec, at: cpu_evals.append(rec), n_train, torch.device(cpu_device))
+    cpu_eval_s = time.perf_counter() - t0
+    del model32
+    gpu_loss, cpu_loss = evals[0]["val_epoch_total_loss"], cpu_evals[-1]["val_epoch_total_loss"]
+    eval_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"run (a): first eval val_epoch_total_loss bf16 GPU {gpu_loss:.6f}, fp32 CPU "
+          f"{cpu_loss:.6f} (relative {eval_rel:.3e}; CPU eval {cpu_eval_s:.1f} s)", flush=True)
+    assert eval_rel <= RUN_EVAL_RTOL, eval_rel
+    # wall ms of each step but an epoch's first (the stamps are the
+    # step records, each after the step's sync); with
+    # n_step_checkpoint 2, steps 3 and 7 also hold a save's copy to
+    # the host, and its write runs on a thread beside the next steps
+    step_ms = {s: 1e3 * (stamps[s - 1] - stamps[s - 2])
+               for s in range(1, n_steps + 1) if (s - 1) % n_train}
+
+    # (b) restart on the split backward, deterministic algorithms on
+    base = dict(epochs=2, n_step_checkpoint=0, checkpoint_keep=2, run_eval_loop=True)
+
+    def stop_after_first_eval(rec):
+        if "val_epoch_total_loss" in rec:
+            raise StopRun
+
+    def sigterm_at_step_2(rec):
+        if rec["step"] == 2 and "total_loss" in rec:
+            signal.raise_signal(signal.SIGTERM)
+
+    old_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    flash.default_bwd_impl = "split"
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight = train(run_config(config, tmp / "b0", **base), device.type, rows=rows)
+            try:
+                train(run_config(config, tmp / "b1", **base), device.type, rows=rows,
+                      log=stop_after_first_eval)
+                raise AssertionError("the run went on past epoch 0")
+            except StopRun:
+                pass
+            restarted = train(run_config(config, tmp / "b2", restart=str(tmp / "b1" / "0"),
+                                         **base), device.type, rows=rows)
+            try:
+                train(run_config(config, tmp / "b3", **base), device.type, rows=rows,
+                      log=sigterm_at_step_2)
+                raise AssertionError("SIGTERM did not stop the run")
+            except PreemptedError as e:
+                assert e.step == 2, e.step
+            assert json.loads((tmp / "b3" / "preempted.json").read_text())["step"] == 2
+            resumed = train(run_config(config, tmp / "b4", restart=str(tmp / "b3"), **base),
+                            device.type, rows=rows)
+    finally:
+        torch.use_deterministic_algorithms(False)
         flash.default_bwd_impl = "fused"
-        stamps, epoch0 = [], {}
+        if old_cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cublas
+    notes = sorted({str(w.message).split("\n")[0] for w in caught})
+    print(f"run (b): warnings under deterministic algorithms: {notes or 'none'}", flush=True)
+    ref = final_params(straight)
+    ref_steps = {r["step"]: r["total_loss"] for r in step_records(straight)}
+    for name, out_b, first in (("epoch restart", restarted, n_train + 1),
+                               ("mid-epoch resume", resumed, 3)):
+        got = step_records(out_b)
+        assert [r["step"] for r in got] == list(range(first, n_steps + 1)), (name, got)
+        loss_gap = max(abs(r["total_loss"] - ref_steps[r["step"]]) for r in got)
+        p = final_params(out_b)
+        equal = all(torch.equal(p[k], ref[k]) for k in ref)
+        rel = rel_l2(torch.cat([p[k].reshape(-1) for k in ref]),
+                     torch.cat([ref[k].reshape(-1) for k in ref]))
+        print(f"run (b): {name}: final parameters bitwise equal {equal} (relative L2 "
+              f"{rel:.3e}), per-step total_loss max gap {loss_gap:.3e}", flush=True)
+        assert equal and loss_gap == 0.0, (name, rel, loss_gap)
 
-        def log_a(rec):
-            if "total_loss" in rec:
-                stamps.append(time.perf_counter())
-            if "val_epoch_total_loss" in rec and not epoch0:
-                epoch0.update(load_params(tmp / "a" / "0"))  # what this eval ran on
+    # (c) remat + grad_accum 2 + bf16 moments, one epoch
+    reset_launches()
+    out_c = train(run_config(config, tmp / "c", epochs=1, remat=True, grad_accum=2,
+                             moment_dtype="bf16", run_eval_loop=False),
+                  device.type, rows=rows)
+    counts_c = launches_now()
+    print(f"run (c): launches {counts_c}", flush=True)
+    assert counts_c == {"flash_fwd": 2 * 2 * depth * n_train, "geglu_ff": 0,
+                        "flash_bwd": 2 * depth * n_train, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0}, counts_c
+    assert_finite_steps(step_records(out_c), n_train)
+    moments = load_state(Path(out_c) / "0")["optimizer"]["state"]
+    assert moments and all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.bfloat16
+                           for s in moments.values())
 
-        cfg = run_config(config, tmp / "a", epochs=2, n_step_checkpoint=2,
-                         checkpoint_keep=1, run_eval_loop=True)
+    def first_step(cfg):
+        model = build_trainer(cfg, device.type, params=final)[0]
         reset_launches()
-        out = train(cfg, device=device.type, rows=rows, log=log_a)
-        counts = launches_now()
-        n_steps = 2 * n_train
-        print(f"run (a): launches {counts}", flush=True)
-        assert counts == {"flash_fwd": depth * (n_steps + 2 * n_eval), "geglu_ff": 0,
-                          "flash_bwd": depth * n_steps, "flash_bwd_dq": 0,
-                          "flash_bwd_dkv": 0}, counts
-        steps = step_records(out)
-        assert_finite_steps(steps, n_steps)
-        assert [r["epoch"] for r in steps] == [0] * n_train + [1] * n_train
-        evals = [r for r in run_records(out) if "val_epoch_total_loss" in r]
-        assert len(evals) == 2 and [r["step"] for r in evals] == [n_train, n_steps], evals
-        for r in evals:
-            bad = {k: v for k, v in r.items() if k.startswith("val_epoch_") and not math.isfinite(v)}
-            assert not bad, bad
-        assert (Path(out) / "1" / "state").is_dir() and not (Path(out) / "0").exists()
-        final = final_params(out)
-        st = read_safetensors(Path(out) / "model.safetensors")
-        assert st.keys() == final.keys(), st.keys() ^ final.keys()
-        assert all(torch.equal(st[k], final[k]) for k in final)
-        # the first eval again, in fp32 on the CPU from the epoch-0 weights
-        cfg32 = run_config(config, tmp / "cpu", precision="fp32")
-        model32 = build_trainer(cfg32, cpu_device, params=epoch0)[0]
-        cpu_evals = []
+        loss = float(forward_backward(model, batch)["total_loss"])
+        return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}, flash.launches
+
+    plain_loss, plain_g, plain_k1 = first_step(run_config(config, tmp / "g"))
+    remat_loss, remat_g, remat_k1 = first_step(run_config(config, tmp / "g", remat=True))
+    assert (plain_k1, remat_k1) == (depth, 2 * depth), (plain_k1, remat_k1)
+    remat_rel = rel_l2(torch.cat([remat_g[n].reshape(-1) for n in plain_g]),
+                       torch.cat([plain_g[n].reshape(-1) for n in plain_g]))
+    remat_attn = max(rel_l2(remat_g[n], plain_g[n]) for n in attention_leaves(plain_g))
+    print(f"run (c): remat vs plain first step: loss {remat_loss:.6f} vs {plain_loss:.6f}, "
+          f"gradient relative L2 {remat_rel:.3e}, attention projections at most "
+          f"{remat_attn:.3e}", flush=True)
+    assert remat_rel <= TRAIN_GRAD_REL_L2 and remat_attn <= TRAIN_ATTN_GRAD_REL_L2
+
+    # (d) times and memory, outside the counted runs
+    def step_memory(cfg):
+        model, opt, sched = build_trainer(cfg, device.type, num_training_steps=8, params=final)
+        train_step(model, opt, sched, batch, clip=float(cfg.clip))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        train_step(model, opt, sched, batch, clip=float(cfg.clip))
+        torch.cuda.synchronize()
+        return model, opt, sched, before, torch.cuda.max_memory_allocated(), \
+            optimizer_state_bytes(opt)
+
+    model, opt, sched, before, peak, opt32 = step_memory(run_config(config, tmp / "m"))
+    eval_dl = BatchedLoader(data["test"], collate, bs)
+    eval_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run_eval_epoch(model32, BatchedLoader(data["test"], collate, bs),
-                       lambda rec, at: cpu_evals.append(rec), n_train, torch.device(cpu_device))
-        cpu_eval_s = time.perf_counter() - t0
-        del model32
-        gpu_loss, cpu_loss = evals[0]["val_epoch_total_loss"], cpu_evals[-1]["val_epoch_total_loss"]
-        eval_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-        print(f"run (a): first eval val_epoch_total_loss bf16 GPU {gpu_loss:.6f}, fp32 CPU "
-              f"{cpu_loss:.6f} (relative {eval_rel:.3e}; CPU eval {cpu_eval_s:.1f} s)", flush=True)
-        assert eval_rel <= RUN_EVAL_RTOL, eval_rel
-        # wall ms of each step but an epoch's first (the stamps are the
-        # step records, each after the step's sync); with
-        # n_step_checkpoint 2, steps 3 and 7 also hold a save's copy to
-        # the host, and its write runs on a thread beside the next steps
-        step_ms = {s: 1e3 * (stamps[s - 1] - stamps[s - 2])
-                   for s in range(1, n_steps + 1) if (s - 1) % n_train}
-
-        # (b) restart on the split backward, deterministic algorithms on
-        base = dict(epochs=2, n_step_checkpoint=0, checkpoint_keep=2, run_eval_loop=True)
-
-        def stop_after_first_eval(rec):
-            if "val_epoch_total_loss" in rec:
-                raise StopRun
-
-        def sigterm_at_step_2(rec):
-            if rec["step"] == 2 and "total_loss" in rec:
-                signal.raise_signal(signal.SIGTERM)
-
-        old_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        flash.default_bwd_impl = "split"
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                straight = train(run_config(config, tmp / "b0", **base), device.type, rows=rows)
-                try:
-                    train(run_config(config, tmp / "b1", **base), device.type, rows=rows,
-                          log=stop_after_first_eval)
-                    raise AssertionError("the run went on past epoch 0")
-                except StopRun:
-                    pass
-                restarted = train(run_config(config, tmp / "b2", restart=str(tmp / "b1" / "0"),
-                                             **base), device.type, rows=rows)
-                try:
-                    train(run_config(config, tmp / "b3", **base), device.type, rows=rows,
-                          log=sigterm_at_step_2)
-                    raise AssertionError("SIGTERM did not stop the run")
-                except PreemptedError as e:
-                    assert e.step == 2, e.step
-                assert json.loads((tmp / "b3" / "preempted.json").read_text())["step"] == 2
-                resumed = train(run_config(config, tmp / "b4", restart=str(tmp / "b3"), **base),
-                                device.type, rows=rows)
-        finally:
-            torch.use_deterministic_algorithms(False)
-            flash.default_bwd_impl = "fused"
-            if old_cublas is None:
-                os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-            else:
-                os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cublas
-        notes = sorted({str(w.message).split("\n")[0] for w in caught})
-        print(f"run (b): warnings under deterministic algorithms: {notes or 'none'}", flush=True)
-        ref = final_params(straight)
-        ref_steps = {r["step"]: r["total_loss"] for r in step_records(straight)}
-        for name, out_b, first in (("epoch restart", restarted, n_train + 1),
-                                   ("mid-epoch resume", resumed, 3)):
-            got = step_records(out_b)
-            assert [r["step"] for r in got] == list(range(first, n_steps + 1)), (name, got)
-            loss_gap = max(abs(r["total_loss"] - ref_steps[r["step"]]) for r in got)
-            p = final_params(out_b)
-            equal = all(torch.equal(p[k], ref[k]) for k in ref)
-            rel = rel_l2(torch.cat([p[k].reshape(-1) for k in ref]),
-                         torch.cat([ref[k].reshape(-1) for k in ref]))
-            print(f"run (b): {name}: final parameters bitwise equal {equal} (relative L2 "
-                  f"{rel:.3e}), per-step total_loss max gap {loss_gap:.3e}", flush=True)
-            assert equal and loss_gap == 0.0, (name, rel, loss_gap)
-
-        # (c) remat + grad_accum 2 + bf16 moments, one epoch
-        reset_launches()
-        out_c = train(run_config(config, tmp / "c", epochs=1, remat=True, grad_accum=2,
-                                 moment_dtype="bf16", run_eval_loop=False),
-                      device.type, rows=rows)
-        counts_c = launches_now()
-        print(f"run (c): launches {counts_c}", flush=True)
-        assert counts_c == {"flash_fwd": 2 * 2 * depth * n_train, "geglu_ff": 0,
-                            "flash_bwd": 2 * depth * n_train, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}, counts_c
-        assert_finite_steps(step_records(out_c), n_train)
-        moments = load_state(Path(out_c) / "0")["optimizer"]["state"]
-        assert moments and all(s["exp_avg"].dtype == s["exp_avg_sq"].dtype == torch.bfloat16
-                               for s in moments.values())
-
-        def first_step(cfg):
-            model = build_trainer(cfg, device.type, params=final)[0]
-            reset_launches()
-            loss = float(forward_backward(model, batch)["total_loss"])
-            return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}, flash.launches
-
-        plain_loss, plain_g, plain_k1 = first_step(run_config(config, tmp / "g"))
-        remat_loss, remat_g, remat_k1 = first_step(run_config(config, tmp / "g", remat=True))
-        assert (plain_k1, remat_k1) == (depth, 2 * depth), (plain_k1, remat_k1)
-        remat_rel = rel_l2(torch.cat([remat_g[n].reshape(-1) for n in plain_g]),
-                           torch.cat([plain_g[n].reshape(-1) for n in plain_g]))
-        remat_attn = max(rel_l2(remat_g[n], plain_g[n]) for n in attention_leaves(plain_g))
-        print(f"run (c): remat vs plain first step: loss {remat_loss:.6f} vs {plain_loss:.6f}, "
-              f"gradient relative L2 {remat_rel:.3e}, attention projections at most "
-              f"{remat_attn:.3e}", flush=True)
-        assert remat_rel <= TRAIN_GRAD_REL_L2 and remat_attn <= TRAIN_ATTN_GRAD_REL_L2
-
-        # (d) times and memory, outside the counted runs
-        def step_memory(cfg):
-            model, opt, sched = build_trainer(cfg, device.type, num_training_steps=8, params=final)
-            train_step(model, opt, sched, batch, clip=float(cfg.clip))
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            train_step(model, opt, sched, batch, clip=float(cfg.clip))
-            torch.cuda.synchronize()
-            return model, opt, sched, before, torch.cuda.max_memory_allocated(), \
-                optimizer_state_bytes(opt)
-
-        model, opt, sched, before, peak, opt32 = step_memory(run_config(config, tmp / "m"))
-        eval_dl = BatchedLoader(data["test"], collate, bs)
-        eval_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run_eval_epoch(model, eval_dl, lambda rec, at: None, 0, device)  # ends in a copy
-            eval_ms.append(1e3 * (time.perf_counter() - t0))
-        saver = Checkpointer()
-        state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
-                 "schedule": sched.state_dict(), "step": 1, "epoch": 0}
-        save_ms = []
-        for i in range(3):
-            t0 = time.perf_counter()
-            saver.save_state(state, tmp / "s", asynchronous=False)
-            save_ms.append(1e3 * (time.perf_counter() - t0))
+        run_eval_epoch(model, eval_dl, lambda rec, at: None, 0, device)  # ends in a copy
+        eval_ms.append(1e3 * (time.perf_counter() - t0))
+    saver = Checkpointer()
+    state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+             "schedule": sched.state_dict(), "step": 1, "epoch": 0}
+    save_ms = []
+    for i in range(3):
         t0 = time.perf_counter()
-        saver.save_state(state, tmp / "s", asynchronous=True)
-        async_return_ms = 1e3 * (time.perf_counter() - t0)
-        saver.wait_for_saves()
-        async_ms = 1e3 * (time.perf_counter() - t0)
-        del model, opt, sched, state, saver
-        torch.cuda.empty_cache()
-        *_, before_r, peak_r, _ = step_memory(run_config(config, tmp / "m", remat=True))
-        torch.cuda.empty_cache()
-        *_, opt16 = step_memory(run_config(config, tmp / "m", moment_dtype="bf16"))
-        torch.cuda.empty_cache()
-        assert 2 * opt16 == opt32, (opt16, opt32)
-        assert peak_r - before_r < peak - before, (peak_r - before_r, peak - before)
+        saver.save_state(state, tmp / "s", asynchronous=False)
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    saver.save_state(state, tmp / "s", asynchronous=True)
+    async_return_ms = 1e3 * (time.perf_counter() - t0)
+    saver.wait_for_saves()
+    async_ms = 1e3 * (time.perf_counter() - t0)
+    del model, opt, sched, state, saver
+    torch.cuda.empty_cache()
+    *_, before_r, peak_r, _ = step_memory(run_config(config, tmp / "m", remat=True))
+    torch.cuda.empty_cache()
+    *_, opt16 = step_memory(run_config(config, tmp / "m", moment_dtype="bf16"))
+    torch.cuda.empty_cache()
+    assert 2 * opt16 == opt32, (opt16, opt32)
+    assert peak_r - before_r < peak - before, (peak_r - before_r, peak - before)
     mib = 2.0**-20
     print(host_description(), flush=True)
     print(
@@ -1248,6 +1327,250 @@ def check_run(config, device, cpu_device="cpu") -> dict:
         flush=True,
     )
     return {"step_ms": step_ms, "eval_ms": eval_ms, "save_ms": save_ms}
+
+
+def eval_data(config, rows: list) -> dict:
+    """The splits ``infer`` reads from ``rows`` under ``config`` (phase 8's
+    split; the config's ``ds_seed`` and ``predrop``)."""
+    return setup_data(rows, split=RUN_SPLIT, ds_seed=int(config.ds_seed),
+                      predrop=bool(config.predrop),
+                      predrop_config=config.modality_config.to_plain())
+
+
+def eval_loader(config, part) -> BatchedLoader:
+    collate = MultimodalCollator(config.modality_config.to_plain(), labels=config.label_col)
+    return BatchedLoader(part, collate, int(config.batch_size))
+
+
+def read_eval_files(directory) -> dict:
+    """The six files of an ``infer`` output directory."""
+    return {f"{split}_{kind}": (infer_lib.load_label_file if kind == "labels"
+                                else infer_lib.load_embedding_file)(
+                os.path.join(directory, f"{split}_{kind}"))
+            for split in ("train", "eval") for kind in ("embeddings", "masks", "labels")}
+
+
+def check_eval_files(files: dict, config, data: dict, n_keys: int, cpu_eval: dict) -> float:
+    """An ``infer`` output against the rows it read: ``n_keys`` finite
+    embeddings a split (str, frozenset and ``fusion`` keys as the
+    family has them), 4 train batches and 1 eval batch of rows, the
+    rows' own labels and a presence mask per modality; the eval split's
+    embeddings against ``cpu_eval`` (fp32 on the CPU from the same
+    weights), relative L2 per key.  Returns the largest."""
+    bs, dim = int(config.batch_size), int(config.hidden_size)
+    names = sorted(config.modality_config)
+    for split, part, n in (("train", data["train"], 4 * bs), ("eval", data["test"], bs)):
+        emb, msk = files[f"{split}_embeddings"], files[f"{split}_masks"]
+        assert len(emb) == n_keys, (split, sorted(emb, key=str))
+        for k, e in emb.items():
+            assert isinstance(k, (str, frozenset)), k
+            assert e.shape == (n, dim) and e.dtype == np.float32 and np.isfinite(e).all(), k
+        assert sorted(msk) == names and all(m.shape == (n,) and m.dtype == bool
+                                            for m in msk.values())
+        want = np.stack([np.asarray(r[config.label_col]["values"]) for r in part[:n]])
+        np.testing.assert_array_equal(files[f"{split}_labels"], want)
+    emb32, msk32 = cpu_eval
+    assert list(emb32) == list(files["eval_embeddings"])
+    for k in names:
+        np.testing.assert_array_equal(files["eval_masks"][k], msk32[k])
+    return max(float(np.linalg.norm(files["eval_embeddings"][k] - e)
+                     / np.linalg.norm(e)) for k, e in emb32.items())
+
+
+def cpu_eval_split(config, restart, data, cpu_device) -> tuple:
+    """The eval split through the model in fp32 on the CPU (the plain
+    versions of the kernels), from ``restart``'s weights."""
+    cfg32 = type(config)(config)
+    cfg32.precision, cfg32.restart = "fp32", str(restart)
+    model = infer_lib.build_inference_model(cfg32, cpu_device)
+    emb, msk, _, _ = infer_lib.infer_split(
+        model, eval_loader(config, data["test"]), config.label_col, torch.device(cpu_device))
+    return emb, msk
+
+
+def time_infer(config, restart, data, device, tmp: Path) -> dict:
+    """Wall ms and rows/s of an ``infer`` batch over the train split
+    (loader, forward and the split's one copy to the host, warm), the
+    device's busy ms a batch (torch.profiler, another pass), and the ms
+    to write the split's three files."""
+    cfg = type(config)(config)
+    cfg.restart = str(restart)
+    model = infer_lib.build_inference_model(cfg, device.type)
+    loader = eval_loader(config, data["train"])
+    infer_lib.infer_split(model, loader, config.label_col, device)
+    t0 = time.perf_counter()
+    emb, msk, labels, losses = infer_lib.infer_split(model, loader, config.label_col, device)
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        infer_lib.infer_split(model, loader, config.label_col, device)
+    busy_ms = sum(ev.device_time_total for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    tmp.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    infer_lib._save(msk, str(tmp / "train_masks"))
+    infer_lib._save(emb, str(tmp / "train_embeddings"))
+    infer_lib._save_array(labels, str(tmp / "train_labels"))
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    n = len(losses)
+    return {"wall_ms": 1e3 * wall / n, "rows_s": n * int(config.batch_size) / wall,
+            "device_ms": busy_ms / n, "write_ms": write_ms}
+
+
+def family_shapes(cfg) -> dict:
+    """``{T: modality lengths}``, one entry for each sequence length at
+    which ``cfg``'s infer runs K1 (and K5, on batch x T rows): EAO's
+    passes, one per modality and one per combo of ``fusion_combos``,
+    unmasked; else the one masked sequence with its fusion tokens."""
+    mods = cfg.modality_config.to_plain()
+    dims = [int(mods[m]["pad_len"]) for m in cfg.encoder_configs]
+    if not cfg.eao:
+        t = build_masks(dims, int(cfg.num_fusion_tokens), list(cfg.fusion_combos),
+                        zorro=bool(cfg.zorro), fcl=bool(cfg.fcl)).seq_len
+        return {t: tuple(dims)}
+    channels = [(i,) for i in range(len(dims))] + [
+        tuple(sorted(c)) for c in adjusted_powerset(range(len(dims)), list(cfg.fusion_combos))]
+    shapes: dict = {}
+    for ch in channels:
+        shapes.setdefault(sum(dims[i] for i in ch), tuple(dims[i] for i in ch))
+    return dict(sorted(shapes.items()))
+
+
+def check_family_kernels(name: str, cfg, device) -> None:
+    """K1 and K5 against their plain versions, each with its planted
+    fault, at every shape ``cfg``'s infer gives them (phase 9 (b)): K1
+    with ``cfg``'s mask and key padding as flash_inputs makes it (EAO's
+    passes unmasked), K5 on batch x T rows."""
+    bs = int(cfg.batch_size)
+    for t, dims in family_shapes(cfg).items():
+        mask, q, k, v, pad = flash_inputs(
+            device, b=bs, h=int(cfg.heads), dims=dims, fusion=int(cfg.num_fusion_tokens),
+            masked=not cfg.eao, combos=tuple(cfg.fusion_combos), zorro=bool(cfg.zorro))
+        assert q.shape[2] == t, (q.shape, t)
+        held = hold_flash(mask, q, k, v, pad)
+        qi, kj, n_live, flagged = held["planted"]
+        del mask, q, k, v, pad
+        held_ff = hold_ff(*ff_inputs(device, bs * t))
+        chunk, ff_flagged = held_ff["planted"]
+        print(f"eval (b): {name} T {t} ({'unmasked' if cfg.eao else 'masked'}): K1 "
+              f"max_abs_err {held['err']:.3e} (lse {held['lse_err']:.3e}), planted fault "
+              f"(tile q{qi} x kv{kj}, {n_live} live entries, dropped) puts {flagged} "
+              f"entries outside tolerance; K5 on {bs * t} rows max_abs_err "
+              f"{held_ff['err']:.3e}, planted fault (W2 rows of inner chunk {chunk} "
+              f"zeroed) puts {ff_flagged} entries outside tolerance", flush=True)
+        del held, held_ff
+
+
+def probe_run(emb_dir, out_dir, device: str, **overrides) -> tuple:
+    """``probe`` with configs/tcga_probe.yaml's settings on ``emb_dir``;
+    returns ``(final record, epoch records, seconds)``."""
+    cfg = embedding_eval_config(str(PROBE_CONFIG), make_output_dir=False)
+    cfg.embedding_dir, cfg.output_dir = str(emb_dir), str(out_dir)
+    cfg.update(overrides)
+    t0 = time.perf_counter()
+    final = probe_lib.probe(cfg, device=device)
+    seconds = time.perf_counter() - t0
+    recs = [r for r in run_records(out_dir) if "train_loss" in r]
+    assert [r["step"] for r in recs] == list(range(int(cfg.epochs))), len(recs)
+    return final, recs, seconds
+
+
+def check_eval(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
+    """Phase 9, the evaluation path (module docstring), on phase 8's rows
+    and run directory; returns K1's and K5's launches on its main path."""
+    depth, bs = int(config.layers), int(config.batch_size)
+    no_bwd = dict.fromkeys(flash.bwd_launches, 0)
+
+    # (a) MCA infer from phase 8's final model (a directory that holds
+    # model/ alone: a state/ beside it would be read first)
+    model_dir = tmp / "eval_model"
+    shutil.copytree(tmp / "a" / "model", model_dir / "model")
+    data = eval_data(config, rows)
+    reset_launches()
+    infer_lib.infer(run_config(config, tmp / "i_mca", restart=str(model_dir)), device.type,
+                    rows=rows)
+    counts = launches_now()
+    print(f"eval (a): MCA infer launches {counts}", flush=True)
+    assert counts == {"flash_fwd": 5 * depth, "geglu_ff": 5 * depth, **no_bwd}, counts
+    total = {"flash_fwd": counts["flash_fwd"], "geglu_ff": counts["geglu_ff"]}
+    files = read_eval_files(tmp / "i_mca")
+    rel = check_eval_files(files, config, data, 4 + 11 + 1,
+                           cpu_eval_split(config, model_dir, data, cpu_device))
+    print(f"eval (a): MCA embeddings bf16 GPU vs fp32 CPU relative L2 {rel:.3e}", flush=True)
+    assert rel <= SLICE_REL_L2, rel
+    # the same weights from the epoch-1 train state
+    infer_lib.infer(run_config(config, tmp / "i_mca_state", restart=str(tmp / "a" / "1")),
+                    device.type, rows=rows)
+    again = read_eval_files(tmp / "i_mca_state")
+    for name in ("train_embeddings", "eval_embeddings"):
+        assert list(again[name]) == list(files[name])
+        assert all(np.array_equal(again[name][k], files[name][k]) for k in files[name]), name
+    print("eval (a): infer from 1/ (a train state) and from model/ bitwise equal", flush=True)
+    times = {"mca": time_infer(run_config(config, tmp / "t"), model_dir, data, device,
+                               tmp / "t_mca")}
+
+    # (b) MMA/Zorro and EAO at full width, weights from seed 0
+    for name, path in EVAL_CONFIGS.items():
+        cfg = training_config(str(path))
+        model = build_model(get_model_config(cfg)).init_weights(torch.Generator().manual_seed(0))
+        weights = tmp / f"{name}_weights"
+        save_params(model.state_dict(), str(weights))
+        del model
+        passes = 4 + 6 if cfg.eao else 1
+        data_b = eval_data(cfg, rows)
+        reset_launches()
+        infer_lib.infer(run_config(cfg, tmp / f"i_{name}", restart=str(weights)), device.type,
+                        rows=rows)
+        counts = launches_now()
+        print(f"eval (b): {name} infer launches {counts}", flush=True)
+        want = 5 * passes * int(cfg.layers)
+        assert counts == {"flash_fwd": want, "geglu_ff": want, **no_bwd}, counts
+        for k in total:
+            total[k] += counts[k]
+        t0 = time.perf_counter()
+        rel = check_eval_files(read_eval_files(tmp / f"i_{name}"), cfg, data_b,
+                               4 + 6 if cfg.eao else 4 + 1,
+                               cpu_eval_split(cfg, weights, data_b, cpu_device))
+        print(f"eval (b): {name} embeddings bf16 GPU vs fp32 CPU relative L2 {rel:.3e} "
+              f"(CPU eval {time.perf_counter() - t0:.1f} s)", flush=True)
+        assert rel <= SLICE_REL_L2, rel
+        times[name] = time_infer(run_config(cfg, tmp / "t"), weights, data_b, device,
+                                 tmp / f"t_{name}")
+        check_family_kernels(name, cfg, device)
+
+    # (c) the probe on (a)'s files: the two loops, the card against the CPU
+    host, host_recs, host_s = probe_run(tmp / "i_mca", tmp / "p_host", device.type)
+    dev, _, dev_s = probe_run(tmp / "i_mca", tmp / "p_dev", device.type, scan_epochs=True,
+                              scan_epochs_chunk=256)
+    cpu, cpu_recs, cpu_s = probe_run(tmp / "i_mca", tmp / "p_cpu", cpu_device)
+    loops = max(abs(dev[k] - host[k]) / max(abs(host[k]), 1e-6)
+                for k in ("train_loss", "eval_loss", "param_norm", "grad_norm", "eval_f1",
+                          "eval_auroc", "train_auroc"))
+    vs_cpu = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(host_recs, cpu_recs)
+                 for k in ("train_loss", "eval_loss", "param_norm"))
+    print(f"eval (c): probe final records, device vs host loop: relative gap {loops:.3e}; "
+          f"host loop card vs CPU, every epoch's train_loss, eval_loss, param_norm: "
+          f"{vs_cpu:.3e}; final eval_auroc {host['eval_auroc']:.4f}", flush=True)
+    assert loops <= PROBE_LOOPS_RTOL and vs_cpu <= PROBE_CPU_RTOL, (loops, vs_cpu)
+    eao, _, eao_s = probe_run(tmp / "i_eao", tmp / "p_eao", device.type,
+                              embedding_key="combo:0,1")
+    bad = {k: v for k, v in eao.items() if isinstance(v, float) and not math.isfinite(v)}
+    assert not bad, bad
+    print(f"eval (c): EAO probe on combo:0,1: final eval_auroc {eao['eval_auroc']:.4f}, "
+          f"train_loss {eao['train_loss']:.6f}", flush=True)
+
+    # (d) times
+    epochs = len(host_recs)
+    for name, t in times.items():
+        print(f"eval (d): {name} infer batch of {bs}: {t['wall_ms']:.3f} ms wall "
+              f"({t['rows_s']:.1f} rows/s), {t['device_ms']:.3f} ms device busy "
+              f"(torch.profiler); writing the train split's files {t['write_ms']:.3f} ms",
+              flush=True)
+    print(f"eval (d): probe ms per epoch ({epochs} epochs, 32 rows, full batch): host loop "
+          f"{1e3 * host_s / epochs:.3f} on the card, {1e3 * cpu_s / epochs:.3f} on the CPU; "
+          f"device loop {1e3 * dev_s / epochs:.3f}; EAO host loop {1e3 * eao_s / epochs:.3f}",
+          flush=True)
+    return total
 
 
 def probe_tol(plain: torch.Tensor) -> torch.Tensor:
@@ -1635,13 +1958,20 @@ def main() -> int:
     config = training_config(str(CONFIG))
     counts = check_slice(config, device)
     counts.update(check_train(config, device))
-    t8 = time.perf_counter()
-    check_run(config, device)
-    print(f"training run: {time.perf_counter() - t8:.1f} s", flush=True)
+    rows = synthetic_rows(config, RUN_ROWS, seed=int(config.seed))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
+        t8 = time.perf_counter()
+        check_run(config, device, Path(tmp), rows)
+        print(f"training run: {time.perf_counter() - t8:.1f} s", flush=True)
+        t9 = time.perf_counter()
+        eval_counts = check_eval(config, device, Path(tmp), rows)
+        print(f"evaluation path: {time.perf_counter() - t9:.1f} s", flush=True)
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
+    for name, n in eval_counts.items():
+        counts[name] += n
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

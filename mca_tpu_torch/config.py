@@ -186,6 +186,46 @@ def training_config_from_dict(d: Dict[str, Any]) -> Config:
     return get_cfg_defaults_train().merge(copy.deepcopy(d))
 
 
+def get_cfg_defaults_embedding_eval() -> Config:
+    """Probe defaults (the same keys and values as ``mca_tpu``)."""
+    return Config.from_dict(
+        {
+            "embedding_dir": "",
+            "task": 0,
+            "loss_type": "L1",
+            "model_type": "linear",
+            "hidden_size": 256,
+            "dropout": 0.1,
+            "wandb": False,
+            "wandb_name": "MCA",
+            "wandb_account_name": "",
+            "lr": 1e-5,
+            "lr_scheduler_type": "cosine",
+            "num_warmup_steps": 1000,
+            "rank_metrics": True,
+            "epochs": 1024,
+            "clip": 2.0,
+            "metric": "PCC",
+            "output_dir": "",
+            "wandb_job_name": "MCA-DefaultJobName",
+            "seed": 42,
+            "batch_size": 1024,
+            "threshold": 0.0,
+        }
+    )
+
+
+def embedding_eval_config(filename: str, make_output_dir: bool = True) -> Config:
+    """Load a probe YAML over the defaults; ``make_output_dir`` as in
+    :func:`training_config` (on by default, as in the JAX loader)."""
+    config = get_cfg_defaults_embedding_eval().merge(load_yaml(filename))
+    if make_output_dir:
+        if not config.output_dir:
+            config.output_dir = _auto_output_dir()
+        dump_configs(config, config.output_dir)
+    return config
+
+
 def get_model_config(config: Config) -> Dict[str, Any]:
     """Map a train config onto the model constructor kwargs.
 

@@ -9,6 +9,7 @@ map is the port's own copy of ``mca_tpu/interop.py``'s
 ``[out, in]`` kernels and flax ``[in, out]``, so the ``linear`` kind
 transposes; flax LayerNorm ``scale`` / ``bias`` map to ``weight`` /
 ``bias``, the transformer's bias-less norm ``scale`` to ``gamma``.
+:func:`probe_head_state_from_jax` carries a probe head the same way.
 """
 
 from __future__ import annotations
@@ -76,6 +77,20 @@ def _map_encoder(out: KeyMap, name: str, tree: Dict[str, Any]) -> None:
         )
 
 
+def _map_pool_projections(out: KeyMap, key: str, tree: Dict[str, Any]) -> None:
+    """A mean pool's ``proj_{i}`` Dense layers -> ``attn_pool.proj.{i}``
+    (the reference registers its mean pool as ``self.attn_pool``).  No
+    family that either package builds reaches this: MCA's ``mean_pool``
+    and EAO pool without projections.  It carries the JAX package's map
+    (``mca_tpu.interop``) for a tree from a model that does project."""
+    for sub in sorted(tree):
+        if sub.startswith("proj_"):
+            i = int(sub.split("_")[1])
+            out.append(((key, sub, "kernel"), f"attn_pool.proj.{i}.weight", "linear"))
+            if "bias" in tree[sub]:
+                out.append(((key, sub, "bias"), f"attn_pool.proj.{i}.bias", "direct"))
+
+
 def build_key_map(params: Dict[str, Any]) -> KeyMap:
     """(flax path, reference state_dict key, kind) triplets generated
     from a flax parameter tree."""
@@ -110,18 +125,21 @@ def build_key_map(params: Dict[str, Any]) -> KeyMap:
             out.append(((key, "LayerNorm_0", "scale"), "norm.gamma", "direct"))
         elif key in ("fusion_tokens", "return_tokens"):
             out.append(((key,), key, "direct"))
-        elif key == "attn_pool":
+        elif key == "attn_pool" and "to_q" in tree:
             for proj in ("to_q", "to_kv", "to_out"):
                 out.append(
                     ((key, proj, "kernel"), f"attn_pool.{proj}.weight", "linear")
                 )
+        elif key in ("attn_pool", "pool"):
+            # a MeanTokenProjectionPool with its projections; MCA's
+            # mean_pool and EAO build theirs without (``projection=False``),
+            # so their trees hold no pool entry at all
+            _map_pool_projections(out, key, tree)
         elif key == "loss":
             if "logit_scale" in tree:
                 out.append(
                     ((key, "logit_scale"), "loss.loss_fn.logit_scale", "direct")
                 )
-        elif key == "pool":
-            raise ValueError("mean pooling (MeanTokenProjectionPool) is not ported yet")
         else:  # a modality encoder
             _map_encoder(out, key, tree)
     return out
@@ -140,4 +158,20 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     for path, key, kind in build_key_map({"params": p}):
         v = np.asarray(_get(p, path), dtype=np.float32)
         sd[key] = torch.from_numpy(np.array(v.T if kind == "linear" else v))
+    return sd
+
+
+def probe_head_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``mca_tpu.probe.ProbeHead`` parameter tree (numpy leaves) -> the
+    state dict of ``mca_tpu_torch.probe.ProbeHead``: ``Dense_{i}`` ->
+    ``dense_{i}``, kernels transposed to ``[out, in]``."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in sorted(p):
+        i = int(name.split("_")[1])
+        kernel = np.asarray(p[name]["kernel"], dtype=np.float32)
+        sd[f"dense_{i}.weight"] = torch.from_numpy(np.array(kernel.T))
+        sd[f"dense_{i}.bias"] = torch.from_numpy(
+            np.array(p[name]["bias"], dtype=np.float32)
+        )
     return sd

@@ -3,8 +3,9 @@
 One packed forward: per-modality encoders -> learnable fusion tokens
 appended -> ``depth`` masked transformer blocks under the static
 zorro/MCA mask and the dynamic per-sample padding mask -> fp32 final
-norm -> attentive pooling into the return tokens -> the named
-embeddings and, unless ``no_loss``, the contrastive loss graph
+norm -> attentive pooling into the return tokens (with ``mean_pool``,
+a masked mean per token type) -> the named embeddings and, unless
+``no_loss``, the contrastive loss graph
 (:class:`mca_tpu_torch.losses.MCAPretrainingLoss`).  ``zorro``,
 ``fcl`` and ``no_fusion`` change the masks, the return-token layout and
 the pair list.
@@ -25,8 +26,8 @@ gradients are on, as the JAX package wraps it in ``nn.remat``: the
 backward recomputes the block's forward (the flash forward included)
 instead of keeping its activations.
 
-Not ported yet (they raise): mean pooling, pipeline / sequence
-parallelism, int8 quantization, MoE.
+Not ported yet (they raise): pipeline / sequence parallelism, int8
+quantization, MoE.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from mca_tpu_torch import masks as masks_lib
 from mca_tpu_torch.encoders import build_encoder
 from mca_tpu_torch.losses import LOGIT_SCALE_INIT, MCAPretrainingLoss
 from mca_tpu_torch.models.layers import Attention, LayerNorm, MCALayer
+from mca_tpu_torch.models.pool import MeanTokenProjectionPool
 
 
 def dtype_of(precision: str) -> torch.dtype:
@@ -76,8 +78,13 @@ class MCA(nn.Module):
         fused_ff: bool = True,
     ):
         super().__init__()
-        if mean_pool:
-            raise NotImplementedError("mean_pool is not ported yet")
+        if mean_pool and fcl and not zorro:
+            # as the JAX package asserts: one mean over all fusion tokens
+            # leaves no per-combo pooled token
+            raise ValueError(
+                "mean_pool is incompatible with fusion-channel pooling "
+                "(fcl); use zorro or attentive pooling"
+            )
         if int(pipeline_stages or 0) > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline / sequence parallelism come with the "
@@ -119,18 +126,25 @@ class MCA(nn.Module):
             self.fusion_tokens = nn.Parameter(
                 torch.zeros(self.mask_set.num_fusion_tokens, dim)
             )
-        self.return_tokens = nn.Parameter(
-            torch.zeros(self.mask_set.num_return_tokens, dim)
-        )
-        self.attn_pool = Attention(
-            dim, dim_head=dim_head, heads=heads, dtype=torch.float32,
-            impl="dense",
-        )
-        self.register_buffer(
-            "pool_mask",
-            torch.from_numpy(self.mask_set.pool_mask.copy()),
-            persistent=False,
-        )
+        self.mean_pool = bool(mean_pool)
+        if self.mean_pool:
+            self.attn_pool = MeanTokenProjectionPool(
+                token_types=[int(t) for t in self.mask_set.token_types],
+                in_dim=dim, out_dim=dim, projection=False,
+            )
+        else:
+            self.return_tokens = nn.Parameter(
+                torch.zeros(self.mask_set.num_return_tokens, dim)
+            )
+            self.attn_pool = Attention(
+                dim, dim_head=dim_head, heads=heads, dtype=torch.float32,
+                impl="dense",
+            )
+            self.register_buffer(
+                "pool_mask",
+                torch.from_numpy(self.mask_set.pool_mask.copy()),
+                persistent=False,
+            )
         self.loss = MCAPretrainingLoss(
             self.modality_types,
             do_fcl=fcl and not zorro,
@@ -176,41 +190,49 @@ class MCA(nn.Module):
                 x = layer(x, attn_mask, padding)
         x = self.norm(x.float())
 
-        ret = self.return_tokens[None].expand(bsz, -1, -1)
-        pooled = (
-            self.attn_pool(
-                ret,
-                context=x,
-                attn_mask=self.pool_mask,
-                key_padding_mask=padding,
+        if self.mean_pool:
+            pooled = self.attn_pool(x, padding)
+        else:
+            ret = self.return_tokens[None].expand(bsz, -1, -1)
+            pooled = (
+                self.attn_pool(
+                    ret,
+                    context=x,
+                    attn_mask=self.pool_mask,
+                    key_padding_mask=padding,
+                )
+                + ret
             )
-            + ret
-        )
         outputs = self.loss(pooled, sample_mask, no_loss=no_loss)
         outputs["modality_sample_mask"] = sample_mask
         return outputs
 
     def init_weights(self, generator: Optional[torch.Generator] = None):
-        """Random weights from ``generator``, with the JAX package's
-        initialisers: normal(1) token tables and fusion / return tokens,
-        torch ``nn.Linear`` uniform(+-1/sqrt(fan_in)) for every linear
-        weight, zeros for biases, ones for norm scales, log(1/0.07) for
-        the logit scale."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("gamma") or name.endswith("norm.weight"):
-                    p.fill_(1.0)
-                elif name.endswith("logit_scale"):
-                    p.fill_(LOGIT_SCALE_INIT)
-                elif name.endswith("bias"):
-                    p.zero_()
-                elif name.endswith("tokens") or "embedding" in name:
-                    p.copy_(torch.randn(p.shape, generator=generator))
-                else:
-                    bound = p.shape[1] ** -0.5  # [out, in]: fan-in
-                    p.copy_(
-                        torch.empty(p.shape).uniform_(
-                            -bound, bound, generator=generator
-                        )
+        """Random weights from ``generator`` (:func:`init_weights`)."""
+        return init_weights(self, generator)
+
+
+def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
+    """Random weights from ``generator``, with the JAX package's
+    initialisers: normal(1) token tables and fusion / return tokens,
+    torch ``nn.Linear`` uniform(+-1/sqrt(fan_in)) for every linear
+    weight, zeros for biases, ones for norm scales, log(1/0.07) for
+    the logit scale."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma") or name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith("logit_scale"):
+                p.fill_(LOGIT_SCALE_INIT)
+            elif name.endswith("bias"):
+                p.zero_()
+            elif name.endswith("tokens") or "embedding" in name:
+                p.copy_(torch.randn(p.shape, generator=generator))
+            else:
+                bound = p.shape[1] ** -0.5  # [out, in]: fan-in
+                p.copy_(
+                    torch.empty(p.shape).uniform_(
+                        -bound, bound, generator=generator
                     )
-        return self
+                )
+    return model

@@ -11,7 +11,8 @@ Semantics (shared by the kernels and the plain versions
 :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`):
 
 - ``attn_mask`` [Tq, Tk] bool, True = blocked, STATIC (numpy, shared by
-  batch and heads): it becomes a CSR tile schedule at ``BLOCK`` = 64,
+  batch and heads; ``None`` is :func:`all_live_mask`): it becomes a CSR
+  tile schedule at ``BLOCK`` = 64,
   over pairs of q tiles for the forward and K3a's dq
   (:func:`pair_schedule`), over pairs of kv tiles for K2 and K3b
   (:func:`kv_pair_schedule`);
@@ -63,6 +64,18 @@ bwd_launches = {"flash_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 # (id(mask), device) -> (mask, schedule tensors on that device)
 _SCHED_CACHE: Dict[Tuple[int, str], tuple] = {}
+# T -> the all-live [T, T] mask of an unmasked call
+_ALL_LIVE: Dict[int, np.ndarray] = {}
+
+
+def all_live_mask(t: int) -> np.ndarray:
+    """The static mask of a call without one (EAO's passes): all live,
+    one array per length, so that the schedule cache, keyed by the
+    mask's identity, builds and uploads each length's schedule once."""
+    mask = _ALL_LIVE.get(t)
+    if mask is None:
+        mask = _ALL_LIVE[t] = np.zeros((t, t), bool)
+    return mask
 
 
 def tile_schedule(
@@ -353,7 +366,7 @@ def _kernel_args(q, k, v, attn_mask, key_padding_mask):
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_cuda(x, name, (b, h, t, d), torch.bfloat16)
     if attn_mask is None:
-        attn_mask = np.zeros((t, t), bool)
+        attn_mask = all_live_mask(t)
     if not isinstance(attn_mask, np.ndarray) or attn_mask.shape != (t, t):
         raise ValueError(
             "attn_mask must be a static numpy [T, T] array (it becomes "

@@ -16,6 +16,8 @@ from mca_tpu_torch import _build
 from mca_tpu_torch.config import training_config_from_dict
 from mca_tpu_torch.ops import flash_attention as port_flash
 from mca_tpu_torch.ops import fused_ff as port_ff
+from mca_tpu_torch import infer as port_infer
+from mca_tpu_torch import probe as port_probe
 from mca_tpu_torch import train as port_train
 from mca_tpu_torch.serve import EmbeddingService
 
@@ -37,7 +39,8 @@ def test_no_jax_or_jax_package_imports():
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("data/dataset.py", "utils/logging.py", "eval_metrics.py",
-                   "checkpoint.py", "train.py"):
+                   "checkpoint.py", "train.py", "infer.py", "probe.py", "metrics.py",
+                   "models/pool.py", "models/eao.py"):
         assert f"mca_tpu_torch/{module}" in names, module
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
@@ -110,6 +113,29 @@ def test_train_entry_point_defaults_to_cuda_and_raises_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_train.main([str(cfg_path)])  # the dataset: path is not read first
     assert not (tmp_path / "out").exists()
+
+
+def test_infer_and_probe_entry_points_default_to_cuda(tmp_path):
+    """``infer`` and ``probe`` (functions and CLIs) run on the GPU unless
+    the CPU is asked for, and raise without one before reading a file."""
+    import yaml
+
+    for fn in (port_infer.infer, port_infer.build_inference_model, port_probe.probe):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the raise is for hosts without one")
+    cfg_path = tmp_path / "infer.yaml"
+    cfg_path.write_text(yaml.safe_dump({
+        **yaml.safe_load(open(ROOT / "configs/tcga_mca.yaml")),
+        "restart": str(tmp_path / "no-such-checkpoint"), "output_dir": str(tmp_path / "i")}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_infer.main([str(cfg_path), "--synthetic", "8"])
+    probe_path = tmp_path / "probe.yaml"
+    probe_path.write_text(yaml.safe_dump({
+        **yaml.safe_load(open(ROOT / "configs/tcga_probe.yaml")),
+        "embedding_dir": str(tmp_path / "no-such-dir"), "output_dir": str(tmp_path / "p")}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_probe.main([str(probe_path)])
 
 
 def _meta(*shape, dtype=torch.bfloat16):
