@@ -121,10 +121,38 @@ Phases (each asserted; any failure exits non-zero):
    files probed on ``combo:0,1`` give finite metrics. (d) Prints wall
    and device ms per ``infer`` batch and rows/s for each family, ms to
    write a split's files, and probe ms per epoch for each loop.
-10. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
-   2-7 and phase 9's MCA, MMA and EAO infer runs, each counted from 0,
-   so K1's and K5's each include phase 9's 25 + 25 + 250), then the last
-   line ``{"ok": true, "device": {...}}``.
+10. CMU_config1 (``configs/cmu_mca.yaml``: four EmbeddedSequence
+   modalities, COVAREP 1500 x 74, FACET 450 x 35, OpenFace 450 x 713,
+   glove_vectors 50 x 300, 88 fusion tokens, T 2538) at full width and
+   depth, on ``make_cmu_like`` rows (p_missing 0.25, seed 0). (a) K1, K2,
+   K3a and K3b against their plain versions under the CMU mask (segment
+   boundaries inside tiles, ragged key padding, a sample missing a
+   modality), K3a's dq bitwise equal over two runs, K5 on 8 x 2538 rows;
+   phase 2-4's tolerances and planted faults (a dropped partial tile, the
+   second kv tile of a pair item, a zeroed W2 chunk). (b) Serving, as
+   phase 5, on 20 CMU rows: ``embed`` / ``submit`` / HTTP agree, K1 and
+   K5 5 a forward, bf16 GPU vs fp32 CPU. (c) Training, as phase 6 (its
+   gates and exact launches), and one step staged at bf16 beside one at
+   fp32 (``total_loss`` and bytes copied). (d) ``infer`` over 40 rows
+   from the seed-0 weights: 4 train and 1 eval batch, K1 and K5 25 each,
+   no backward; six files, 16 keys, the 7 float labels, the eval split
+   against fp32 on the CPU. (e) Prints host ms to collate a batch,
+   host-to-device ms and bytes at fp32 and bf16 staging, and a fused step's
+   wall ms against the device's busy ms under the profiler.
+11. the EAO training step (``configs/tcga_eao.yaml`` at full width: ten
+   unmasked passes a block, T 800, 198, 800, 662, 998, 1600, 1462, 998,
+   860, 1462). (a) K2, K3a and K3b against the plain backward at each of
+   the seven lengths, unmasked, ragged key padding (sample 0 at full
+   length) and a sample without the modality; planted faults: a dropped
+   tile, a pair item's second kv tile and, at an odd tile count, a tile of
+   the lone last kv pair and of the lone last q pair; K3a's dq bitwise
+   equal over two runs at T 1600. (b) Phase 6 on the EAO model: 6 steps
+   on each backward, K1 50 and K2 50 (or K3a 50 + K3b 50) a step, the
+   first-step gates against fp32 on the CPU, fused against split.
+12. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+   2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
+   training and infer and phase 11's training, each counted from 0), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -160,14 +188,14 @@ from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state, save
 from mca_tpu_torch.config import embedding_eval_config, get_model_config, training_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
-from mca_tpu_torch.data.synthetic import tabular_rows
 from mca_tpu_torch.masks import adjusted_powerset, build_masks
 from mca_tpu_torch.models import build_model
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
 from mca_tpu_torch.ops import probes
 from mca_tpu_torch.serve import EmbeddingService, make_server
-from mca_tpu_torch.tools import host_description, host_probe_ms
+from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
+                                 request_rows, sample_tokens)
 from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
 from mca_tpu_torch.tools import sass_counts
@@ -175,7 +203,9 @@ from mca_tpu_torch.train import (
     PreemptedError,
     build_trainer,
     forward_backward,
+    narrow_for_staging,
     run_eval_epoch,
+    staging_sentinels,
     synthetic_rows,
     to_device,
     train,
@@ -266,6 +296,10 @@ RUN_EVAL_RTOL = 1e-2
 # shape each family's infer gives them (family_shapes)
 EVAL_CONFIGS = {"mma": ROOT / "configs" / "tcga_mma_d40.yaml",
                 "eao": ROOT / "configs" / "tcga_eao.yaml"}
+# phases 10 and 11: CMU_config1 (serving, training, infer) and EAO training
+CMU_CONFIG = ROOT / "configs" / "cmu_mca.yaml"
+EAO_CONFIG = ROOT / "configs" / "tcga_eao.yaml"
+PROFILED_STEPS = 3
 PROBE_CONFIG = ROOT / "configs" / "tcga_probe.yaml"
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
@@ -349,12 +383,14 @@ def bf16_err(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> float:
 
 
 def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0,
-                 masked=True, combos=(4, 3, 2), zorro=False):
+                 masked=True, combos=(4, 3, 2), zorro=False, full_rows=()):
     """q, k, v at the model's shapes, the real MCA mask (MMA's with
     ``zorro``), and key padding with ragged modality tails and one
     sample missing a modality (the second, or the only one).
     ``masked=False``: one EAO pass over the modalities ``dims``, no
-    static mask (None) and no fusion tokens."""
+    static mask (None) and no fusion tokens.  ``full_rows``: samples
+    whose modalities keep their whole length (no ragged tail), so that
+    the last tile of a pass has live keys."""
     if masked:
         ms = build_masks(list(dims), fusion, list(combos), zorro=zorro, fcl=True)
         mask, t = ms.attn_mask, ms.seq_len
@@ -371,7 +407,8 @@ def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0,
     for i in range(b):
         for m in range(len(dims)):
             cut = int(rng.integers(dims[m] // 2, dims[m] + 1))
-            pad[i, starts[m] + cut : starts[m + 1]] = True
+            if i not in full_rows:
+                pad[i, starts[m] + cut : starts[m + 1]] = True
     missing = min(1, len(dims) - 1)
     pad[1, starts[missing] : starts[missing + 1]] = True  # sample 1 misses it
     return mask, q, k, v, pad.to(device)
@@ -495,12 +532,12 @@ def planted_tile(mask: np.ndarray, pad: torch.Tensor, partial: bool = True):
     return median_tile(tiles)
 
 
-def planted_pair_half(mask: np.ndarray, pad: torch.Tensor):
+def planted_pair_half(mask: np.ndarray, pad: torch.Tensor, partial: bool = True):
     """The second planted fault's tile, one that a pair walk could drop
     while its first half still runs: of the kv_pair_schedule items whose
-    SECOND kv tile (2j + 1) is live but not full, off the ragged edge,
-    and has some entry the padding leaves live, the one with the median
-    count of live entries."""
+    SECOND kv tile (2j + 1) is live but not full (any, without
+    ``partial``), off the ragged edge, and has some entry the padding
+    leaves live, the one with the median count of live entries."""
     pair_ptr, pair_q, flags, _ = flash.kv_pair_schedule(mask)
     nt = -(-mask.shape[0] // flash.BLOCK)
     tiles = []
@@ -508,11 +545,131 @@ def planted_pair_half(mask: np.ndarray, pad: torch.Tensor):
         j = 2 * p + 1
         for n in range(pair_ptr[p], pair_ptr[p + 1]):
             i = int(pair_q[n])
-            if flags[n] & 2 and not flags[n] & 8 and max(i, j) < nt - 1:
+            if flags[n] & 2 and (not flags[n] & 8 or not partial) and max(i, j) < nt - 1:
                 cnt = tile_live(mask, pad, i, j)
                 if cnt:
                     tiles.append((cnt, i, j))
     return median_tile(tiles)
+
+
+def planted_lone_half(mask: np.ndarray, pad: torch.Tensor, kv: bool = True):
+    """With an odd number of tiles, the last pair of a pair walk has one
+    tile: the last kv tile for K2 / K3b's walk (``kv``), the last q tile
+    for K3a's.  Of the tiles on that lone half that the schedule visits
+    and the padding leaves some entry of, the one with the median count
+    of live entries."""
+    row_ptr, col_idx, _ = flash.tile_schedule(mask)
+    nt = len(row_ptr) - 1
+    assert nt % 2 == 1, nt
+    tiles = []
+    for i in range(nt):
+        for n in range(row_ptr[i], row_ptr[i + 1]):
+            j = int(col_idx[n])
+            if (j if kv else i) == nt - 1:
+                cnt = tile_live(mask, pad, i, j)
+                if cnt:
+                    tiles.append((cnt, i, j))
+    return median_tile(tiles)
+
+
+def planted_bwd_faults(mask: np.ndarray, pad: torch.Tensor, partial: bool = True) -> dict:
+    """The backward's planted faults, each a tile the plain backward
+    drops: a tile of the q-major walk (partly masked where ``partial``),
+    the second kv tile of a pair item and, where the tile count is odd,
+    a tile on the lone half of the last kv pair and of the last q pair."""
+    faults = {"tile": planted_tile(mask, pad, partial=partial),
+              "pair half": planted_pair_half(mask, pad, partial=partial)}
+    if -(-mask.shape[0] // flash.BLOCK) % 2:
+        faults["lone kv half"] = planted_lone_half(mask, pad, kv=True)
+        faults["lone q half"] = planted_lone_half(mask, pad, kv=False)
+    return faults
+
+
+def hold_flash_bwd(mask, q, k, v, pad, do, label: str, determinism: bool = False,
+                   verbose: bool = False) -> dict:
+    """K2 (fused) and K3a + K3b (split) on ``(q, k, v, do)`` against the
+    plain backward: every gradient within bf16 tolerance entry by entry
+    and within BWD_REL_L2 relative L2, dead-row dq and padded-key dk / dv
+    exactly 0, the two routes within BWD_REL_L2 of each other; each
+    planted fault (:func:`planted_bwd_faults`) must exceed BWD_REL_L2 on
+    every gradient; with ``determinism``, K3a's dq bitwise equal over two
+    runs.  ``mask`` None is the unmasked call, as EAO's passes make it.
+    Returns the errors, and what :func:`check_flash_bwd` times with."""
+    b, h, t, d = q.shape
+    scale = d**-0.5
+    static = flash.all_live_mask(t) if mask is None else mask
+    names = ("dq", "dk", "dv")
+    say = print if verbose else (lambda *_, **__: None)
+    with torch.inference_mode():
+        out, lse = flash.flash_attention(q, k, v, mask, pad, scale)
+        ref = flash.flash_attention_bwd_reference(q, k, v, mask, pad, out, lse, do, scale)
+        fused = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "fused")
+        split = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "split")
+        torch.cuda.synchronize()
+        blocked = torch.from_numpy(static).to(q.device)[None] | pad[:, None, :]
+        dead = blocked.all(dim=2)[:, None, :].expand(b, h, t)  # dead query rows
+        padded = pad[:, None, :].expand(b, h, t)  # padded keys
+        planted = {}
+        for fault, (qi, kj, n_live) in planted_bwd_faults(static, pad, mask is not None).items():
+            faulty_mask = static.copy()
+            tq, tk = (slice(x * flash.BLOCK, (x + 1) * flash.BLOCK) for x in (qi, kj))
+            faulty_mask[tq, tk] = True
+            faulty = flash.flash_attention_bwd_reference(
+                q, k, v, faulty_mask, pad, out, lse, do, scale
+            )
+            planted[fault] = (qi, kj, n_live, [rel_l2(f, r) for f, r in zip(faulty, ref)])
+            for name, r, f in zip(names, ref, faulty):
+                a = r.float().abs()
+                atol = BWD_ATOL * float(a.max())
+                flagged = int(((f.float() - r.float()).abs() > atol + BF16_RTOL * a).sum())
+                say(
+                    f"{label} backward {name}: max |plain| {float(a.max()):.4e}, median "
+                    f"|plain| {float(a.median()):.4e}, entry tolerance {atol:.3e} + "
+                    f"2^-6 relative; planted {fault} fault (tile q{qi} x kv{kj}, "
+                    f"{n_live} live entries over the batch, dropped): "
+                    f"relative L2 {rel_l2(f, r):.3e}, {flagged} entries past the "
+                    f"entry tolerance",
+                    flush=True,
+                )
+                assert rel_l2(f, r) > BWD_REL_L2, (label, fault, name, "planted fault passes")
+            del faulty
+        errs, rels = {}, {}
+        for impl, grads in (("fused", fused), ("split", split)):
+            for name, x, r in zip(names, grads, ref):
+                rels[impl, name] = rel_l2(x, r)
+            say(
+                f"{label} backward {impl}: relative L2 against plain "
+                + ", ".join(f"{n} {rels[impl, n]:.3e}" for n in names),
+                flush=True,
+            )
+            for name, x, r in zip(names, grads, ref):
+                errs[impl, name] = bf16_err(x, r, BWD_ATOL * float(r.abs().max()))
+                assert rels[impl, name] <= BWD_REL_L2, (label, impl, name, rels[impl, name])
+            assert bool((grads[0][dead] == 0).all()), f"{label} {impl}: dead-row dq is not 0"
+            assert bool((grads[1][padded] == 0).all()), f"{label} {impl}: padded-key dk is not 0"
+            assert bool((grads[2][padded] == 0).all()), f"{label} {impl}: padded-key dv is not 0"
+        # both were covered (unmasked, only a sample that misses every
+        # modality of the pass has dead rows)
+        assert int(padded.sum()) > 0
+        assert int(dead.sum()) > 0 or mask is None and not bool(pad.all(dim=1).any())
+        if determinism:
+            # K3a is the deterministic route: its dq sums in a fixed
+            # order, so a second run on the same inputs gives the same bits
+            again = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale,
+                                                   "split")
+            torch.cuda.synchronize()
+            assert torch.equal(again[0], split[0]), f"{label} K3a: two runs give different dq"
+            del again
+        # K2 against K3a + K3b: dk and dv come from the same kernel body;
+        # dq sums the same bf16 products, in fp32, in another order
+        fused_vs_split = max(
+            bf16_err(x, y, BWD_ATOL * float(y.abs().max())) for x, y in zip(fused, split)
+        )
+        route_rel = max(rel_l2(x, y) for x, y in zip(fused, split))
+        assert route_rel <= BWD_REL_L2, (label, route_rel)
+    return {"errs": errs, "rels": rels, "fused_vs_split": fused_vs_split,
+            "route_rel": route_rel, "planted": planted, "blocked": blocked,
+            "out": out, "lse": lse, "dead": int(dead.sum()), "padded": int(padded.sum())}
 
 
 def check_flash_bwd(device) -> list:
@@ -523,76 +680,12 @@ def check_flash_bwd(device) -> list:
     scale = d**-0.5
     g = torch.Generator(device=device).manual_seed(1)
     do = torch.randn(q.shape, generator=g, device=device).to(torch.bfloat16)
+    held = hold_flash_bwd(mask, q, k, v, pad, do, "phase 4", determinism=True, verbose=True)
+    errs, blocked, out, lse = held["errs"], held["blocked"], held["out"], held["lse"]
+    fused_vs_split, route_rel = held["fused_vs_split"], held["route_rel"]
+    names = ("dq", "dk", "dv")
     with torch.inference_mode():
-        out, lse = flash.flash_attention(q, k, v, mask, pad, scale)
-        delta = flash.attention_delta(out, do)
-        args = (q, k, v, do, lse, delta, mask, pad, scale)
-        ref = flash.flash_attention_bwd_reference(q, k, v, mask, pad, out, lse, do, scale)
-        fused = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "fused")
-        split = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "split")
-        torch.cuda.synchronize()
-        blocked = torch.from_numpy(mask).to(device)[None] | pad[:, None, :]
-        dead = blocked.all(dim=2)[:, None, :].expand(b, h, t)  # dead query rows
-        padded = pad[:, None, :].expand(b, h, t)  # padded keys
-        # the planted faults: the plain backward with one tile dropped, a
-        # partly masked tile of the q-major walk and the second kv tile of
-        # a pair item (which the pair walk could drop beside a live first
-        # half); each must fail the relative-L2 check on every gradient
-        names = ("dq", "dk", "dv")
-        for fault, (qi, kj, n_live) in (
-            ("tile", planted_tile(mask, pad)),
-            ("pair half", planted_pair_half(mask, pad)),
-        ):
-            faulty_mask = mask.copy()
-            tq, tk = (slice(x * flash.BLOCK, (x + 1) * flash.BLOCK) for x in (qi, kj))
-            faulty_mask[tq, tk] = True
-            faulty = flash.flash_attention_bwd_reference(
-                q, k, v, faulty_mask, pad, out, lse, do, scale
-            )
-            for name, r, f in zip(names, ref, faulty):
-                a = r.float().abs()
-                atol = BWD_ATOL * float(a.max())
-                flagged = int(((f.float() - r.float()).abs() > atol + BF16_RTOL * a).sum())
-                print(
-                    f"backward {name}: max |plain| {float(a.max()):.4e}, median "
-                    f"|plain| {float(a.median()):.4e}, entry tolerance {atol:.3e} + "
-                    f"2^-6 relative; planted {fault} fault (tile q{qi} x kv{kj}, "
-                    f"{n_live} live entries over the batch, dropped): "
-                    f"relative L2 {rel_l2(f, r):.3e}, {flagged} entries past the "
-                    f"entry tolerance",
-                    flush=True,
-                )
-                assert rel_l2(f, r) > BWD_REL_L2, (fault, name, "planted fault passes")
-            del faulty
-        errs, rels = {}, {}
-        for impl, grads in (("fused", fused), ("split", split)):
-            for name, x, r in zip(names, grads, ref):
-                rels[impl, name] = rel_l2(x, r)
-            print(
-                f"backward {impl}: relative L2 against plain "
-                + ", ".join(f"{n} {rels[impl, n]:.3e}" for n in names),
-                flush=True,
-            )
-            for name, x, r in zip(names, grads, ref):
-                errs[impl, name] = bf16_err(x, r, BWD_ATOL * float(r.abs().max()))
-                assert rels[impl, name] <= BWD_REL_L2, (impl, name, rels[impl, name])
-            assert bool((grads[0][dead] == 0).all()), f"{impl}: dead-row dq is not 0"
-            assert bool((grads[1][padded] == 0).all()), f"{impl}: padded-key dk is not 0"
-            assert bool((grads[2][padded] == 0).all()), f"{impl}: padded-key dv is not 0"
-        assert int(dead.sum()) > 0 and int(padded.sum()) > 0  # both were covered
-        # K3a is the deterministic route: its dq sums in a fixed order, so
-        # a second run on the same inputs gives the same bits
-        again = flash.flash_attention_backward(q, k, v, mask, pad, out, lse, do, scale, "split")
-        torch.cuda.synchronize()
-        assert torch.equal(again[0], split[0]), "K3a: two runs give different dq"
-        del again
-        # K2 against K3a + K3b: dk and dv come from the same kernel body;
-        # dq sums the same bf16 products, in fp32, in another order
-        fused_vs_split = max(
-            bf16_err(x, y, BWD_ATOL * float(y.abs().max())) for x, y in zip(fused, split)
-        )
-        route_rel = max(rel_l2(x, y) for x, y in zip(fused, split))
-        assert route_rel <= BWD_REL_L2, route_rel
+        args = (q, k, v, do, lse, flash.attention_delta(out, do), mask, pad, scale)
         # K2 and K3b take q_s from the wrapper where bf16(scale) is not a
         # power of two (ops/flash_attention.py _q_operand)
         out_b, lse_b = flash.flash_attention(q, k, v, mask, pad, SCALE_NOT_POW2)
@@ -696,7 +789,7 @@ def check_flash_bwd(device) -> list:
     print(
         f"backward: fused vs split max abs gap {fused_vs_split:.3e}, "
         f"relative L2 {route_rel:.3e}; "
-        f"{int(dead.sum())} dead query rows, {int(padded.sum())} padded keys "
+        f"{held['dead']} dead query rows, {held['padded']} padded keys "
         f"(all heads); {pairs:.4g} live score entries",
         flush=True,
     )
@@ -775,13 +868,17 @@ def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
     }
 
 
-def check_slice(config, device, cpu_device="cpu", n_rows=20) -> dict:
+def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> dict:
+    """The serving slice (phase 5 for TCGA_config1, phase 10 (b) for
+    CMU_config1): ``embed``, ``submit`` and ``POST /embed`` on request
+    rows shaped as the config's modalities, K1 and K5 once a block and
+    forward, and bf16 on the GPU against fp32 on the CPU."""
     svc = EmbeddingService(config, device=device, seed=0, max_batch=8)
     forwards = [0]
     svc.model.register_forward_hook(
         lambda *_: forwards.__setitem__(0, forwards[0] + 1)
     )
-    rows = tabular_rows(config.modality_config, n_rows)
+    rows = request_rows(config, n_rows)
 
     # the main path, with every launch count at 0 just before it
     flash.launches = 0
@@ -807,8 +904,8 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20) -> dict:
     serve_thread.start()
     try:
         port = server.server_address[1]
-        payload = {"rows": [{m: {"values": d["values"].tolist()} for m, d in row.items()}
-                            for row in rows[:3]]}
+        payload = {"rows": [{m: {f: None if x is None else x.tolist() for f, x in d.items()}
+                             for m, d in row.items()} for row in rows[:3]]}
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/embed",
             data=json.dumps(payload).encode(),
@@ -822,7 +919,7 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20) -> dict:
         svc.stop()
     counts = {"flash_fwd": flash.launches, "geglu_ff": ff.launches}
     depth = len(svc.model.layers)
-    print(f"slice: {forwards[0]} forwards, launches {counts}", flush=True)
+    print(f"{label}: {forwards[0]} forwards, launches {counts}", flush=True)
     assert forwards[0] >= 4, forwards  # 3 chunks of embed + >= 1 batch
     for name, c in counts.items():
         assert c == depth * forwards[0], (name, c, forwards[0])
@@ -872,7 +969,7 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20) -> dict:
     svc.embed(rows)
     embed_s = time.perf_counter() - t0
     print(
-        f"slice: embed/submit/http max disagreement {agree:.3e}; "
+        f"{label}: embed/submit/http max disagreement {agree:.3e}; "
         f"bf16 GPU vs fp32 CPU relative L2 {rel:.3e}; "
         f"{fwd_ms:.3f} ms per batch-8 forward ({8e3 / fwd_ms:.1f} rows/s); "
         f"embed of {n_rows} rows {embed_s * 1e3:.1f} ms ({n_rows / embed_s:.1f} rows/s)",
@@ -887,26 +984,29 @@ def attention_leaves(grads: dict, projections=("to_q", "to_kv", "to_out")) -> li
             and n.split(".")[-2] in projections]
 
 
-def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
-    """The training slice: TCGA_config1 at full width and depth on the
-    GPU, ``steps`` steps through the fused backward (the main path) and
-    again through the split one from the same weights; from those
-    weights, the first step's gradients of the two routes against each
-    other, and its loss and gradients against fp32 on the CPU."""
+def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="train") -> dict:
+    """The training slice: the config's model (TCGA_config1, CMU_config1,
+    EAO) at full width and depth on the GPU, on one batch of
+    ``synthetic_rows``, ``steps`` steps through the fused backward (the
+    main path) and again through the split one from the same weights;
+    from those weights, the first step's gradients of the two routes
+    against each other, and its loss and gradients against fp32 on the
+    CPU.  K1 and K2 (or K3a + K3b) run once a block and pass: 10 passes
+    for EAO.  Returns the backward launches and the initial weights."""
     config = type(config)(config)
-    config.num_warmup_steps = TRAIN_WARMUP
     print(
-        f"train: num_warmup_steps set to {TRAIN_WARMUP} (the config's "
-        f"{training_config(str(CONFIG)).num_warmup_steps} would keep lr near 0 "
-        f"for these {steps} steps)",
+        f"{label}: num_warmup_steps set to {TRAIN_WARMUP} (the config's "
+        f"{config.num_warmup_steps} would keep lr near 0 for these {steps} steps)",
         flush=True,
     )
+    config.num_warmup_steps = TRAIN_WARMUP
     rows = synthetic_rows(config, int(config.batch_size))
     collated = MultimodalCollator(config.modality_config.to_plain())(rows)
     init = build_model(get_model_config(config), fused_ff=False)
     init.init_weights(torch.Generator().manual_seed(0))
     params = {k: v.clone() for k, v in init.state_dict().items()}
-    depth, tokens = len(init.layers), int(config.batch_size) * init.mask_set.seq_len
+    depth, tokens = len(init.layers), int(config.batch_size) * sample_tokens(config, init)
+    passes = len(init.channels) if config.eao else 1
 
     print(host_description(), flush=True)
     runs, counts = {}, {}
@@ -932,12 +1032,12 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
             "flash_fwd": flash.launches, "geglu_ff": ff.launches, **flash.bwd_launches,
         }
         runs[impl] = (history, step_s, step_cpu_s, probe)
-        print(f"train ({impl} backward): launches {counts[impl]}", flush=True)
+        print(f"{label} ({impl} backward): launches {counts[impl]}", flush=True)
         del model, opt, sched
     flash.default_bwd_impl = "fused"
 
     fused_c, split_c = counts["fused"], counts["split"]
-    n = depth * steps
+    n = depth * passes * steps
     assert fused_c == {"flash_fwd": n, "geglu_ff": 0, "flash_bwd": n,
                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0}, fused_c
     assert split_c == {"flash_fwd": n, "geglu_ff": 0, "flash_bwd": 0,
@@ -988,7 +1088,7 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
     planted_rel = {n: rel_l2(planted[n], gpu[n]) for n in qkv}
     planted_cpu = max(rel_l2(planted[n], cpu[n]) for n in qkv)
     print(
-        "train: first-step gradients, relative L2 per leaf; bf16 GPU vs fp32 "
+        f"{label}: first-step gradients, relative L2 per leaf; bf16 GPU vs fp32 "
         f"CPU: {', '.join(f'{n} {x:.3e}' for n, x in attn_rel.items())}; "
         f"split vs fused: {', '.join(f'{n} {x:.3e}' for n, x in route_rel.items())}; "
         f"split with dq x {PLANTED_DQ_SCALE} vs fused: "
@@ -1008,7 +1108,7 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
         return ", ".join(f"{1e3 * x:.3f}" for x in xs)
 
     print(
-        f"train: total_loss fused {['%.5f' % x for x in fused_loss]}, "
+        f"{label}: total_loss fused {['%.5f' % x for x in fused_loss]}, "
         f"split {['%.5f' % x for x in split_loss]} (max relative gap {gap:.3e}); "
         f"first step bf16 GPU vs fp32 CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f} "
         f"(relative {loss_rel:.3e}), gradient relative L2 {grad_rel:.3e}, "
@@ -1020,19 +1120,19 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS) -> dict:
     )
     for impl, (_, step_s, step_cpu_s, probe) in runs.items():
         print(
-            f"train ({impl}): wall ms per step {each(step_s)}; process CPU ms "
+            f"{label} ({impl}): wall ms per step {each(step_s)}; process CPU ms "
             f"{each(step_cpu_s)}; Python loop probe before the run {probe:.1f} ms",
             flush=True,
         )
     print(host_description(), flush=True)
     print(
-        f"train: {step_ms:.3f} ms per step with the fused backward, {split_ms:.3f} ms "
+        f"{label}: {step_ms:.3f} ms per step with the fused backward, {split_ms:.3f} ms "
         f"with the split one (mean of steps 2-{steps}, host clock, synchronised); "
         f"{tokens / step_ms * 1e3:.1f} training tokens/s ({tokens} tokens per step)",
         flush=True,
     )
     return {"flash_bwd": fused_c["flash_bwd"], "flash_bwd_dq": split_c["flash_bwd_dq"],
-            "flash_bwd_dkv": split_c["flash_bwd_dkv"]}
+            "flash_bwd_dkv": split_c["flash_bwd_dkv"]}, params
 
 
 class StopRun(Exception):
@@ -1367,7 +1467,8 @@ def check_eval_files(files: dict, config, data: dict, n_keys: int, cpu_eval: dic
             assert e.shape == (n, dim) and e.dtype == np.float32 and np.isfinite(e).all(), k
         assert sorted(msk) == names and all(m.shape == (n,) and m.dtype == bool
                                             for m in msk.values())
-        want = np.stack([np.asarray(r[config.label_col]["values"]) for r in part[:n]])
+        field = "data" if "data" in part[0][config.label_col] else "values"  # CMU's, TCGA's
+        want = np.stack([np.asarray(r[config.label_col][field]) for r in part[:n]])
         np.testing.assert_array_equal(files[f"{split}_labels"], want)
     emb32, msk32 = cpu_eval
     assert list(emb32) == list(files["eval_embeddings"])
@@ -1459,6 +1560,68 @@ def check_family_kernels(name: str, cfg, device) -> None:
               f"{held_ff['err']:.3e}, planted fault (W2 rows of inner chunk {chunk} "
               f"zeroed) puts {ff_flagged} entries outside tolerance", flush=True)
         del held, held_ff
+
+
+def check_cmu_kernels(cfg, device) -> None:
+    """Phase 10 (a): K1, K2, K3a and K3b against their plain versions
+    under CMU_config1's mask (T 2538, combos [4, 3, 2], segment
+    boundaries inside tiles), ragged key padding and a sample missing a
+    modality, K3a's dq bitwise equal over two runs; K5 on 8 x T rows.
+    Each with its planted faults (a dropped partial tile, the second kv
+    tile of a pair item, a zeroed W2 chunk)."""
+    mods = cfg.modality_config.to_plain()
+    dims = tuple(int(mods[m]["pad_len"]) for m in cfg.encoder_configs)
+    mask, q, k, v, pad = flash_inputs(
+        device, b=int(cfg.batch_size), h=int(cfg.heads), dims=dims,
+        fusion=int(cfg.num_fusion_tokens), combos=tuple(cfg.fusion_combos))
+    t = q.shape[2]
+    held = hold_flash(mask, q, k, v, pad)
+    qi, kj, n_live, flagged = held["planted"]
+    print(f"cmu (a): T {t}: K1 max_abs_err {held['err']:.3e} (lse {held['lse_err']:.3e}), "
+          f"planted fault (tile q{qi} x kv{kj}, {n_live} live entries, dropped) puts "
+          f"{flagged} entries outside tolerance", flush=True)
+    del held
+    g = torch.Generator(device=device).manual_seed(1)
+    do = torch.randn(q.shape, generator=g, device=device).to(torch.bfloat16)
+    bwd = hold_flash_bwd(mask, q, k, v, pad, do, f"cmu (a) T {t}", determinism=True)
+    print(f"cmu (a): T {t}: backward max abs err "
+          + ", ".join(f"{i} {n} {e:.3e}" for (i, n), e in bwd["errs"].items())
+          + f"; fused vs split relative L2 {bwd['route_rel']:.3e}; planted faults' smallest "
+          f"relative L2 {min(min(f[3]) for f in bwd['planted'].values()):.3e}", flush=True)
+    del bwd, q, k, v, do
+    held_ff = hold_ff(*ff_inputs(device, int(cfg.batch_size) * t))
+    chunk, ff_flagged = held_ff["planted"]
+    print(f"cmu (a): K5 on {int(cfg.batch_size) * t} rows max_abs_err {held_ff['err']:.3e}, "
+          f"planted fault (W2 rows of inner chunk {chunk} zeroed) puts {ff_flagged} "
+          f"entries outside tolerance", flush=True)
+
+
+def check_eao_bwd_kernels(cfg, device) -> None:
+    """Phase 11 (a): K2, K3a and K3b against the plain backward, unmasked,
+    at each of EAO's pass lengths (``family_shapes``), with ragged key
+    padding (sample 0 at full length, so that the last tile has live
+    keys) and a sample without the modality; the planted faults of
+    :func:`planted_bwd_faults` (a dropped tile, a pair's second half and,
+    at an odd tile count, a tile of each lone half); K3a's dq bitwise
+    equal over two runs at the longest pass."""
+    shapes = family_shapes(cfg)
+    longest = max(shapes)
+    for t, dims in shapes.items():
+        _, q, k, v, pad = flash_inputs(device, b=int(cfg.batch_size), h=int(cfg.heads),
+                                       dims=dims, masked=False, full_rows=(0,))
+        g = torch.Generator(device=device).manual_seed(t)
+        do = torch.randn(q.shape, generator=g, device=device).to(torch.bfloat16)
+        nt = -(-t // flash.BLOCK)
+        bwd = hold_flash_bwd(None, q, k, v, pad, do, f"eao (a) T {t}",
+                             determinism=t == longest)
+        print(f"eao (a): T {t} ({nt} tiles, {t - (nt - 1) * flash.BLOCK} live rows in the "
+              f"last): backward max abs err "
+              + ", ".join(f"{i} {n} {e:.3e}" for (i, n), e in bwd["errs"].items())
+              + f"; relative L2 at most {max(bwd['rels'].values()):.3e}; fused vs split "
+              f"{bwd['route_rel']:.3e}; planted faults "
+              + ", ".join(f"{name} (q{f[0]} x kv{f[1]}) {min(f[3]):.3e}"
+                          for name, f in bwd["planted"].items()), flush=True)
+        del bwd, q, k, v, do, pad
 
 
 def probe_run(emb_dir, out_dir, device: str, **overrides) -> tuple:
@@ -1571,6 +1734,131 @@ def check_eval(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
           f"device loop {1e3 * dev_s / epochs:.3f}; EAO host loop {1e3 * eao_s / epochs:.3f}",
           flush=True)
     return total
+
+
+def staged_step_losses(config, device, params, rows) -> dict:
+    """One step from ``params`` on ``rows`` staged at fp32 and at bf16
+    (``narrow_for_staging`` on the host, fp32 again on the device):
+    ``{stage: (total_loss, bytes copied)}``."""
+    collated = MultimodalCollator(config.modality_config.to_plain())(rows)
+    sentinels = staging_sentinels(config)
+    out = {}
+    for stage in ("fp32", "bf16"):
+        model, opt, sched = build_trainer(config, device.type, num_training_steps=2,
+                                          params=params)
+        staged = narrow_for_staging(collated, stage, sentinels)
+        n_bytes = sum(torch.as_tensor(v).nbytes for f in staged.values() for v in f.values())
+        loss = train_step(model, opt, sched, to_device(staged, device),
+                          clip=float(config.clip))["total_loss"]
+        out[stage] = (loss, int(n_bytes))
+        del model, opt, sched
+    return out
+
+
+def profiled_steps(config, device, params, rows, steps=PROFILED_STEPS) -> dict:
+    """Wall ms a fused-backward step (host clock, synchronised, after a
+    warm-up step) and the device's busy ms a step under torch.profiler
+    (another window of ``steps``): the device's share of the wall."""
+    model, opt, sched = build_trainer(config, device.type, num_training_steps=3 * steps,
+                                      params=params)
+    batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), device)
+    clip = float(config.clip)
+    train_step(model, opt, sched, batch, clip=clip)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(model, opt, sched, batch, clip=clip)  # ends in a sync
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            train_step(model, opt, sched, batch, clip=clip)
+        torch.cuda.synchronize()
+    busy_ms = sum(ev.device_time_total for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(ev, "is_user_annotation", "#" in ev.name)) / 1e3 / steps
+    return {"wall_ms": wall_ms, "device_ms": busy_ms}
+
+
+def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
+    """Phase 10, CMU_config1 at full width (module docstring); returns
+    the launches of its main paths: K1 and K5 from serving and infer,
+    K2 / K3a / K3b from training."""
+    cfg = training_config(str(CMU_CONFIG))
+    depth, bs = int(cfg.layers), int(cfg.batch_size)
+    t0 = time.perf_counter()
+    check_cmu_kernels(cfg, device)  # (a)
+    print(f"cmu (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    served = check_slice(cfg, device, label="cmu (b) serve")  # counts from 0
+    print(f"cmu (b): {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    trained, params = check_train(cfg, device, label="cmu (c) train")
+    rows = synthetic_rows(cfg, RUN_ROWS, seed=0)
+    staged = staged_step_losses(cfg, device, params, rows[:bs])
+    (loss32, bytes32), (loss16, bytes16) = staged["fp32"], staged["bf16"]
+    staged_rel = abs(loss16 - loss32) / abs(loss32)
+    print(f"cmu (c): one step staged fp32: total_loss {loss32:.6f}, {bytes32} bytes copied a "
+          f"batch; staged bf16: total_loss {loss16:.6f} (relative {staged_rel:.3e}), "
+          f"{bytes16} bytes", flush=True)
+    # the inputs rounded to bf16 (8 significant bits) move an average of
+    # log-softmax terms by well under 1%, as bf16 activations do
+    assert math.isfinite(loss16) and staged_rel <= TRAIN_LOSS_RTOL, (loss32, loss16)
+    assert bytes16 < 0.55 * bytes32, (bytes16, bytes32)
+    print(f"cmu (c): {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # (d) infer over 40 rows (4 train, 1 eval batch) from the seed-0 weights
+    t1 = time.perf_counter()
+    weights = tmp / "cmu_weights"
+    save_params(params, str(weights))
+    data = eval_data(cfg, rows)
+    reset_launches()
+    infer_lib.infer(run_config(cfg, tmp / "i_cmu", restart=str(weights)), device.type, rows=rows)
+    inferred = launches_now()
+    print(f"cmu (d): infer launches {inferred}", flush=True)
+    assert inferred == {"flash_fwd": 5 * depth, "geglu_ff": 5 * depth,
+                        **dict.fromkeys(flash.bwd_launches, 0)}, inferred
+    rel = check_eval_files(read_eval_files(tmp / "i_cmu"), cfg, data, 4 + 11 + 1,
+                           cpu_eval_split(cfg, weights, data, cpu_device))
+    labels = read_eval_files(tmp / "i_cmu")["eval_labels"]
+    assert labels.shape == (bs, 7), labels.shape
+    print(f"cmu (d): embeddings bf16 GPU vs fp32 CPU relative L2 {rel:.3e}; "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    assert rel <= SLICE_REL_L2, rel
+    t_inf = time_infer(run_config(cfg, tmp / "t"), weights, data, device, tmp / "t_cmu")
+
+    # (e) the host's side of a batch, and the device against the wall
+    host = host_batch_costs(cfg, rows[:bs], device)
+    prof = profiled_steps(cfg, device, params, rows[:bs])
+    print(host_description(), flush=True)
+    print(f"cmu (e): host ms a batch of {bs}: collate {host['collate_ms']:.3f}; "
+          + "; ".join(f"{sd} staging: narrow {host[sd]['narrow_ms']:.3f}, host-to-device "
+                      f"{host[sd]['copy_ms']:.3f} ({host[sd]['bytes']} bytes)"
+                      for sd in ("fp32", "bf16"))
+          + f"; training step (fused) {prof['wall_ms']:.3f} ms wall, {prof['device_ms']:.3f} "
+          f"ms device busy under torch.profiler (busy share "
+          f"{prof['device_ms'] / prof['wall_ms']:.3f}); infer batch {t_inf['wall_ms']:.3f} ms "
+          f"wall ({t_inf['rows_s']:.1f} rows/s), {t_inf['device_ms']:.3f} ms device busy",
+          flush=True)
+    print(f"cmu: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"flash_fwd": served["flash_fwd"] + inferred["flash_fwd"],
+            "geglu_ff": served["geglu_ff"] + inferred["geglu_ff"], **trained}
+
+
+def check_eao_train(device, cpu_device="cpu") -> dict:
+    """Phase 11, the EAO training step (module docstring); returns its
+    main path's backward launches."""
+    cfg = training_config(str(EAO_CONFIG))
+    t0 = time.perf_counter()
+    check_eao_bwd_kernels(cfg, device)  # (a)
+    print(f"eao (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    trained, params = check_train(cfg, device, cpu_device, label="eao (b) train")
+    prof = profiled_steps(cfg, device, params, synthetic_rows(cfg, int(cfg.batch_size)))
+    print(f"eao (b): training step (fused) {prof['wall_ms']:.3f} ms wall, "
+          f"{prof['device_ms']:.3f} ms device busy under torch.profiler (busy share "
+          f"{prof['device_ms'] / prof['wall_ms']:.3f})", flush=True)
+    print(f"eao: {time.perf_counter() - t0:.1f} s", flush=True)
+    return trained
 
 
 def probe_tol(plain: torch.Tensor) -> torch.Tensor:
@@ -1957,7 +2245,7 @@ def main() -> int:
     kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]
     config = training_config(str(CONFIG))
     counts = check_slice(config, device)
-    counts.update(check_train(config, device))
+    counts.update(check_train(config, device)[0])
     rows = synthetic_rows(config, RUN_ROWS, seed=int(config.seed))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
         t8 = time.perf_counter()
@@ -1966,12 +2254,15 @@ def main() -> int:
         t9 = time.perf_counter()
         eval_counts = check_eval(config, device, Path(tmp), rows)
         print(f"evaluation path: {time.perf_counter() - t9:.1f} s", flush=True)
+        cmu_counts = check_cmu(device, Path(tmp))
+    eao_counts = check_eao_train(device)
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
-    for name, n in eval_counts.items():
-        counts[name] += n
+    for extra in (eval_counts, cmu_counts, eao_counts):
+        for name, n in extra.items():
+            counts[name] += n
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,13 +5,20 @@ The pure-numpy branches of ``mca_tpu/data/collators.py``:
 - :class:`SequenceCollator` — right-pad 1-D rows to ``pad_len`` with
   ``pad_token``; ``attention_mask = (x == pad_token)`` (int, 1 =
   padded); optional second column padded with 0.  TCGA's collator.
+- :class:`EmbeddedSequenceCollator` — pre-embedded ``[T, width]`` float
+  sequences (CMU-MOSEI): truncated to ``pad_len``, ``nan_to_num`` when
+  ``clean``, rows padded with ``fill_value`` into ``"tokens"``, and an
+  explicit bool ``attention_mask`` from each row's length.
+- :class:`MatrixCollator` — 2-D matrices row-padded with ``pad_token``
+  into ``"values"``; the PatchEncoder derives the mask.
 - :class:`MultimodalCollator` — re-group a list of per-sample dicts
   into per-modality column dicts and apply each modality's collator.
 
 A missing modality (value ``None``) collates to a fully padded row,
 which downstream becomes an absent-sample mask.  The JAX package's C++
-fast path (``mca_tpu.native``) and the ``matrix`` / ``embedded_sequence``
-collators are not ported yet.
+fast path (``mca_tpu.native``: ``pad_rows``, ``pad_seq2d``) is not
+ported yet (ROADMAP Queue A item 7); these are its numpy branches, with
+the same results.
 """
 
 from __future__ import annotations
@@ -80,7 +87,99 @@ class SequenceCollator:
         return collated
 
 
-collators = {"sequence": SequenceCollator}
+class EmbeddedSequenceCollator:
+    """Pad pre-embedded ``[T, width]`` sequences to ``[B, pad_len,
+    width]``.  A missing row (``None``) is ``(0, embedding_size)``; the
+    width is the first non-empty row's (``embedding_size`` when every
+    row is empty).  The numpy branch of ``mca_tpu``'s collator; its C++
+    ``pad_seq2d`` fast path waits for ROADMAP Queue A item 7."""
+
+    def __init__(
+        self,
+        pad_token: float = -1,
+        fill_value: float = 0.0,
+        pad_len: int = 2048,
+        embedding_size: int = 512,
+        data_col_name: str = "values",
+        attn_mask: bool = True,
+        truncate: bool = True,
+        clean: bool = True,
+        **kwargs: Any,
+    ):
+        self.pad_token = pad_token
+        self.fill_value = fill_value
+        self.pad_len = pad_len
+        self.attn_mask = attn_mask
+        self.data_col_name = data_col_name
+        self.truncate = truncate
+        self.clean = clean
+        self.embedding_size = embedding_size
+
+    def __call__(
+        self, data: Dict[str, List[Any]]
+    ) -> Dict[str, np.ndarray]:
+        rows = [
+            _to_numpy(x)
+            if x is not None
+            else np.zeros((0, self.embedding_size), np.float32)
+            for x in data[self.data_col_name]
+        ]
+        if self.truncate:
+            rows = [r[: self.pad_len] for r in rows]
+        emb = next((r.shape[-1] for r in rows if r.size), self.embedding_size)
+        if self.clean:
+            rows = [np.nan_to_num(r) for r in rows]
+        tokens = np.full((len(rows), self.pad_len, emb), self.fill_value, dtype=np.float32)
+        mask = np.ones((len(rows), self.pad_len), dtype=bool)
+        for i, r in enumerate(rows):
+            t = r.shape[0]
+            tokens[i, :t] = r
+            mask[i, :t] = False
+        out: Dict[str, np.ndarray] = {"tokens": tokens}
+        if self.attn_mask:
+            out["attention_mask"] = mask
+        return out
+
+
+class MatrixCollator:
+    """Row-pad 2-D matrices to ``[B, pad_len, width]`` with
+    ``pad_token`` (a missing row stays all ``pad_token``); the width is
+    the first present row's, else ``max_channels``; ``max_channels``
+    also cuts the width."""
+
+    def __init__(
+        self,
+        pad_token: float = -10000,
+        pad_len: int = 2048,
+        attn_mask: bool = True,
+        max_channels: int = 0,
+        **kwargs: Any,
+    ):
+        self.pad_token = pad_token
+        self.pad_len = pad_len
+        self.max_channels = max_channels
+
+    def __call__(
+        self, data: Dict[str, List[Any]]
+    ) -> Dict[str, np.ndarray]:
+        rows = [_to_numpy(x) for x in data["values"]]
+        width = next((r.shape[1] for r in rows if r is not None), self.max_channels)
+        out = np.full((len(rows), self.pad_len, width), self.pad_token, dtype=np.float32)
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            t = min(r.shape[0], self.pad_len)
+            out[i, :t] = r[:t]
+        if self.max_channels:
+            out = out[:, :, : self.max_channels]
+        return {"values": out}
+
+
+collators = {
+    "matrix": MatrixCollator,
+    "sequence": SequenceCollator,
+    "embedded_sequence": EmbeddedSequenceCollator,
+}
 
 
 class MultimodalCollator:
@@ -96,10 +195,8 @@ class MultimodalCollator:
     ):
         for name, cfg in modality_config.items():
             if cfg["type"] not in collators:
-                raise NotImplementedError(
-                    f"collator type {cfg['type']!r} (modality {name!r}) "
-                    "is not ported yet; the port collates 'sequence' "
-                    "(tabular) modalities"
+                raise ValueError(
+                    f"modality {name!r}: unknown collator type {cfg['type']!r}"
                 )
         self.modality_collators = {
             name: collators[cfg["type"]](**cfg)

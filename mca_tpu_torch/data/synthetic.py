@@ -1,10 +1,11 @@
 """Synthetic rows for driving the port (smoke runs, profiling, training).
 
 - :func:`tabular_rows` — request rows for the embedding service.
-- :func:`make_tcga_like` — the port's copy of
-  ``mca_tpu.data.synthetic.make_tcga_like``: TCGA-shaped training rows
-  with a shared planted latent, numpy-seeded, so the same seed gives the
-  same rows as the JAX package's generator.
+- :func:`make_tcga_like` / :func:`make_cmu_like` — the port's copies
+  of ``mca_tpu.data.synthetic``'s generators: TCGA-shaped tabular rows
+  and CMU-MOSEI-shaped variable-length pre-embedded sequences, each with
+  a shared planted latent, numpy-seeded in the same draw order, so the
+  same seed gives the same rows as the JAX package's generators.
 """
 
 from __future__ import annotations
@@ -18,6 +19,13 @@ TCGA_MODALITIES = {
     "protein": 198,
     "methylation": 800,
     "mirna": 662,
+}
+#: CMU-MOSEI's modalities as CMU_config1 has them: (features, max tokens)
+CMU_MODALITIES = {
+    "COVAREP": (74, 1500),
+    "FACET": (35, 450),
+    "OpenFace": (713, 450),
+    "glove_vectors": (300, 50),
 }
 
 
@@ -91,5 +99,44 @@ def make_tcga_like(
         label = np.zeros((n_classes,), dtype=np.float32)
         label[cls if clustered else int(np.argmax(z @ class_w))] = 1.0
         sample["Labels"] = {"values": label}
+        samples.append(sample)
+    return samples
+
+
+def make_cmu_like(
+    n_samples: int = 64,
+    shapes: Optional[Dict[str, tuple]] = None,
+    latent_dim: int = 8,
+    p_missing: float = 0.0,
+    seed: int = 0,
+) -> List[Dict[str, Any]]:
+    """List of sample dicts ``{modality: {'data': [t, features] or None},
+    'Labels': {'data': [7]}}``: each sequence has a length drawn from 1 to
+    its max tokens and observes the sample's latent through the
+    modality's random map (plus noise); with probability ``p_missing`` a
+    modality is ``None`` (missing).  Labels: sentiment (the latent
+    through a random map, clipped to [-3, 3]) then six binary emotions."""
+    rng = np.random.default_rng(seed)
+    shapes = shapes or CMU_MODALITIES
+    maps = {
+        m: rng.normal(size=(latent_dim, d)).astype(np.float32)
+        for m, (d, _) in shapes.items()
+    }
+    sent_w = rng.normal(size=(latent_dim,)).astype(np.float32)
+    samples = []
+    for _ in range(n_samples):
+        z = rng.normal(size=(latent_dim,)).astype(np.float32)
+        sample: Dict[str, Any] = {}
+        for m, (d, max_t) in shapes.items():
+            if rng.random() < p_missing:
+                sample[m] = {"data": None}
+                continue
+            t = int(rng.integers(1, max_t + 1))
+            seq = z @ maps[m] + 0.1 * rng.normal(size=(t, d)).astype(np.float32)
+            sample[m] = {"data": seq.astype(np.float32)}
+        labels = np.zeros((7,), dtype=np.float32)
+        labels[0] = float(np.clip(z @ sent_w, -3, 3))  # sentiment
+        labels[1:] = (rng.random(6) < 0.3).astype(np.float32)  # emotions
+        sample["Labels"] = {"data": labels}
         samples.append(sample)
     return samples

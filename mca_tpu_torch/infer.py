@@ -10,8 +10,11 @@ runs the model over the train and test splits of ``dataset:`` in order
 the JAX package's (and the reference's) format: ``torch.save`` of
 ``{key: tensor}``, keyed by modality name (str), modality combo
 (``frozenset`` of modality indices) and ``'fusion'``; masks by modality
-name; the labels as one bare tensor.  ``--synthetic N`` reads N
-TCGA-shaped rows made from the config's seed instead of ``dataset:``.
+name; the labels as one bare tensor (TCGA's one-hot classes under
+``values``; CMU-MOSEI's 7 floats, sentiment then six emotions, under
+``data``).  ``--synthetic N`` reads N rows made from the config's seed
+(TCGA- or CMU-shaped, as the config's modalities are) instead of
+``dataset:``.
 
 The model is the MCA or EAO family of the config with the fused
 feed-forward (the forward-only process, as ``mca_tpu.infer.main`` sets
@@ -195,8 +198,9 @@ def main(argv=None) -> None:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("config", help="train yaml with restart: set")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="read N synthetic TCGA-shaped rows made from the "
-                        "config's seed instead of dataset:")
+                   help="read N synthetic rows (TCGA- or CMU-shaped, as the "
+                        "config's modalities are) made from the config's seed "
+                        "instead of dataset:")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
     config = training_config(args.config, make_output_dir=True)

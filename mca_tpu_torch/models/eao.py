@@ -125,10 +125,11 @@ class EAO(nn.Module):
         self,
         batch: Dict[str, Dict[str, torch.Tensor]],
         no_loss: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         tokens, pads, sample_mask = [], [], {}
         for m in self.modality_types:
-            t, a = self.encoders[m](batch[m])
+            t, a = self.encoders[m](batch[m], generator)
             tokens.append(t)
             pads.append(a.bool())
             sample_mask[m] = (a == 0).sum(dim=1) != 0

@@ -21,6 +21,9 @@ it moves with the module.  Parameters stay fp32; ``precision='bf16'``
 runs the transformer blocks in bf16 with fp32 norms and softmax
 statistics.
 
+``generator`` (train mode only) feeds the encoders' dropout
+(:mod:`mca_tpu_torch.encoders`); eval and inference never draw.
+
 ``remat`` wraps each block in ``torch.utils.checkpoint`` while
 gradients are on, as the JAX package wraps it in ``nn.remat``: the
 backward recomputes the block's forward (the flash forward included)
@@ -158,10 +161,11 @@ class MCA(nn.Module):
         self,
         batch: Dict[str, Dict[str, torch.Tensor]],
         no_loss: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         tokens, pad_masks, sample_mask = [], [], {}
         for m in self.modality_types:
-            t, a = self.encoders[m](batch[m])
+            t, a = self.encoders[m](batch[m], generator)
             tokens.append(t)
             pad_masks.append(a.bool())
             sample_mask[m] = (a == 0).sum(dim=1) != 0
@@ -214,14 +218,14 @@ class MCA(nn.Module):
 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
     """Random weights from ``generator``, with the JAX package's
-    initialisers: normal(1) token tables and fusion / return tokens,
-    torch ``nn.Linear`` uniform(+-1/sqrt(fan_in)) for every linear
-    weight, zeros for biases, ones for norm scales, log(1/0.07) for
-    the logit scale."""
+    initialisers: normal(1) token tables, position embeddings and fusion
+    / return tokens, torch ``nn.Linear`` uniform(+-1/sqrt(fan_in)) for
+    every linear weight, zeros for biases, ones for norm scales,
+    log(1/0.07) for the logit scale."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("gamma") or name.endswith("norm.weight"):
-                p.fill_(1.0)
+            if name.endswith("gamma") or (name.endswith("weight") and p.ndim == 1):
+                p.fill_(1.0)  # the norms' scales
             elif name.endswith("logit_scale"):
                 p.fill_(LOGIT_SCALE_INIT)
             elif name.endswith("bias"):

@@ -124,17 +124,26 @@ class EmbeddingService:
 
     @staticmethod
     def _zero_row(mods: Dict[str, Any]) -> Dict[str, Any]:
-        """An all-pad row (template for warmup and batch padding)."""
-        return {
-            m: {
-                c.get("data_col_name", "values"): np.full(
-                    int(c["pad_len"]),
-                    float(c.get("pad_token", -10000.0)),
-                    np.float32,
-                )
-            }
-            for m, c in mods.items()
-        }
+        """An all-pad row (template for warmup and batch padding), as
+        ``mca_tpu.serve`` builds it: ``[pad_len]`` of ``pad_token`` for a
+        ``sequence`` modality; ``[pad_len, width]`` for ``matrix`` (of
+        ``pad_token``) and ``embedded_sequence`` (of finite zeros: its
+        collator's attention mask carries the padding).  The width is the
+        config's ``embedding_size``, ``input_size`` or ``width``, else 1
+        (the collators widen to the first real row's width)."""
+        row: Dict[str, Any] = {}
+        for m, c in mods.items():
+            field = c.get("data_col_name", "values")
+            pad = float(c.get("pad_token", -10000.0))
+            typ = c.get("type")
+            if typ in ("matrix", "embedded_sequence"):
+                width = int(c.get("embedding_size") or c.get("input_size")
+                            or c.get("width") or 1)
+                fill = 0.0 if typ == "embedded_sequence" else pad
+                row[m] = {field: np.full((int(c["pad_len"]), width), fill, np.float32)}
+            else:
+                row[m] = {field: np.full(int(c["pad_len"]), pad, np.float32)}
+        return row
 
     def _pad(self, rows: Sequence[Dict[str, Any]]):
         """Collate ``rows`` padded to ``max_batch`` with template rows

@@ -44,3 +44,66 @@ def host_description() -> str:
         f"{torch.get_num_threads()}, load average {load}, Python loop probe "
         f"{host_probe_ms():.1f} ms"
     )
+
+
+def request_rows(config, n: int, seed: int = 1) -> list:
+    """``n`` request rows for the config's modalities, without labels:
+    :func:`mca_tpu_torch.data.synthetic.tabular_rows` for tabular
+    configs, else :func:`mca_tpu_torch.train.synthetic_rows`'s
+    (CMU-MOSEI-shaped) rows."""
+    from mca_tpu_torch.data.synthetic import tabular_rows
+    from mca_tpu_torch.train import plain, synthetic_rows
+
+    mods = plain(config.modality_config)
+    if {c["type"] for c in mods.values()} == {"sequence"}:
+        return tabular_rows(mods, n, seed=seed)
+    return [{m: r[m] for m in mods} for r in synthetic_rows(config, n, seed=seed)]
+
+
+def host_batch_costs(config, rows: list, device, stage_dtypes=("fp32", "bf16"),
+                     repeats: int = 5) -> dict:
+    """The host's side of one batch of ``rows``, median ms of ``repeats``:
+    ``collate_ms`` (``MultimodalCollator``), and for each of
+    ``stage_dtypes`` ``narrow_ms`` (:func:`train.narrow_for_staging`),
+    ``copy_ms`` (:func:`train.to_device`, host to device and the upcast,
+    synchronised) and ``bytes`` copied."""
+    from mca_tpu_torch.data.collators import MultimodalCollator
+    from mca_tpu_torch.train import narrow_for_staging, plain, staging_sentinels, to_device
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def median_ms(fn) -> float:
+        times = []
+        for _ in range(repeats):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    collate = MultimodalCollator(plain(config.modality_config))
+    out = {"collate_ms": median_ms(lambda: collate(rows))}
+    batch = collate(rows)
+    sentinels = staging_sentinels(config)
+    for sd in stage_dtypes:
+        staged = narrow_for_staging(batch, sd, sentinels)
+        n_bytes = sum(torch.as_tensor(v).nbytes for f in staged.values() for v in f.values())
+        out[sd] = {
+            "narrow_ms": median_ms(lambda: narrow_for_staging(batch, sd, sentinels)),
+            "copy_ms": median_ms(lambda: to_device(staged, dev)),
+            "bytes": int(n_bytes),
+        }
+    return out
+
+
+def sample_tokens(config, model) -> int:
+    """Tokens one sample puts through the blocks: the packed sequence of
+    an MCA model, the sum of an EAO model's pass lengths."""
+    if not config.get("eao", False):
+        return int(model.mask_set.seq_len)
+    mods = config.modality_config
+    mods = mods.to_plain() if hasattr(mods, "to_plain") else dict(mods)
+    lens = [int(mods[m]["pad_len"]) for m in model.modality_types]
+    return sum(sum(lens[i] for i in ch) for ch in model.channels)

@@ -4,8 +4,11 @@
         [--forwards 10] [--trace out.json]
 
 Builds ``EmbeddingService`` from the config (default
-``configs/tcga_mca.yaml``: TCGA_config1, batch 8) with random weights
-from ``--seed``, warms it up, then runs ``--forwards`` batch-8 forwards
+``configs/tcga_mca.yaml``: TCGA_config1, batch 8; ``configs/cmu_mca.yaml``
+is CMU_config1) with random weights from ``--seed`` on request rows
+shaped as the config's modalities (``tools.request_rows``), times the
+host's side of a batch as buckets of its own (collate, and the copy to
+the device, ``tools.host_batch_costs``), warms it up, then runs ``--forwards`` batch-8 forwards
 back to back (each dispatched while the previous one computes, as the
 batcher does) under ``torch.profiler``.  Prints the device time per
 forward by kernel and by kind (the two ported kernels, GEMMs, the rest),
@@ -25,8 +28,8 @@ from pathlib import Path
 import torch
 
 from mca_tpu_torch.config import training_config
-from mca_tpu_torch.data.synthetic import tabular_rows
 from mca_tpu_torch.serve import EmbeddingService
+from mca_tpu_torch.tools import host_batch_costs, request_rows
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
 
@@ -60,7 +63,8 @@ def main(argv=None) -> None:
 
     config = training_config(args.config)
     svc = EmbeddingService(config, device="cuda", seed=args.seed)
-    rows = tabular_rows(config.modality_config, svc.max_batch)
+    rows = request_rows(config, svc.max_batch)
+    host_batch = host_batch_costs(config, rows, "cuda", stage_dtypes=("fp32",))
     for _ in range(3):
         svc._materialise(svc._dispatch(rows), len(rows))
     torch.cuda.synchronize()
@@ -93,6 +97,9 @@ def main(argv=None) -> None:
     print(f"{n} batch-{svc.max_batch} forwards: {wall_ms / n:.3f} ms wall each, "
           f"{busy_ms / n:.3f} ms device busy each, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    print(f"host ms per batch (inside the wall above): collate "
+          f"{host_batch['collate_ms']:.3f}, host-to-device copy "
+          f"{host_batch['fp32']['copy_ms']:.3f} ({host_batch['fp32']['bytes']} bytes)")
     print("device ms per forward by kind:")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {ms / n:9.4f}  {kind}")
@@ -106,6 +113,7 @@ def main(argv=None) -> None:
         "device_ms_per_forward": busy_ms / n,
         "idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "by_kind_ms_per_forward": {k: v / n for k, v in by_kind.items()},
+        "host_batch_ms": host_batch,
     }))
 
 

@@ -4,9 +4,12 @@
         [--steps 5] [--bwd-impl fused|split] [--trace out.json]
 
 Builds the trainer from the config (default ``configs/tcga_mca.yaml``:
-TCGA_config1, batch 8, bf16 compute) with random weights from
-``--seed`` and one synthetic batch of TCGA-shaped rows (p_missing 0.25),
-takes 2 warm-up steps, times three windows of ``--steps`` steps on the
+TCGA_config1, batch 8, bf16 compute; ``configs/cmu_mca.yaml`` is
+CMU_config1) with random weights from ``--seed`` and one synthetic batch
+of rows shaped as the config's modalities (``train.synthetic_rows``,
+p_missing 0.25), times the host's side of that batch as buckets of its
+own (collate, and the copy to the device at fp32 and at bf16 staging,
+with the bytes: ``tools.host_batch_costs``), takes 2 warm-up steps, times three windows of ``--steps`` steps on the
 host clock (synchronised, no profiler), then runs ``--steps`` more under
 ``torch.profiler``.  Prints the host (CPU, load, a Python loop probe),
 for each window its wall time, the process's CPU time and the probe
@@ -34,7 +37,8 @@ import torch
 from mca_tpu_torch.config import training_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.ops import flash_attention as flash
-from mca_tpu_torch.tools import host_description, host_probe_ms
+from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
+                                 sample_tokens)
 from mca_tpu_torch.train import build_trainer, synthetic_rows, to_device, train_step
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
@@ -82,6 +86,7 @@ def main(argv=None) -> None:
     model, opt, sched = build_trainer(config, "cuda", num_training_steps=4 * n + 2)
     rows = synthetic_rows(config, int(config.batch_size))
     batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), "cuda")
+    host_batch = host_batch_costs(config, rows, "cuda")
     clip = float(config.clip or 0.0)
     for _ in range(2):
         train_step(model, opt, sched, batch, clip=clip)
@@ -118,7 +123,7 @@ def main(argv=None) -> None:
     by_kind = defaultdict(float)
     for name, ms in per_kernel.items():
         by_kind[kind_of(name)] += ms
-    tokens = int(config.batch_size) * model.mask_set.seq_len
+    tokens = int(config.batch_size) * sample_tokens(config, model)
     host = host_description()
     print(card)
     print(host)
@@ -130,6 +135,11 @@ def main(argv=None) -> None:
           f"{profiled_ms / n:.3f} ms wall each under the profiler; "
           f"{busy_ms / n:.3f} ms device busy each, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f} of the unprofiled median")
+    print(f"host ms per batch (not in the step windows): collate "
+          f"{host_batch['collate_ms']:.3f}; " + "; ".join(
+              f"{sd} staging: narrow {c['narrow_ms']:.3f}, host-to-device copy "
+              f"{c['copy_ms']:.3f} ({c['bytes']} bytes)"
+              for sd, c in host_batch.items() if sd != "collate_ms"))
     print("device ms per step by kind:")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {ms / n:9.4f}  {kind}")
@@ -156,6 +166,7 @@ def main(argv=None) -> None:
         "idle_share": max(0.0, 1 - busy_ms / wall_ms),
         "tokens_per_s": tokens / wall_ms * n * 1e3,
         "by_kind_ms_per_step": {k: v / n for k, v in by_kind.items()},
+        "host_batch_ms": host_batch,
     }))
 
 

@@ -11,8 +11,9 @@ each (``run_eval_loop``), a checkpoint per epoch under
 either (a step inside an epoch resumes there, skipping the batches
 already trained), the final parameters under ``output_dir/model`` and
 ``output_dir/model.safetensors``, and every record in
-``output_dir/metrics.jsonl``.  ``--synthetic N`` trains on N TCGA-shaped
-rows made from ``seed`` instead of ``dataset:``.
+``output_dir/metrics.jsonl``.  ``--synthetic N`` trains on N rows made
+from ``seed`` instead of ``dataset:``, TCGA-shaped or CMU-MOSEI-shaped
+as the config's modalities are (:func:`synthetic_rows`).
 
 One step is the JAX package's ``_step_body``: the MCA forward with the
 loss graph, backward (through the flash-attention backward kernels on
@@ -27,6 +28,12 @@ gradients; ``moment_dtype: bf16`` stores AdamW's moments in bf16
 in the backward.  The model is built with the unfused, differentiable
 feed-forward, as the JAX package trains (``MCA_FUSED_FF=0``).
 Parameters are fp32; ``precision: bf16`` runs the blocks in bf16.
+``stage_dtype: fp16 | bf16`` narrows each training batch's float
+columns on the host before the copy to the device and restores fp32
+there (:func:`narrow_for_staging`, :func:`to_device`).  Encoder dropout
+draws from one ``torch.Generator`` a step (and microbatch) derived from
+``seed`` (:func:`dropout_generator`); eval, ``infer`` and ``serve``
+never draw.
 
 Guards: ``halt_on_nan`` (default true) saves the diverged state to
 ``output_dir/diverged`` and raises :class:`DivergenceError` at the
@@ -37,8 +44,8 @@ at the next step boundary (the CLI exits 75).
 
 ``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
 the JAX package dispatches XLA, not what is trained; they have no
-counterpart here and are ignored.  ``stage_dtype`` other than fp32 and
-a ``trace_dir`` raise ``NotImplementedError``.  The entry point runs on
+counterpart here and are ignored.  A ``trace_dir`` raises
+``NotImplementedError``.  The entry point runs on
 ``cuda`` and raises without one; pass ``--device cpu`` for the plain
 versions of the kernels.
 """
@@ -63,7 +70,7 @@ from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
-from mca_tpu_torch.data.synthetic import make_tcga_like
+from mca_tpu_torch.data.synthetic import make_cmu_like, make_tcga_like
 from mca_tpu_torch.eval_metrics import epoch_metrics
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
 from mca_tpu_torch.models import MCA, build_model
@@ -97,13 +104,19 @@ def plain(c) -> Dict[str, Any]:
     return c.to_plain() if hasattr(c, "to_plain") else dict(c)
 
 
+#: ``stage_dtype`` values: fp32 copies the batches as collated
+STAGE_DTYPES = ("fp32", "", None, "fp16", "bf16")
+_NARROW = {"fp16": torch.float16, "bf16": torch.bfloat16}
+# the reference's pad / missing marker, where a modality_config names none
+_DEFAULT_PAD_TOKEN = -10000.0
+
+
 def check_training_keys(config) -> None:
     """Refuse what the port cannot train as asked, as the JAX package
-    does: ``grad_accum`` that does not divide ``batch_size`` and a
-    ``moment_dtype`` other than fp32 or bf16 raise ``ValueError``; a
-    ``stage_dtype`` other than fp32 (host-side narrowing of the input
-    batches) and a ``trace_dir`` (a profiler trace) are not ported and
-    raise ``NotImplementedError``."""
+    does: ``grad_accum`` that does not divide ``batch_size``, a
+    ``moment_dtype`` other than fp32 or bf16 and a ``stage_dtype`` other
+    than fp32, fp16 or bf16 raise ``ValueError``; a ``trace_dir`` (a
+    profiler trace) is not ported and raises ``NotImplementedError``."""
     n_accum = int(config.get("grad_accum", 1) or 1)
     if n_accum < 1 or int(config.batch_size) % n_accum:
         raise ValueError(
@@ -113,10 +126,8 @@ def check_training_keys(config) -> None:
     if moment_dtype not in ("fp32", "bf16"):
         raise ValueError(f"moment_dtype must be fp32 or bf16, got {moment_dtype!r}")
     stage_dtype = config.get("stage_dtype", "fp32")
-    if stage_dtype not in ("fp32", "", None):
-        raise NotImplementedError(
-            f"stage_dtype: {stage_dtype}: narrowed input staging is not ported yet"
-        )
+    if stage_dtype not in STAGE_DTYPES:
+        raise ValueError(f"stage_dtype must be fp32, fp16 or bf16, got {stage_dtype!r}")
     if config.get("trace_dir", ""):
         raise NotImplementedError(
             "trace_dir: the torch.profiler counterpart of the JAX trace is "
@@ -273,7 +284,120 @@ def scalar_losses(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return scal
 
 
-def forward_backward(model: MCA, batch, n_accum: int = 1) -> Dict[str, torch.Tensor]:
+def staging_sentinels(config) -> Dict[str, Optional[float]]:
+    """Per modality, the float value that the model re-detects by exact
+    equality on the device (so narrowing must keep it and must not round
+    a live value onto it), or None where narrowing is always safe
+    (``mca_tpu.train.staging_sentinels``): a ``matrix`` modality's
+    ``pad_token`` (the PatchEncoder's patch mask); a ``sequence``
+    modality's ``float(padding_idx)`` under a Tabular (-1) or
+    SparseTabular (0) encoder (the value encoder's zeroing); None for
+    ``embedded_sequence`` (an explicit attention mask) and token-id
+    sequences."""
+    enc = plain(config.encoder_configs)
+    out: Dict[str, Optional[float]] = {}
+    for m, c in plain(config.modality_config).items():
+        typ, e = c.get("type"), enc.get(m, {})
+        if typ == "matrix":
+            out[m] = float(e.get("pad_token", c.get("pad_token", _DEFAULT_PAD_TOKEN)))
+        elif typ == "sequence" and e.get("type") == "TabularEncoder":
+            out[m] = float(e.get("padding_idx", -1))
+        elif typ == "sequence" and e.get("type") == "SparseTabularEncoder":
+            out[m] = float(e.get("padding_idx", 0))
+        else:
+            out[m] = None
+    return out
+
+
+def _narrowed(x: float, dtype: torch.dtype) -> float:
+    """``x`` as fp32, rounded to ``dtype`` and back."""
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype).float())
+
+
+def _pad_representable(pad: float, dtype: torch.dtype) -> bool:
+    return _narrowed(pad, dtype) == float(np.float32(pad))
+
+
+def _nearest_distinct(pad: float, dtype: torch.dtype) -> float:
+    """The closest ``dtype`` value that is not ``pad``, toward zero and of
+    its sign: where a live value that narrowing rounds onto the sentinel
+    is moved to."""
+    p32 = np.float32(pad)
+    if p32 == 0:
+        return float(torch.finfo(dtype).smallest_normal)
+    pn = _narrowed(p32, dtype)
+    for k in range(12, 5, -1):  # finest first: the nearest distinct value
+        c = _narrowed(p32 * np.float32(1 - 2.0**-k), dtype)
+        if c != pn:
+            return c
+    raise ValueError(f"no {dtype} neighbour for pad {pad}")
+
+
+def narrow_for_staging(batch, stage_dtype, sentinels=None):
+    """The host's narrowing of a collated batch before its copy to the
+    device (``mca_tpu.train.narrow_for_staging``); :func:`to_device`
+    restores fp32 there.  ``fp32`` (or empty) returns ``batch`` as it is.
+
+    ``fp16`` / ``bf16``: float32 columns become that type and int64
+    columns int32 (torch tensors on the host); other columns pass.
+    ``sentinels`` maps a modality to the float its device path detects
+    by equality, or None (:func:`staging_sentinels`); without it every
+    modality gets the reference's -10000.  Per modality, and the same
+    for every batch: where the narrow type cannot hold the sentinel
+    exactly (bf16 rounds -10000 to -9984), its float columns stay fp32;
+    otherwise a live value that rounds onto the sentinel is moved one
+    step toward zero (:func:`_nearest_distinct`), so no live entry
+    becomes padding."""
+    if stage_dtype in ("fp32", "", None):
+        return batch
+    nd = _NARROW[stage_dtype]
+    out = {}
+    for mod, cols in batch.items():
+        pad = _DEFAULT_PAD_TOKEN if sentinels is None else sentinels.get(mod)
+        if pad is None:
+            pad_ok, bump = True, None  # no float equality on the device
+        else:
+            pad = float(np.float32(pad))
+            pad_ok = _pad_representable(pad, nd)
+            bump = _nearest_distinct(pad, nd) if pad_ok else None
+        ncols = {}
+        for name, x in cols.items():
+            x = np.asarray(x)
+            if x.dtype == np.float32:
+                if not pad_ok:
+                    ncols[name] = x  # never narrows
+                    continue
+                xt = torch.from_numpy(x)
+                xn = xt.to(nd)
+                if bump is not None:
+                    collided = (xn.float() == pad) & (xt != pad)
+                    if bool(collided.any()):
+                        xn[collided] = bump
+                ncols[name] = xn
+            elif x.dtype == np.int64:
+                ncols[name] = torch.from_numpy(x).to(torch.int32)
+            else:
+                ncols[name] = x
+        out[mod] = ncols
+    return out
+
+
+def dropout_generator(seed: int, step: int, micro: Optional[int], device) -> torch.Generator:
+    """The encoders' dropout generator for one step (and microbatch) on
+    ``device``, seeded from ``(seed, step[, micro])`` as the JAX package
+    folds ``step`` (then ``micro``) into its dropout key, so a restarted
+    run draws what the straight run drew."""
+    # micro None and micro 0 must differ: a SeedSequence ignores
+    # trailing zero words, so the microbatch enters as micro + 1
+    entropy = [int(seed) % 2**32, int(step), 0 if micro is None else int(micro) + 1]
+    hi, lo = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed((int(hi) << 31) ^ int(lo))
+    return gen
+
+
+def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
+                     step: int = 0) -> Dict[str, torch.Tensor]:
     """The loss forward and its backward; returns the step's scalar
     losses (:func:`scalar_losses`).  Every parameter ends with a
     ``.grad`` (zeros where the loss does not reach it, so AdamW decays
@@ -284,18 +408,22 @@ def forward_backward(model: MCA, batch, n_accum: int = 1) -> Dict[str, torch.Ten
     the gradients of the backward passes are summed, then scaled by
     ``1 / n_accum``; each metric is the mean over the microbatches where
     it is finite (a pair absent from one microbatch is NaN there), NaN
-    where none had it."""
+    where none had it.  Each forward's encoder dropout draws from
+    :func:`dropout_generator` of ``(dropout_seed, step[, microbatch])``."""
+    device = next(model.parameters()).device
     for p in model.parameters():
         p.grad = None
     if n_accum == 1:
-        out = model(batch, no_loss=False)
+        out = model(batch, no_loss=False,
+                    generator=dropout_generator(dropout_seed, step, None, device))
         out["loss"].backward()
         scal = {k: v.detach().float() for k, v in scalar_losses(out).items()}
     else:
         total = count = names = None
         for i in range(n_accum):
             micro = {m: {k: v[i::n_accum] for k, v in f.items()} for m, f in batch.items()}
-            out = model(micro, no_loss=False)
+            out = model(micro, no_loss=False,
+                        generator=dropout_generator(dropout_seed, step, i, device))
             out["loss"].backward()
             s = scalar_losses(out)
             names = list(s)
@@ -322,11 +450,13 @@ def train_step(
     batch,
     clip: float = 0.0,
     n_accum: int = 1,
+    dropout_seed: int = 0,
 ) -> Dict[str, float]:
     """One training step (``mca_tpu.train._step_body``); returns the
-    step's metrics as floats."""
+    step's metrics as floats.  The step's index for the dropout
+    generator is the steps ``schedule`` has taken (restored with it)."""
     lr = schedule.get_last_lr()[0]
-    scal = forward_backward(model, batch, n_accum)
+    scal = forward_backward(model, batch, n_accum, dropout_seed, schedule.last_epoch)
     grads = [p.grad for p in model.parameters()]
     grad_norm = global_norm(grads)
     if clip:
@@ -376,17 +506,35 @@ def build_trainer(
 
 
 def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
-    """``n`` TCGA-shaped rows at the config's modality widths, with a
-    quarter of the modalities missing (what ``bench.py`` trains on)."""
-    widths = {m: int(c["pad_len"]) for m, c in config.modality_config.items()}
-    return make_tcga_like(n, widths=widths, p_missing=0.25, seed=seed)
+    """``n`` rows shaped as the config's modalities, with a quarter of the
+    modalities missing (what ``bench.py`` trains on): CMU-MOSEI-shaped
+    (:func:`make_cmu_like` at each encoder's ``input_size`` x
+    ``max_tokens``) when every modality is ``embedded_sequence``,
+    TCGA-shaped (:func:`make_tcga_like` at each ``pad_len``) when every
+    modality is ``sequence``."""
+    mods = plain(config.modality_config)
+    types = {c["type"] for c in mods.values()}
+    if types == {"embedded_sequence"}:
+        enc = plain(config.encoder_configs)
+        shapes = {m: (int(enc[m]["input_size"]), int(enc[m]["max_tokens"])) for m in mods}
+        return make_cmu_like(n, shapes=shapes, p_missing=0.25, seed=seed)
+    if types == {"sequence"}:
+        widths = {m: int(c["pad_len"]) for m, c in mods.items()}
+        return make_tcga_like(n, widths=widths, p_missing=0.25, seed=seed)
+    raise ValueError(f"no synthetic rows for modality types {sorted(types)}")
 
 
-def to_device(batch: Mapping[str, Mapping[str, np.ndarray]], device) -> dict:
-    return {
-        m: {k: torch.from_numpy(v).to(device) for k, v in fields.items()}
-        for m, fields in batch.items()
-    }
+def to_device(batch: Mapping[str, Mapping[str, Any]], device) -> dict:
+    """A collated batch (numpy arrays, or the tensors of
+    :func:`narrow_for_staging`) on ``device``; fp16 / bf16 columns are
+    copied narrow and become fp32 there."""
+    out = {}
+    for m, fields in batch.items():
+        out[m] = {}
+        for k, v in fields.items():
+            t = torch.as_tensor(v).to(device)
+            out[m][k] = t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
+    return out
 
 
 def make_wandb_config(config) -> Optional[Dict[str, Any]]:
@@ -573,6 +721,8 @@ def train(
     n_step = int(config.n_step_checkpoint or 0)
     keep = int(config.get("checkpoint_keep", 0) or 0)
     clip = float(config.clip or 0.0)
+    stage_dtype = config.get("stage_dtype", "fp32")
+    sentinels = staging_sentinels(config)
     logger.info("Number of training samples: %d, batches per epoch: %d",
                 len(data["train"]), steps_per_epoch)
 
@@ -599,8 +749,10 @@ def train(
             stream = iter(train_dl)
             try:
                 for batch in stream:
-                    metrics = train_step(model, optimizer, schedule, to_device(batch, dev),
-                                         clip=clip, n_accum=n_accum)
+                    staged = narrow_for_staging(batch, stage_dtype, sentinels)
+                    metrics = train_step(model, optimizer, schedule, to_device(staged, dev),
+                                         clip=clip, n_accum=n_accum,
+                                         dropout_seed=int(config.seed))
                     step += 1
                     meter.step()
                     if step % log_every == 0:
@@ -677,8 +829,9 @@ def main(argv=None) -> None:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("config", help="train yaml")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="train on N synthetic TCGA-shaped rows made from the "
-                        "config's seed instead of dataset:")
+                   help="train on N synthetic rows (TCGA- or CMU-shaped, as the "
+                        "config's modalities are) made from the config's seed "
+                        "instead of dataset:")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
     config = training_config(args.config, make_output_dir=True)

@@ -73,7 +73,7 @@ def test_halt_on_nan_disabled_runs_to_completion(tmp_path):
     "key,value,error",
     [
         ("grad_accum", 3, ValueError),  # does not divide batch_size 8
-        ("stage_dtype", "bf16", NotImplementedError),
+        ("stage_dtype", "fp8", ValueError),  # fp16 / bf16 staging is ported
         ("trace_dir", "traces", NotImplementedError),
         ("moment_dtype", "fp16", ValueError),
     ],
@@ -93,5 +93,6 @@ def test_default_training_keys_are_accepted():
     port_train.check_training_keys(_cfg())
     for accepted in (dict(grad_accum=2), dict(grad_accum=8), dict(moment_dtype="bf16"),
                      dict(steps_per_call=32, flat_state=True, fuse_optimizer=False),
-                     dict(stage_dtype="fp32", trace_dir="")):
+                     dict(stage_dtype="fp32", trace_dir=""), dict(stage_dtype="bf16"),
+                     dict(stage_dtype="fp16")):
         port_train.check_training_keys(_cfg(**accepted))

@@ -22,7 +22,7 @@ from mca_tpu_torch import train as port_train
 from mca_tpu_torch.serve import EmbeddingService
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mca_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mca_tpu", "einops", "ml_dtypes")
 
 
 def _imported_modules(path):
@@ -40,7 +40,9 @@ def test_no_jax_or_jax_package_imports():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("data/dataset.py", "utils/logging.py", "eval_metrics.py",
                    "checkpoint.py", "train.py", "infer.py", "probe.py", "metrics.py",
-                   "models/pool.py", "models/eao.py"):
+                   "models/pool.py", "models/eao.py", "encoders.py", "data/collators.py",
+                   "data/synthetic.py", "serve.py", "tools/__init__.py",
+                   "tools/profile_train.py", "tools/profile_serve.py"):
         assert f"mca_tpu_torch/{module}" in names, module
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
@@ -136,6 +138,34 @@ def test_infer_and_probe_entry_points_default_to_cuda(tmp_path):
         "embedding_dir": str(tmp_path / "no-such-dir"), "output_dir": str(tmp_path / "p")}))
     with pytest.raises(RuntimeError, match="CUDA"):
         port_probe.main([str(probe_path)])
+
+
+def test_cmu_entry_points_default_to_cuda(tmp_path):
+    """CMU_config1 through every entry point this slice touched (serve,
+    train, infer and the two profiling tools): each runs on the GPU
+    unless the CPU is asked for, and raises without one."""
+    import yaml
+
+    from mca_tpu_torch.tools import profile_serve, profile_train
+
+    assert inspect.signature(EmbeddingService).parameters["device"].default == "cuda"
+    for fn in (port_train.train, port_train.build_trainer, port_infer.infer):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the raise is for hosts without one")
+    cmu = yaml.safe_load(open(ROOT / "configs/cmu_mca.yaml"))
+    cfg_path = tmp_path / "cmu.yaml"
+    cfg_path.write_text(yaml.safe_dump({**cmu, "output_dir": str(tmp_path / "out"),
+                                        "restart": str(tmp_path / "no-such-checkpoint")}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingService(training_config_from_dict(cmu))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_train.main([str(cfg_path), "--synthetic", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_infer.main([str(cfg_path), "--synthetic", "4"])
+    for tool in (profile_train, profile_serve):
+        with pytest.raises(SystemExit, match="CUDA"):
+            tool.main([str(cfg_path)])
 
 
 def _meta(*shape, dtype=torch.bfloat16):
