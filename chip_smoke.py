@@ -138,7 +138,12 @@ Phases (each asserted; any failure exits non-zero):
    no backward; six files, 16 keys, the 7 float labels, the eval split
    against fp32 on the CPU. (e) Prints host ms to collate a batch,
    host-to-device ms and bytes at fp32 and bf16 staging, and a fused step's
-   wall ms against the device's busy ms under the profiler.
+   wall ms against the device's busy ms under the profiler; then, each
+   pair of arms in turns: the C++ collate (``mca_tpu_torch.native``)
+   against its numpy plain versions, the batches bitwise equal; the
+   pageable blocking copy (``train.to_device``) against a pinned
+   non-blocking one, with and without the pinning; a fused step's wall
+   over an epoch of 40 rows with ``prefetch_batches`` 0 and 1.
 11. the EAO training step (``configs/tcga_eao.yaml`` at full width: ten
    unmasked passes a block, T 800, 198, 800, 662, 998, 1600, 1462, 998,
    860, 1462). (a) K2, K3a and K3b against the plain backward at each of
@@ -149,10 +154,30 @@ Phases (each asserted; any failure exits non-zero):
    equal over two runs at T 1600. (b) Phase 6 on the EAO model: 6 steps
    on each backward, K1 50 and K2 50 (or K3a 50 + K3b 50) a step, the
    first-step gates against fp32 on the CPU, fused against split.
-12. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+12. the MoE family: TCGA_config1 at full width and depth with
+   ``moe_experts: 2``, ``moe_capacity_factor: 2.0`` (C = T = 2548) set in
+   code. (a) Serving, as phase 5: ``embed`` / ``submit`` / HTTP agree, K1
+   5 a forward and K5 never, a row alone equals the row inside a batch,
+   bf16 GPU vs fp32 CPU. (b) Training, as phase 6 with 3 steps a
+   backward (K1 5 + K2 5, or K3a 5 + K3b 5, a step; the first-step gates;
+   the router and expert gradients gated leaf by leaf beside the attention
+   leaves, against a planted fault, and read again with the MoE computing
+   in fp32 on the card). (c) The module alone at 4 experts, capacity
+   factor 1.0 (C = 637, tokens dropped) on x [8, 2548, 512] with ragged
+   padding: bf16 against fp32 on the card where both chose the same
+   experts for a token (the choices that flipped are counted), and the
+   port's gather / scatter-add against the one-hot dispatch and combine
+   products of ``onehot_forward``, its plain reference. (d) Wall and
+   device ms a fused step and the peak memory for the port's MoE, the
+   one-hot reference and the dense model, in turns, beside the card and
+   the host. (e) ``tools.moe_stats`` from (b)'s weights on 40 rows: K1 5
+   launches, one row a layer, every real token covered, each layer's
+   expert probability mass summing to 1.
+13. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
-   training and infer and phase 11's training, each counted from 0), then
-   the last line ``{"ok": true, "device": {...}}``.
+   training and infer, phase 11's training and phase 12's serving,
+   training and ``moe_stats``, each counted from 0), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -162,6 +187,7 @@ limit is printed beside them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -175,6 +201,7 @@ import threading
 import time
 import urllib.request
 import warnings
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -183,6 +210,7 @@ import torch
 import mca_tpu_torch
 from mca_tpu_torch import _build
 from mca_tpu_torch import infer as infer_lib
+from mca_tpu_torch import native
 from mca_tpu_torch import probe as probe_lib
 from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state, save_params
 from mca_tpu_torch.config import embedding_eval_config, get_model_config, training_config
@@ -190,15 +218,19 @@ from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.masks import adjusted_powerset, build_masks
 from mca_tpu_torch.models import build_model
+from mca_tpu_torch.models.mca import init_weights
+from mca_tpu_torch.models import moe
+from mca_tpu_torch.models.moe import MoEFeedForward, expert_capacity
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
 from mca_tpu_torch.ops import probes
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
-                                 request_rows, sample_tokens)
+                                 median_host_ms, request_rows, sample_tokens)
 from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
 from mca_tpu_torch.tools import sass_counts
+from mca_tpu_torch.tools.moe_stats import extract_moe_stats
 from mca_tpu_torch.train import (
     PreemptedError,
     build_trainer,
@@ -283,6 +315,17 @@ TRAIN_ATTN_GRAD_REL_L2 = 2e-2
 # dq scaled by PLANTED_DQ_SCALE, measured 5.0e-2) must exceed the bound
 TRAIN_ROUTE_GRAD_REL_L2 = 1e-2
 PLANTED_DQ_SCALE = 1.05
+# the MoE's leaves, bf16 on the GPU vs fp32 on the CPU, leaf by leaf
+# (phase 12 (b)): each expert matrix carries about the flat vector's gap
+# (measured 8.9e-3 to 1.07e-2 on an H100), so 2e-2 as for the attention
+# projections; the router's gradient sums x * d(logits) over the batch's
+# tokens, where d(logits) = s1 * s2 * (g1 - g2) is a difference of the
+# two experts' gate gradients (measured 7.8e-3 to 2.37e-2, the last block
+# highest), so 5e-2.  Each leaf's gradient scaled by PLANTED_MOE_SCALE
+# on its way to the optimiser (a planted fault, ~1e-1) must exceed its bound
+TRAIN_EXPERT_GRAD_REL_L2 = 2e-2
+TRAIN_ROUTER_GRAD_REL_L2 = 5e-2
+PLANTED_MOE_SCALE = 1.1
 # phase 8: 40 rows, 8 of them the eval split, so 4 train batches and 1
 # eval batch of 8 an epoch
 RUN_ROWS = 40
@@ -300,6 +343,33 @@ EVAL_CONFIGS = {"mma": ROOT / "configs" / "tcga_mma_d40.yaml",
 CMU_CONFIG = ROOT / "configs" / "cmu_mca.yaml"
 EAO_CONFIG = ROOT / "configs" / "tcga_eao.yaml"
 PROFILED_STEPS = 3
+TOP_KERNELS = 6
+# phase 12: TCGA_config1 with the MoE feed-forward at the JAX package's
+# default capacity factor (C = T = 2548: every token reaches both
+# experts), 3 steps on each backward; (c) holds the module alone where
+# tokens are dropped (4 experts, capacity factor 1.0, C = 637)
+MOE_EXPERTS = 2
+MOE_CF = 2.0
+MOE_STEPS = 3
+ROUTING_EXPERTS = 4
+ROUTING_CF = 1.0
+# (c) outputs, bf16 against fp32 on the tokens both runs route alike:
+# relative L2.  bf16 rounds x, the weights, the experts' hidden, gated
+# and output activations, the gates and the weighted outputs to 8
+# significant bits (~1e-3 RMS each); ten such roundings gave ~6e-3
+# through the plain PyTorch products on a CPU, so 2e-2; a token routed
+# to a wrong expert, or a wrong gate, moves its row by O(1)
+MOE_REL_L2 = 2e-2
+# (c) the port's gather / scatter-add against the one-hot reference, both
+# bf16 from the same choices: they differ only where a token's weighted
+# outputs are summed (the one-hot combine sums in fp32 inside its
+# product and rounds once, index_add rounds each add to bf16; measured
+# 5.3e-4 on an H100), so 2e-3; one expert's gates scaled by 1 + 2^-6
+# (the planted combine fault) moves the output by ~8e-3 and must exceed it
+MOE_ARM_REL_L2 = 2e-3
+PLANTED_GATE_SCALE = 1 + 2**-6
+# (e) moe_stats: the router's probabilities sum to 1 over the experts
+MOE_MASS_ATOL = 1e-4
 PROBE_CONFIG = ROOT / "configs" / "tcga_probe.yaml"
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
@@ -870,9 +940,11 @@ def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
 
 def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> dict:
     """The serving slice (phase 5 for TCGA_config1, phase 10 (b) for
-    CMU_config1): ``embed``, ``submit`` and ``POST /embed`` on request
-    rows shaped as the config's modalities, K1 and K5 once a block and
-    forward, and bf16 on the GPU against fp32 on the CPU."""
+    CMU_config1, phase 12 (a) for the MoE model): ``embed``, ``submit``
+    and ``POST /embed`` on request rows shaped as the config's
+    modalities, K1 once a block and forward, K5 too unless the blocks'
+    feed-forward is the MoE, a row embedded alone against the same row
+    inside a batch, and bf16 on the GPU against fp32 on the CPU."""
     svc = EmbeddingService(config, device=device, seed=0, max_batch=8)
     forwards = [0]
     svc.model.register_forward_hook(
@@ -919,10 +991,11 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
         svc.stop()
     counts = {"flash_fwd": flash.launches, "geglu_ff": ff.launches}
     depth = len(svc.model.layers)
+    ff_depth = 0 if int(config.get("moe_experts", 0) or 0) else depth
     print(f"{label}: {forwards[0]} forwards, launches {counts}", flush=True)
     assert forwards[0] >= 4, forwards  # 3 chunks of embed + >= 1 batch
-    for name, c in counts.items():
-        assert c == depth * forwards[0], (name, c, forwards[0])
+    assert counts == {"flash_fwd": depth * forwards[0],
+                      "geglu_ff": ff_depth * forwards[0]}, (counts, forwards[0])
 
     # the three request paths agree
     agree = 0.0
@@ -937,6 +1010,15 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
         assert res["present"] == {k: bool(via_embed["present"][k][r]) for k in svc.mask_keys}
     assert agree <= AGREE_ATOL, agree
     assert not all(via_embed["present"][k].all() for k in svc.mask_keys)
+    # a row alone (its batch-mates the all-pad template) against the same
+    # row inside the batch: nothing in a forward mixes samples
+    alone = 0.0
+    for r in (0, 5):
+        single = svc.embed([rows[r]])
+        alone = max(alone, max(float(np.abs(single["embeddings"][k][0]
+                                            - via_embed["embeddings"][k][r]).max())
+                               for k in svc.emb_keys))
+    assert alone <= AGREE_ATOL, alone
 
     # the same weights in fp32 on the CPU through the plain versions
     cfg32 = type(config)(config)
@@ -969,7 +1051,8 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
     svc.embed(rows)
     embed_s = time.perf_counter() - t0
     print(
-        f"{label}: embed/submit/http max disagreement {agree:.3e}; "
+        f"{label}: embed/submit/http max disagreement {agree:.3e}; a row alone vs "
+        f"inside a batch {alone:.3e}; "
         f"bf16 GPU vs fp32 CPU relative L2 {rel:.3e}; "
         f"{fwd_ms:.3f} ms per batch-8 forward ({8e3 / fwd_ms:.1f} rows/s); "
         f"embed of {n_rows} rows {embed_s * 1e3:.1f} ms ({n_rows / embed_s:.1f} rows/s)",
@@ -982,6 +1065,41 @@ def attention_leaves(grads: dict, projections=("to_q", "to_kv", "to_out")) -> li
     """Names of the transformer blocks' attention-projection weights."""
     return [n for n in grads if n.startswith("layers.")
             and n.split(".")[-2] in projections]
+
+
+def moe_leaves_fp32(model) -> None:
+    """Every MoE feed-forward of ``model`` computing in fp32 (its
+    router already does), the rest of the model as it was."""
+    for m in model.modules():
+        if isinstance(m, MoEFeedForward):
+            m.dtype = torch.float32
+
+
+def check_moe_leaves(label, gpu: dict, cpu: dict, gpu_grads) -> None:
+    """Phase 12 (b)'s MoE leaves, the first step's router and expert
+    gradients leaf by leaf, bf16 on the GPU against fp32 on the CPU: each
+    under its bound; each over it with every MoE leaf's gradient scaled
+    by PLANTED_MOE_SCALE (a planted fault); and, to show where the gap
+    comes from, read again with the MoE computing in fp32 on the card.
+    ``gpu_grads(plant)`` is the step's gradients on the GPU after
+    ``plant(model)``."""
+    bound = {n: TRAIN_ROUTER_GRAD_REL_L2 if ".ff.router." in n else TRAIN_EXPERT_GRAD_REL_L2
+             for n in gpu if ".ff.router." in n or ".ff.experts." in n}
+
+    def scaled(model):
+        for n, p in model.named_parameters():
+            if n in bound:
+                p.register_hook(lambda g: g * PLANTED_MOE_SCALE)
+
+    readings = {"bf16": gpu, f"gradients x {PLANTED_MOE_SCALE}": gpu_grads(scaled),
+                "MoE in fp32": gpu_grads(moe_leaves_fp32)}
+    rel = {arm: {n: rel_l2(g[n], cpu[n]) for n in bound} for arm, g in readings.items()}
+    for arm, r in rel.items():
+        print(f"{label}: first-step MoE gradients vs fp32 CPU, relative L2, {arm} on the "
+              f"GPU: {', '.join(f'{n} {x:.3e}' for n, x in r.items())}", flush=True)
+    for n, b in bound.items():
+        assert rel["bf16"][n] <= b, (n, rel["bf16"][n], b)
+        assert rel[f"gradients x {PLANTED_MOE_SCALE}"][n] > b, (n, b)
 
 
 def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="train") -> dict:
@@ -1002,8 +1120,7 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="trai
     config.num_warmup_steps = TRAIN_WARMUP
     rows = synthetic_rows(config, int(config.batch_size))
     collated = MultimodalCollator(config.modality_config.to_plain())(rows)
-    init = build_model(get_model_config(config), fused_ff=False)
-    init.init_weights(torch.Generator().manual_seed(0))
+    init = seed_model(config)
     params = {k: v.clone() for k, v in init.state_dict().items()}
     depth, tokens = len(init.layers), int(config.batch_size) * sample_tokens(config, init)
     passes = len(init.channels) if config.eao else 1
@@ -1059,9 +1176,11 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="trai
     # (on the CPU, fp32), through each route on the GPU, through the
     # split route with a planted dq fault, and in fp32 on the CPU
     # through the plain versions
-    def first_step(cfg, dev, impl="fused"):
+    def first_step(cfg, dev, impl="fused", plant=None):
         flash.default_bwd_impl = impl
         model = build_trainer(cfg, dev, params=params)[0]
+        if plant is not None:
+            plant(model)
         loss = float(forward_backward(model, to_device(collated, dev))["total_loss"])
         flash.default_bwd_impl = "fused"
         return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
@@ -1095,6 +1214,8 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="trai
         f"{', '.join(f'{n} {x:.3e}' for n, x in planted_rel.items())}",
         flush=True,
     )
+    if any(".ff.router." in n for n in gpu):
+        check_moe_leaves(label, gpu, cpu, lambda plant: first_step(config, device, plant=plant)[1])
     assert loss_rel <= TRAIN_LOSS_RTOL, (gpu_loss, cpu_loss)
     assert grad_rel <= TRAIN_GRAD_REL_L2, grad_rel
     assert max(attn_rel.values()) <= TRAIN_ATTN_GRAD_REL_L2, attn_rel
@@ -1706,11 +1827,15 @@ def check_eval(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
     dev, _, dev_s = probe_run(tmp / "i_mca", tmp / "p_dev", device.type, scan_epochs=True,
                               scan_epochs_chunk=256)
     cpu, cpu_recs, cpu_s = probe_run(tmp / "i_mca", tmp / "p_cpu", cpu_device)
-    loops = max(abs(dev[k] - host[k]) / max(abs(host[k]), 1e-6)
-                for k in ("train_loss", "eval_loss", "param_norm", "grad_norm", "eval_f1",
-                          "eval_auroc", "train_auroc"))
+    gaps = {k: abs(dev[k] - host[k]) / max(abs(host[k]), 1e-6)
+            for k in ("train_loss", "eval_loss", "param_norm", "grad_norm", "eval_f1",
+                      "eval_auroc", "train_auroc")}
+    loops = max(gaps.values())
     vs_cpu = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(host_recs, cpu_recs)
                  for k in ("train_loss", "eval_loss", "param_norm"))
+    print(f"eval (c): probe final records, device vs host loop, relative gap by key: "
+          f"{', '.join(f'{k} {dev[k]!r} vs {host[k]!r} ({x:.3e})' for k, x in gaps.items())}",
+          flush=True)
     print(f"eval (c): probe final records, device vs host loop: relative gap {loops:.3e}; "
           f"host loop card vs CPU, every epoch's train_loss, eval_loss, param_norm: "
           f"{vs_cpu:.3e}; final eval_auroc {host['eval_auroc']:.4f}", flush=True)
@@ -1758,7 +1883,8 @@ def staged_step_losses(config, device, params, rows) -> dict:
 def profiled_steps(config, device, params, rows, steps=PROFILED_STEPS) -> dict:
     """Wall ms a fused-backward step (host clock, synchronised, after a
     warm-up step) and the device's busy ms a step under torch.profiler
-    (another window of ``steps``): the device's share of the wall."""
+    (another window of ``steps``): the device's share of the wall; and
+    the ``TOP_KERNELS`` kernels that took the most device ms a step."""
     model, opt, sched = build_trainer(config, device.type, num_training_steps=3 * steps,
                                       params=params)
     batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), device)
@@ -1774,10 +1900,13 @@ def profiled_steps(config, device, params, rows, steps=PROFILED_STEPS) -> dict:
         for _ in range(steps):
             train_step(model, opt, sched, batch, clip=clip)
         torch.cuda.synchronize()
-    busy_ms = sum(ev.device_time_total for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(ev, "is_user_annotation", "#" in ev.name)) / 1e3 / steps
-    return {"wall_ms": wall_ms, "device_ms": busy_ms}
+    by_name = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", "#" in ev.name)):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+    return {"wall_ms": wall_ms, "device_ms": sum(by_name.values()), "top": top}
 
 
 def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
@@ -1840,6 +1969,7 @@ def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
           f"{prof['device_ms'] / prof['wall_ms']:.3f}); infer batch {t_inf['wall_ms']:.3f} ms "
           f"wall ({t_inf['rows_s']:.1f} rows/s), {t_inf['device_ms']:.3f} ms device busy",
           flush=True)
+    check_host_staging(cfg, device, params, rows)
     print(f"cmu: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"flash_fwd": served["flash_fwd"] + inferred["flash_fwd"],
             "geglu_ff": served["geglu_ff"] + inferred["geglu_ff"], **trained}
@@ -1859,6 +1989,302 @@ def check_eao_train(device, cpu_device="cpu") -> dict:
           f"{prof['device_ms'] / prof['wall_ms']:.3f})", flush=True)
     print(f"eao: {time.perf_counter() - t0:.1f} s", flush=True)
     return trained
+
+
+def plain_collate():
+    """The collators through the numpy plain versions of the C++ collate
+    inside the ``with`` block."""
+    return mock.patch.multiple(native, pad_rows=native.pad_rows_plain,
+                               pad_rows_fill=native.pad_rows_fill_plain,
+                               pad_seq2d=native.pad_seq2d_plain)
+
+
+def collate_arms(cfg, rows) -> tuple:
+    """One batch of ``rows`` through ``cfg``'s collator, by the C++
+    collate and by its numpy plain versions: held bitwise equal, then
+    timed in turns (host ms, median of 5).  Returns the C++ batch and the
+    times of each arm."""
+    collate = MultimodalCollator(cfg.modality_config.to_plain())
+    native_batch = collate(rows)
+    with plain_collate():
+        plain_batch = collate(rows)
+    for m, fields in plain_batch.items():
+        assert native_batch[m].keys() == fields.keys(), m
+        for k, v in fields.items():
+            got = native_batch[m][k]
+            assert got.dtype == v.dtype and got.shape == v.shape, (m, k)
+            assert got.tobytes() == v.tobytes(), (m, k)  # bit for bit
+    collate_ms = {"c++": [], "numpy": []}
+    for arm in ("c++", "numpy", "numpy", "c++"):
+        with plain_collate() if arm == "numpy" else contextlib.nullcontext():
+            collate_ms[arm].append(median_host_ms(lambda: collate(rows), torch.cuda.synchronize))
+    return native_batch, collate_ms
+
+
+def check_host_staging(cfg, device, params, rows) -> None:
+    """Phase 10 (e), the host's side of a CMU batch, each pair of arms in
+    turns in this call: the C++ collate against its numpy plain versions
+    (the batches bitwise equal), on the CMU batch and on a TCGA_config1
+    batch; a pageable blocking copy (``to_device``) against a pinned
+    non-blocking one, with the pinning and without it; and a fused step's
+    wall over an epoch of ``rows`` with ``prefetch_batches`` 0 and 1."""
+    bs = int(cfg.batch_size)
+    collate = MultimodalCollator(cfg.modality_config.to_plain())
+    native_batch, collate_ms = collate_arms(cfg, rows[:bs])
+    tcga_cfg = training_config(str(CONFIG))
+    tcga_bs = int(tcga_cfg.batch_size)
+    _, tcga_ms = collate_arms(tcga_cfg, synthetic_rows(tcga_cfg, tcga_bs))
+    sync = torch.cuda.synchronize
+
+    def pinned(batch):
+        return {m: {k: torch.from_numpy(v).pin_memory() for k, v in f.items()}
+                for m, f in batch.items()}
+
+    def copy_async(batch):
+        return {m: {k: t.to(device, non_blocking=True) for k, t in f.items()}
+                for m, f in batch.items()}
+
+    held = pinned(native_batch)
+    n_bytes = sum(v.nbytes for f in native_batch.values() for v in f.values())
+    copy_ms = {"pageable": [], "pin + async": [], "pinned async": []}
+    arms = {"pageable": lambda: to_device(native_batch, device),
+            "pin + async": lambda: copy_async(pinned(native_batch)),
+            "pinned async": lambda: copy_async(held)}
+    for arm in (*arms, *reversed(arms)):
+        copy_ms[arm].append(median_host_ms(arms[arm], sync))
+
+    model, opt, sched = build_trainer(cfg, device.type, num_training_steps=100, params=params)
+    clip = float(cfg.clip)
+
+    def epoch_ms(prefetch: int) -> float:
+        loader = BatchedLoader(rows, collate, bs, prefetch=prefetch)
+        sync()
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            train_step(model, opt, sched, to_device(batch, device), clip=clip)
+            n += 1
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    epoch_ms(0)  # warm-up
+    step_ms = {0: [], 1: []}
+    for prefetch in (0, 1, 1, 0):
+        step_ms[prefetch].append(epoch_ms(prefetch))
+    del model, opt, sched
+
+    def each(xs):
+        return ", ".join(f"{x:.3f}" for x in xs)
+
+    print(host_description(), flush=True)
+    print(f"cmu (e): collate a batch of {bs} (ms, median of 5, arms in turns): C++ "
+          f"{each(collate_ms['c++'])}, numpy {each(collate_ms['numpy'])} (bitwise equal); "
+          f"TCGA_config1's batch of {tcga_bs}: C++ {each(tcga_ms['c++'])}, numpy "
+          f"{each(tcga_ms['numpy'])} (bitwise equal); host-to-device copy of {n_bytes} bytes: "
+          + "; ".join(f"{arm} {each(v)}" for arm, v in copy_ms.items())
+          + f"; fused step wall over an epoch of {len(rows) // bs} batches (ms a step), "
+          f"prefetch_batches 0: {each(step_ms[0])}, 1: {each(step_ms[1])}", flush=True)
+
+
+def moe_config():
+    """Phase 12's configuration: TCGA_config1 (``configs/tcga_mca.yaml``)
+    with ``moe_experts`` and ``moe_capacity_factor`` set here."""
+    cfg = training_config(str(CONFIG))
+    cfg.moe_experts = MOE_EXPERTS
+    cfg.moe_capacity_factor = MOE_CF
+    return cfg
+
+
+def onehot_forward(self, x, padding_mask=None):
+    """``MoEFeedForward.forward`` through one-hot dispatch and combine
+    products (the JAX package's default arm, ``mca_tpu/models/moe.py``)
+    in place of the port's gather and ``index_add``: phase 12's plain
+    reference for the port's dispatch and combine, patched over the
+    class's ``forward`` in (c) and (d)."""
+    B, T, D = x.shape
+    E = self.num_experts
+    C = expert_capacity(T, E, self.capacity_factor)
+    scores = torch.softmax(x.float() @ self.router["weight"], dim=-1)
+    if padding_mask is not None:
+        scores = scores.masked_fill(padding_mask[..., None].bool(), 0.0)
+    gates, token_idx = moe.route(scores, C)
+    if self.record is not None:
+        self.record.append({"token_idx": token_idx.detach()})
+    compute = self.dtype
+    dispatch = torch.zeros(B, E, C, T, dtype=compute, device=x.device).scatter_(
+        -1, token_idx[..., None], 1.0)  # one-hot [B, E, C, T]
+    xe = torch.einsum("bect,btd->becd", dispatch, x.to(compute))
+    h, gate = torch.einsum("becd,edf->becf", xe, self.experts["w_in"].to(compute)).chunk(2, -1)
+    out = torch.einsum("becf,efd->becd", torch.nn.functional.gelu(gate) * h,
+                       self.experts["w_out"].to(compute))
+    return torch.einsum("bect,becd->btd", dispatch, gates.to(compute)[..., None] * out)
+
+
+def onehot_arm():
+    """Every ``MoEFeedForward`` through ``onehot_forward`` inside the
+    ``with`` block."""
+    return mock.patch.object(MoEFeedForward, "forward", onehot_forward)
+
+
+def planted_gates():
+    """The port's routing with expert 0's gates scaled by
+    PLANTED_GATE_SCALE inside the ``with`` block (a planted combine
+    fault)."""
+    real = moe.route
+
+    def route(scores, capacity):
+        gates, token_idx = real(scores, capacity)
+        return gates * torch.tensor([PLANTED_GATE_SCALE] + [1.0] * (gates.shape[1] - 1),
+                                    device=gates.device)[:, None], token_idx
+
+    return mock.patch.object(moe, "route", route)
+
+
+def routed(mod, x, pad):
+    """``mod``'s output (fp32) and its choices ``[B, E, T]`` (True where
+    expert e took token t)."""
+    mod.record = []
+    with torch.no_grad():
+        y = mod(x, pad).float()
+    idx, mod.record = mod.record[0]["token_idx"], None
+    chosen = torch.zeros(*idx.shape[:2], x.shape[1], dtype=torch.bool, device=x.device)
+    return y, chosen.scatter_(2, idx, True)
+
+
+def check_moe_routing(device, b=8, t=2548, d=512) -> None:
+    """Phase 12 (c): the MoE module alone where tokens are dropped
+    (module docstring), bf16 and fp32 on the card."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(b, t, d, generator=gen)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    lens[0] = t
+    pad = (torch.arange(t)[None] >= lens[:, None]).to(device)
+    x = x.to(device)
+    mods = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        mods[dtype] = MoEFeedForward(d, ROUTING_EXPERTS, mult=4, capacity_factor=ROUTING_CF,
+                                     dtype=dtype)
+    init_weights(mods[torch.float32], torch.Generator().manual_seed(1))
+    mods[torch.bfloat16].load_state_dict(mods[torch.float32].state_dict())
+    for mod in mods.values():
+        mod.to(device)
+    y32, c32 = routed(mods[torch.float32], x, pad)
+    y16, c16 = routed(mods[torch.bfloat16], x, pad)
+    with planted_gates():
+        yp, _ = routed(mods[torch.bfloat16], x, pad)
+    with onehot_arm():
+        yo, co = routed(mods[torch.bfloat16], x, pad)
+    cap = expert_capacity(t, ROUTING_EXPERTS, ROUTING_CF)
+    real = ~pad
+    dropped = int((real & ~c16.any(1)).sum())
+    flips = int((c32 != c16).sum())
+    alike = real & (c32 == c16).all(1)  # [B, T]
+    rel = rel_l2(y16[alike], y32[alike])
+    arm_rel = rel_l2(y16, yo)
+    planted_rel = rel_l2(yp, yo)
+    print(f"moe (c): module alone, {ROUTING_EXPERTS} experts, capacity {cap} of T {t}, "
+          f"x {list(x.shape)}: {int(real.sum())} real tokens, {dropped} of them picked by "
+          f"no expert (bf16); bf16 vs fp32 choices flipped {flips} of "
+          f"{b * ROUTING_EXPERTS * cap}, outputs relative L2 {rel:.3e} on the "
+          f"{int(alike.sum())} real tokens routed alike; gather / index_add vs the one-hot "
+          f"reference (bf16, same choices: {bool(torch.equal(co, c16))}) relative L2 "
+          f"{arm_rel:.3e}, with expert 0's gates x {PLANTED_GATE_SCALE} (planted) "
+          f"{planted_rel:.3e}", flush=True)
+    assert dropped > 0 and int(alike.sum()) > 0.9 * int(real.sum()), (dropped, int(alike.sum()))
+    assert torch.equal(co, c16)
+    assert rel <= MOE_REL_L2, rel
+    assert arm_rel <= MOE_ARM_REL_L2, arm_rel
+    assert planted_rel > MOE_ARM_REL_L2, planted_rel
+    assert not bool(y16[pad].any()) and not bool(yo[pad].any())  # padded tokens: no FF output
+
+
+def seed_model(cfg):
+    """``cfg``'s training model with the weights the phases draw: seed 0."""
+    model = build_model(get_model_config(cfg), fused_ff=False)
+    return model.init_weights(torch.Generator().manual_seed(0))
+
+
+def peak_step(cfg, device, params, rows) -> tuple:
+    """``(resident MiB, peak MiB)`` of a fused-backward step after a
+    warm-up step: the memory held before it, and the most it held."""
+    model, opt, sched = build_trainer(cfg, device.type, num_training_steps=2, params=params)
+    batch = to_device(MultimodalCollator(cfg.modality_config.to_plain())(rows), device)
+    train_step(model, opt, sched, batch, clip=float(cfg.clip))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, sched, batch, clip=float(cfg.clip))
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, sched, batch
+    return resident / 2**20, peak / 2**20
+
+
+def check_moe(device, tmp: Path, cpu_device="cpu") -> dict:
+    """Phase 12, the MoE family (module docstring); returns the launches
+    of its main paths: K1 from serving and ``moe_stats``, K1 and K2 /
+    K3a / K3b from training."""
+    cfg = moe_config()
+    depth, bs = int(cfg.layers), int(cfg.batch_size)
+    t0 = time.perf_counter()
+    served = check_slice(cfg, device, cpu_device, label="moe (a) serve")  # counts from 0
+    print(f"moe (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    trained, params = check_train(cfg, device, cpu_device, steps=MOE_STEPS,
+                                  label="moe (b) train")
+    print(f"moe (b): {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    check_moe_routing(device)
+    print(f"moe (c): {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # (d) one call: the port's MoE, the one-hot reference and the dense
+    # step, in turns
+    t1 = time.perf_counter()
+    rows = synthetic_rows(cfg, bs)
+    dense_cfg = training_config(str(CONFIG))
+    arms = {"gather (the port)": (cfg, params, contextlib.nullcontext),
+            "one-hot reference": (cfg, params, onehot_arm),
+            "dense": (dense_cfg, seed_model(dense_cfg).state_dict(), contextlib.nullcontext)}
+    timed = {arm: [] for arm in arms}
+    peaks = {}
+    for arm in (*arms, *reversed(arms)):
+        acfg, aparams, patch = arms[arm]
+        with patch():
+            timed[arm].append(profiled_steps(acfg, device, aparams, rows))
+            if arm not in peaks:
+                peaks[arm] = peak_step(acfg, device, aparams, rows)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
+          flush=True)
+    print(host_description(), flush=True)
+    for arm, runs in timed.items():
+        wall = ", ".join(f"{r['wall_ms']:.3f}" for r in runs)
+        busy = ", ".join(f"{r['device_ms']:.3f}" for r in runs)
+        top = "; ".join(f"{name[:100]} {ms:.3f}" for name, ms in runs[-1]["top"])
+        print(f"moe (d): {arm} step (fused backward): wall ms {wall}; device busy ms "
+              f"{busy}; resident {peaks[arm][0]:.1f} MiB, peak {peaks[arm][1]:.1f} MiB; "
+              f"most device ms a step: {top}", flush=True)
+    print(f"moe (d): {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # (e) moe_stats on the phase's rows, from (b)'s weights
+    weights = tmp / "moe_weights"
+    save_params(params, str(weights))
+    stats_cfg = moe_config()
+    stats_cfg.restart = str(weights)
+    stats_cfg.split = RUN_SPLIT
+    reset_launches()
+    stats = extract_moe_stats(stats_cfg, rows=synthetic_rows(cfg, RUN_ROWS, seed=0),
+                              device=device.type)
+    stats_launches = launches_now()
+    for r in stats:
+        print(f"moe (e): moe_stats {json.dumps(r)}", flush=True)
+    assert stats_launches == {"flash_fwd": depth, "geglu_ff": 0,
+                              **dict.fromkeys(flash.bwd_launches, 0)}, stats_launches
+    assert [r["layer"] for r in stats] == [f"layer_{i}" for i in range(depth)], stats
+    for r in stats:
+        assert r["coverage_real"] == 1.0 and r["capacity"] * bs == r["tokens_total"], r
+        assert abs(sum(r["expert_prob_mass"]) - 1) <= MOE_MASS_ATOL, r
+    print(f"moe: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"flash_fwd": served["flash_fwd"] + stats_launches["flash_fwd"],
+            "geglu_ff": served["geglu_ff"], **trained}
 
 
 def probe_tol(plain: torch.Tensor) -> torch.Tensor:
@@ -2256,11 +2682,13 @@ def main() -> int:
         print(f"evaluation path: {time.perf_counter() - t9:.1f} s", flush=True)
         cmu_counts = check_cmu(device, Path(tmp))
     eao_counts = check_eao_train(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        moe_counts = check_moe(device, Path(tmp))
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
-    for extra in (eval_counts, cmu_counts, eao_counts):
+    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:

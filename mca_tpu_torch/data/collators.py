@@ -1,24 +1,25 @@
-"""Static-shape batch collation (numpy), the port's copy.
-
-The pure-numpy branches of ``mca_tpu/data/collators.py``:
+"""Static-shape batch collation, the port's copy of
+``mca_tpu/data/collators.py``.
 
 - :class:`SequenceCollator` — right-pad 1-D rows to ``pad_len`` with
-  ``pad_token``; ``attention_mask = (x == pad_token)`` (int, 1 =
+  ``pad_token``; ``attention_mask = (x == pad_token)`` (int64, 1 =
   padded); optional second column padded with 0.  TCGA's collator.
 - :class:`EmbeddedSequenceCollator` — pre-embedded ``[T, width]`` float
-  sequences (CMU-MOSEI): truncated to ``pad_len``, ``nan_to_num`` when
-  ``clean``, rows padded with ``fill_value`` into ``"tokens"``, and an
-  explicit bool ``attention_mask`` from each row's length.
+  sequences (CMU-MOSEI): truncated to ``pad_len``, NaN -> 0 and
+  +-Inf -> +-FLT_MAX when ``clean``, rows padded with ``fill_value``
+  into ``"tokens"``, and an explicit bool ``attention_mask`` from each
+  row's length.  A row longer than ``pad_len`` under ``truncate:
+  false``, or a row of another width, raises.
 - :class:`MatrixCollator` — 2-D matrices row-padded with ``pad_token``
-  into ``"values"``; the PatchEncoder derives the mask.
+  into ``"values"`` (numpy, as in the JAX package); the PatchEncoder
+  derives the mask.
 - :class:`MultimodalCollator` — re-group a list of per-sample dicts
   into per-modality column dicts and apply each modality's collator.
 
-A missing modality (value ``None``) collates to a fully padded row,
-which downstream becomes an absent-sample mask.  The JAX package's C++
-fast path (``mca_tpu.native``: ``pad_rows``, ``pad_seq2d``) is not
-ported yet (ROADMAP Queue A item 7); these are its numpy branches, with
-the same results.
+The first two pad through the C++ collate (:mod:`mca_tpu_torch.native`,
+built with ``g++`` at first use; its numpy plain versions give the same
+bits).  A missing modality (value ``None``) collates to a fully padded
+row, which downstream becomes an absent-sample mask.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from mca_tpu_torch import native
 
 
 def _to_numpy(x: Any) -> Optional[np.ndarray]:
@@ -60,30 +63,17 @@ class SequenceCollator:
     def __call__(
         self, data: Dict[str, List[Any]]
     ) -> Dict[str, np.ndarray]:
-        rows = [
-            _to_numpy(x) if x is not None else np.zeros((0,), np.float32)
-            for x in data[self.data_col_name]
-        ]
-        out = np.full(
-            (len(rows), self.pad_len), self.pad_token, dtype=np.float32
+        out, mask = native.pad_rows(
+            [_to_numpy(x) for x in data[self.data_col_name]],
+            self.pad_len, self.pad_token, with_mask=self.attn_mask,
         )
-        for i, r in enumerate(rows):
-            r = r.reshape(-1)[: self.pad_len]
-            out[i, : r.shape[0]] = r
         collated = {self.data_col_name: out}
         if self.attn_mask:
-            collated["attention_mask"] = (out == self.pad_token).astype(
-                np.int64
-            )
+            collated["attention_mask"] = mask
         if self.other_col in data:
-            other_rows = [_to_numpy(x) for x in data[self.other_col]]
-            other = np.zeros((len(other_rows), self.pad_len), np.float32)
-            for i, r in enumerate(other_rows):
-                if r is None:
-                    continue
-                r = r.reshape(-1)[: self.pad_len]
-                other[i, : r.shape[0]] = r
-            collated[self.other_col] = other
+            collated[self.other_col] = native.pad_rows_fill(
+                [_to_numpy(x) for x in data[self.other_col]], self.pad_len, 0.0
+            )
         return collated
 
 
@@ -91,8 +81,7 @@ class EmbeddedSequenceCollator:
     """Pad pre-embedded ``[T, width]`` sequences to ``[B, pad_len,
     width]``.  A missing row (``None``) is ``(0, embedding_size)``; the
     width is the first non-empty row's (``embedding_size`` when every
-    row is empty).  The numpy branch of ``mca_tpu``'s collator; its C++
-    ``pad_seq2d`` fast path waits for ROADMAP Queue A item 7."""
+    row is empty)."""
 
     def __init__(
         self,
@@ -127,14 +116,9 @@ class EmbeddedSequenceCollator:
         if self.truncate:
             rows = [r[: self.pad_len] for r in rows]
         emb = next((r.shape[-1] for r in rows if r.size), self.embedding_size)
-        if self.clean:
-            rows = [np.nan_to_num(r) for r in rows]
-        tokens = np.full((len(rows), self.pad_len, emb), self.fill_value, dtype=np.float32)
-        mask = np.ones((len(rows), self.pad_len), dtype=bool)
-        for i, r in enumerate(rows):
-            t = r.shape[0]
-            tokens[i, :t] = r
-            mask[i, :t] = False
+        tokens, mask = native.pad_seq2d(
+            rows, self.pad_len, emb, self.fill_value, clean=self.clean
+        )
         out: Dict[str, np.ndarray] = {"tokens": tokens}
         if self.attn_mask:
             out["attention_mask"] = mask

@@ -19,14 +19,16 @@ name; the labels as one bare tensor (TCGA's one-hot classes under
 The model is the MCA or EAO family of the config with the fused
 feed-forward (the forward-only process, as ``mca_tpu.infer.main`` sets
 ``MCA_FUSED_FF=auto``): on the card every block runs the flash forward
-(K1) and the fused GEGLU (K5).  The loss graph stays on, so that each
+(K1) and the fused GEGLU (K5; a ``moe_experts`` block runs its experts
+as plain products instead).  The loss graph stays on, so that each
 split's mean loss is logged.  Each batch's outputs stay on the device;
 each split ends in one copy to the host.
 
 ``steps_per_call`` batches K forwards into one ``lax.scan`` launch in
 the JAX package and changes no result; eager PyTorch has no such
 launch, so the key is accepted and has no effect here.  The multi-host
-gather comes with the parallelism slice.  The entry point runs on
+gather comes with the parallelism slice: ``mesh_data > 1`` or
+``mesh_model > 1`` raises before anything is read.  The entry point runs on
 ``cuda`` and raises without one; pass ``--device cpu`` for the plain
 versions of the kernels.
 """
@@ -47,7 +49,8 @@ from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.models import build_model
-from mca_tpu_torch.train import plain, require_device, synthetic_rows, to_device
+from mca_tpu_torch.train import (check_mesh_keys, plain, require_device, synthetic_rows,
+                                 to_device)
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +163,7 @@ def infer(config, device: str = "cuda", rows: Optional[Sequence[Dict[str, Any]]]
     docstring); returns ``output_dir``.  ``rows``: row dicts held in
     memory in place of ``dataset:``, split as the HF split would split
     them."""
+    check_mesh_keys(config)
     if not config.output_dir:
         raise ValueError("output_dir is empty: set it, or load the config with "
                          "training_config(..., make_output_dir=True)")

@@ -109,15 +109,19 @@ def build_key_map(params: Dict[str, Any]) -> KeyMap:
                     )
                 )
             if "router" in tree.get("ff", {}):
-                raise ValueError(
-                    f"{key}: MoE feed-forward layers are not ported yet"
+                # the MoE feed-forward under the JAX package's extension
+                # names, un-transposed ([dim, E], [E, dim, 2 * inner],
+                # [E, inner, dim])
+                for leaf, name in (("router", "router.weight"),
+                                   ("w_in", "experts.w_in"), ("w_out", "experts.w_out")):
+                    out.append(((key, "ff", leaf), f"layers.{i}.ff.{name}", "direct"))
+            else:
+                out.append(
+                    ((key, "ff", "w_in", "kernel"), f"layers.{i}.ff.feedforward.0.weight", "linear")
                 )
-            out.append(
-                ((key, "ff", "w_in", "kernel"), f"layers.{i}.ff.feedforward.0.weight", "linear")
-            )
-            out.append(
-                ((key, "ff", "w_out", "kernel"), f"layers.{i}.ff.feedforward.2.weight", "linear")
-            )
+                out.append(
+                    ((key, "ff", "w_out", "kernel"), f"layers.{i}.ff.feedforward.2.weight", "linear")
+                )
             out.append(
                 ((key, "norm", "LayerNorm_0", "scale"), f"layers.{i}.norm.gamma", "direct")
             )

@@ -58,6 +58,7 @@ class EAO(nn.Module):
         attention_impl: str = "dense",
         quant: str = "none",
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
         remat: bool = False,
         group_channels: bool = False,
         fused_ff: bool = True,
@@ -92,7 +93,8 @@ class EAO(nn.Module):
                 MCALayer(
                     dim, dim_head, heads, ff_mult, dtype=self.dtype,
                     attn_impl=attention_impl, quant=quant,
-                    moe_experts=moe_experts, fused_ff=fused_ff,
+                    moe_experts=moe_experts,
+                    moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
                 )
                 for _ in range(depth)
             ]

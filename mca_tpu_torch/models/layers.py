@@ -14,7 +14,9 @@
   pool), and the static / dynamic mask pair.
 - :class:`MCALayer` — one shared norm, residuals around the *normed*
   activations: ``x = norm(x); x = attn(x) + x; x = norm(x);
-  x = ff(x) + x``.
+  x = ff(x) + x``; with ``moe_experts > 0`` the feed-forward is
+  :class:`~mca_tpu_torch.models.moe.MoEFeedForward`, routed under the
+  padding mask.
 
 dtype chain (as in the JAX package): the norm returns fp32; attention
 and FF cast their input to the compute dtype; their outputs are cast
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mca_tpu_torch.encoders import LN_EPS
+from mca_tpu_torch.models.moe import MoEFeedForward
 from mca_tpu_torch.ops.attention import masked_attention
 from mca_tpu_torch.ops.fused_ff import geglu_ff, prepare_geglu_weights
 
@@ -194,20 +197,29 @@ class MCALayer(nn.Module):
         attn_impl: str = "dense",
         quant: str = "none",
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
         fused_ff: bool = True,
     ):
         super().__init__()
-        if int(moe_experts) > 0:
-            raise NotImplementedError(
-                "moe_experts > 0: the MoE feed-forward is not ported yet"
+        self.moe = int(moe_experts) > 0
+        if self.moe and quant != "none":
+            raise ValueError(
+                "int8 quantization covers the dense projections only; "
+                "moe_experts requires quant='none'"
             )
         self.attn = Attention(
             dim, dim_head=dim_head, heads=heads, dtype=dtype,
             impl=attn_impl, quant=quant,
         )
-        self.ff = FeedForward(
-            dim, mult=ff_mult, dtype=dtype, quant=quant, fused=fused_ff
-        )
+        if self.moe:
+            self.ff = MoEFeedForward(
+                dim, int(moe_experts), mult=ff_mult,
+                capacity_factor=moe_capacity_factor, dtype=dtype,
+            )
+        else:
+            self.ff = FeedForward(
+                dim, mult=ff_mult, dtype=dtype, quant=quant, fused=fused_ff
+            )
         self.norm = LayerNorm(dim)
 
     def forward(
@@ -221,4 +233,7 @@ class MCALayer(nn.Module):
             x, attn_mask=attn_mask, key_padding_mask=padding_mask
         ).to(x.dtype) + x
         x = self.norm(x)
-        return self.ff(x).to(x.dtype) + x
+        # the router sees the padding, so experts spend their capacity
+        # on real tokens
+        ff_out = self.ff(x, padding_mask) if self.moe else self.ff(x)
+        return ff_out.to(x.dtype) + x

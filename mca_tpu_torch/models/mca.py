@@ -29,8 +29,11 @@ gradients are on, as the JAX package wraps it in ``nn.remat``: the
 backward recomputes the block's forward (the flash forward included)
 instead of keeping its activations.
 
+``moe_experts > 0`` puts the expert-choice mixture of experts
+(:mod:`mca_tpu_torch.models.moe`) in every block's feed-forward.
+
 Not ported yet (they raise): pipeline / sequence parallelism, int8
-quantization, MoE.
+quantization.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ class MCA(nn.Module):
         pipeline_stages: int = 0,
         seq_shard: bool = False,
         moe_experts: int = 0,
+        moe_capacity_factor: float = 2.0,
         remat: bool = False,
         fused_ff: bool = True,
     ):
@@ -119,7 +123,8 @@ class MCA(nn.Module):
                 MCALayer(
                     dim, dim_head, heads, ff_mult, dtype=self.dtype,
                     attn_impl=attention_impl, quant=quant,
-                    moe_experts=moe_experts, fused_ff=fused_ff,
+                    moe_experts=moe_experts,
+                    moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
                 )
                 for _ in range(depth)
             ]
@@ -221,7 +226,9 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
     initialisers: normal(1) token tables, position embeddings and fusion
     / return tokens, torch ``nn.Linear`` uniform(+-1/sqrt(fan_in)) for
     every linear weight, zeros for biases, ones for norm scales,
-    log(1/0.07) for the logit scale."""
+    log(1/0.07) for the logit scale.  The MoE leaves keep the JAX
+    layout: the router ``[dim, E]`` has its fan-in first, the stacked
+    experts ``[E, in, out]`` the matrix's own input width."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("gamma") or (name.endswith("weight") and p.ndim == 1):
@@ -233,7 +240,12 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
             elif name.endswith("tokens") or "embedding" in name:
                 p.copy_(torch.randn(p.shape, generator=generator))
             else:
-                bound = p.shape[1] ** -0.5  # [out, in]: fan-in
+                if name.endswith("router.weight"):
+                    bound = p.shape[0] ** -0.5  # [in, E]
+                elif name.split(".")[-2] == "experts":
+                    bound = p.shape[-2] ** -0.5  # [E, in, out]
+                else:
+                    bound = p.shape[1] ** -0.5  # [out, in]: fan-in
                 p.copy_(
                     torch.empty(p.shape).uniform_(
                         -bound, bound, generator=generator

@@ -60,6 +60,19 @@ def request_rows(config, n: int, seed: int = 1) -> list:
     return [{m: r[m] for m in mods} for r in synthetic_rows(config, n, seed=seed)]
 
 
+def median_host_ms(fn, sync, repeats: int = 5) -> float:
+    """Median wall ms of ``repeats`` calls of ``fn``, each between two
+    calls of ``sync`` (``torch.cuda.synchronize`` for device work)."""
+    times = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
 def host_batch_costs(config, rows: list, device, stage_dtypes=("fp32", "bf16"),
                      repeats: int = 5) -> dict:
     """The host's side of one batch of ``rows``, median ms of ``repeats``:
@@ -74,14 +87,7 @@ def host_batch_costs(config, rows: list, device, stage_dtypes=("fp32", "bf16"),
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def median_ms(fn) -> float:
-        times = []
-        for _ in range(repeats):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[len(times) // 2]
+        return median_host_ms(fn, sync, repeats)
 
     collate = MultimodalCollator(plain(config.modality_config))
     out = {"collate_ms": median_ms(lambda: collate(rows))}

@@ -44,7 +44,8 @@ at the next step boundary (the CLI exits 75).
 
 ``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
 the JAX package dispatches XLA, not what is trained; they have no
-counterpart here and are ignored.  A ``trace_dir`` raises
+counterpart here and are ignored.  A ``trace_dir``, and a mesh of
+more than one device (``mesh_data`` or ``mesh_model`` above 1), raise
 ``NotImplementedError``.  The entry point runs on
 ``cuda`` and raises without one; pass ``--device cpu`` for the plain
 versions of the kernels.
@@ -111,12 +112,32 @@ _NARROW = {"fp16": torch.float16, "bf16": torch.bfloat16}
 _DEFAULT_PAD_TOKEN = -10000.0
 
 
+def check_mesh_keys(config) -> None:
+    """Refuse a device mesh larger than one device: ``mesh_data > 1`` or
+    ``mesh_model > 1`` raises ``NotImplementedError`` (the JAX package
+    builds its mesh from these keys; the port runs on one device until
+    the parallelism slice).  ``mesh_data: 0`` (auto) and ``1`` and
+    ``mesh_model: 1`` are accepted; so is ``fsdp``, a no-op on a data
+    axis of 1 in the JAX package."""
+    for key in ("mesh_data", "mesh_model"):
+        n = int(config.get(key, 1) or 0)
+        if n > 1:
+            raise NotImplementedError(
+                f"{key}={n}: the port runs on one device; data and model "
+                "parallelism come with the parallelism slice (ROADMAP "
+                "Queue A item 9)"
+            )
+
+
 def check_training_keys(config) -> None:
     """Refuse what the port cannot train as asked, as the JAX package
     does: ``grad_accum`` that does not divide ``batch_size``, a
     ``moment_dtype`` other than fp32 or bf16 and a ``stage_dtype`` other
     than fp32, fp16 or bf16 raise ``ValueError``; a ``trace_dir`` (a
-    profiler trace) is not ported and raises ``NotImplementedError``."""
+    profiler trace) and a mesh of more than one device
+    (:func:`check_mesh_keys`) are not ported and raise
+    ``NotImplementedError``."""
+    check_mesh_keys(config)
     n_accum = int(config.get("grad_accum", 1) or 1)
     if n_accum < 1 or int(config.batch_size) % n_accum:
         raise ValueError(

@@ -1,5 +1,6 @@
 """The port's training loop honours ``halt_on_nan`` and refuses the
-training keys it cannot train as asked, as the JAX package's does.
+training keys it cannot train as asked, as the JAX package's does;
+``train`` and ``infer`` refuse a mesh of more than one device.
 
 Divergence: a misconfigured ``lr: inf`` with ``clip: 0``, as in
 ``tests/test_divergence.py``: the warm-up schedule's 0 * inf makes the
@@ -76,6 +77,10 @@ def test_halt_on_nan_disabled_runs_to_completion(tmp_path):
         ("stage_dtype", "fp8", ValueError),  # fp16 / bf16 staging is ported
         ("trace_dir", "traces", NotImplementedError),
         ("moment_dtype", "fp16", ValueError),
+        # a mesh of more than one device: the JAX package shards over it
+        ("mesh_model", 2, NotImplementedError),
+        ("mesh_data", 2, NotImplementedError),
+        ("mesh_data", 4, NotImplementedError),
     ],
 )
 def test_unported_training_keys_are_refused(key, value, error, tmp_path):
@@ -87,6 +92,17 @@ def test_unported_training_keys_are_refused(key, value, error, tmp_path):
     assert not os.path.exists(cfg.output_dir)
 
 
+@pytest.mark.parametrize("key", ["mesh_model", "mesh_data"])
+def test_infer_refuses_a_mesh_before_reading_anything(key, tmp_path):
+    from mca_tpu_torch import infer as port_infer
+
+    cfg = _cfg(tmp_path, **{key: 2})
+    cfg.restart = str(tmp_path / "no-such-checkpoint")
+    with pytest.raises(NotImplementedError, match=f"{key}.*Queue A item 9"):
+        port_infer.infer(cfg, device="cpu", rows=_rows())
+    assert not os.path.exists(cfg.output_dir)
+
+
 def test_default_training_keys_are_accepted():
     cfg = _cfg(grad_accum=1, moment_dtype="fp32")
     port_train.check_training_keys(cfg)
@@ -94,5 +110,6 @@ def test_default_training_keys_are_accepted():
     for accepted in (dict(grad_accum=2), dict(grad_accum=8), dict(moment_dtype="bf16"),
                      dict(steps_per_call=32, flat_state=True, fuse_optimizer=False),
                      dict(stage_dtype="fp32", trace_dir=""), dict(stage_dtype="bf16"),
-                     dict(stage_dtype="fp16")):
+                     dict(stage_dtype="fp16"), dict(mesh_data=0, mesh_model=1),
+                     dict(mesh_data=1, mesh_model=1, fsdp=True)):
         port_train.check_training_keys(_cfg(**accepted))
