@@ -117,7 +117,12 @@ Phases (each asserted; any failure exits non-zero):
    W2 chunk) must fail each check. (c)
    ``probe`` on (a)'s files with ``tcga_probe.yaml``'s settings (BCE,
    linear, 1024 epochs): the host and device loops agree on a full
-   batch, the card's host loop agrees with the CPU's every epoch; EAO's
+   batch (losses and norms within 2e-4 relative, the rank metrics within
+   one pair's or one prediction's share of the split, the last epoch's
+   train rows, matched by their logits, carry the same labels and logits
+   within 2e-4; a planted fault, the device loop's labels rolled by one
+   row, must fail that), the card's host loop agrees with the CPU's
+   every epoch; EAO's
    files probed on ``combo:0,1`` give finite metrics. (d) Prints wall
    and device ms per ``infer`` batch and rows/s for each family, ms to
    write a split's files, and probe ms per epoch for each loop.
@@ -173,10 +178,33 @@ Phases (each asserted; any failure exits non-zero):
    the host. (e) ``tools.moe_stats`` from (b)'s weights on 40 rows: K1 5
    launches, one row a layer, every real token covered, each layer's
    expert probability mass summing to 1.
-13. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+13. int8 serving and the exported serving forward at TCGA_config1 width
+   and depth, from the seed-0 weights with each block projection's output
+   channels scaled by factors drawn log-uniform in [1/2, 2] (so that the
+   per-channel int8 scales differ, as a trained model's do). (a)
+   ``EmbeddingService(quantize="int8")`` as phase 5: ``embed`` /
+   ``submit`` / HTTP agree, K1 5 a forward and K5 never (the int8
+   feed-forward is unfused, as in the JAX package), bf16 GPU against the
+   same int8 weights (bitwise equal on both sides) in fp32 on the CPU;
+   cosine to the fp32-weight service above 0.98 for every live row and
+   key; ``int8_matmul`` on the card bitwise equal to the CPU at the five
+   projections' shapes; a planted fault (block 0's ``to_q`` scales
+   reversed on the CPU) must fail the CPU gate. (b)
+   ``tools.export_aot``: the fp and the int8 forwards exported at batch
+   8 on the card, saved, and served through
+   ``EmbeddingService.from_aot``: embeddings against the eager service's
+   (bound 1e-3), K1 5 + K5 5 (fp) and K1 5 + K5 0 (int8) launches for one
+   forward of the loaded program; a fresh process that imports only the
+   service serves a row from the fp artifact (K1 and K5 5 each, no
+   model, config, encoder or mask module imported); the artifacts' and
+   the int8 projections' bytes. (c) ms per batch-8 forward (CUDA events)
+   for eager fp, eager int8, loaded fp and loaded int8, beside the
+   card's name and power limit.
+14. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
-   training and infer, phase 11's training and phase 12's serving,
-   training and ``moe_stats``, each counted from 0), then the last line
+   training and infer, phase 11's training, phase 12's serving,
+   training and ``moe_stats`` and phase 13's serving and loaded
+   programs, each counted from 0), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
@@ -217,6 +245,7 @@ from mca_tpu_torch.config import embedding_eval_config, get_model_config, traini
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.masks import adjusted_powerset, build_masks
+from mca_tpu_torch.metrics import binary_metrics
 from mca_tpu_torch.models import build_model
 from mca_tpu_torch.models.mca import init_weights
 from mca_tpu_torch.models import moe
@@ -224,11 +253,13 @@ from mca_tpu_torch.models.moe import MoEFeedForward, expert_capacity
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
 from mca_tpu_torch.ops import probes
+from mca_tpu_torch.ops import quant
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
                                  median_host_ms, request_rows, sample_tokens)
 from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
+from mca_tpu_torch.tools import export_aot
 from mca_tpu_torch.tools import sass_counts
 from mca_tpu_torch.tools.moe_stats import extract_moe_stats
 from mca_tpu_torch.train import (
@@ -281,6 +312,7 @@ ODD_DIMS = (48, 30, 40, 20)
 # (bf16 rounds each activation to 8 significant bits, ~2e-3 relative;
 # the final fp32 norm and pool average much of it out)
 SLICE_REL_L2 = 1e-2
+COS_MIN = 0.98  # int8 against fp weights: the JAX package's pin (tests/test_quant.py)
 AGREE_ATOL = 1e-3  # embed vs submit vs HTTP: same kernels, batch-mates differ
 TRAIN_STEPS = 6
 TRAIN_WARMUP = 2  # lr is 0 at step 0 (as in the JAX schedule), then rises
@@ -373,8 +405,14 @@ MOE_MASS_ATOL = 1e-4
 PROBE_CONFIG = ROOT / "configs" / "tcga_probe.yaml"
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
-# package's pin for its scanned loop, tests/test_e2e.py)
+# package's pin for its scanned loop, tests/test_e2e.py): losses, norms
+# and the final logits within 2e-4 (of the largest logit); a rank metric
+# (AUROC, F1) moves by a whole pair or sample where two nearly equal
+# scores swap, so within one pair's (one prediction's) share of the split,
+# computed from its class counts (a train_auroc 1/4096 apart at 64
+# positive x 64 negative entries, relative 3.7023e-4, passes)
 PROBE_LOOPS_RTOL = 2e-4
+PROBE_RANK_KEYS = ("train_auroc", "eval_auroc", "eval_f1")
 # the probe's host loop on the card against the CPU from the same head:
 # fp32 products and sums in another order, carried through 1024 AdamW
 # steps (normalised updates, so a rounding gap moves a step by about lr)
@@ -938,14 +976,20 @@ def check_ff(device, n=20384, dim=512, inner=1365, seed=0) -> dict:
     }
 
 
-def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> dict:
+def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice", params=None,
+                quantize="none", keep=None) -> dict:
     """The serving slice (phase 5 for TCGA_config1, phase 10 (b) for
-    CMU_config1, phase 12 (a) for the MoE model): ``embed``, ``submit``
-    and ``POST /embed`` on request rows shaped as the config's
-    modalities, K1 once a block and forward, K5 too unless the blocks'
-    feed-forward is the MoE, a row embedded alone against the same row
-    inside a batch, and bf16 on the GPU against fp32 on the CPU."""
-    svc = EmbeddingService(config, device=device, seed=0, max_batch=8)
+    CMU_config1, phase 12 (a) for the MoE model, phase 13 (a) for int8):
+    ``embed``, ``submit`` and ``POST /embed`` on request rows shaped as
+    the config's modalities, K1 once a block and forward, K5 too unless
+    the blocks' feed-forward is the MoE or int8, a row embedded alone
+    against the same row inside a batch, and bf16 on the GPU against
+    fp32 on the CPU (int8: the same int8 weights, quantised on each side
+    from the fp32 ``params`` and held bitwise equal).  ``keep``, a dict,
+    receives the service, the rows, ``embed``'s answer and the CPU
+    service."""
+    svc = EmbeddingService(config, params=params, device=device, seed=0, max_batch=8,
+                           quantize=quantize)
     forwards = [0]
     svc.model.register_forward_hook(
         lambda *_: forwards.__setitem__(0, forwards[0] + 1)
@@ -991,7 +1035,7 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
         svc.stop()
     counts = {"flash_fwd": flash.launches, "geglu_ff": ff.launches}
     depth = len(svc.model.layers)
-    ff_depth = 0 if int(config.get("moe_experts", 0) or 0) else depth
+    ff_depth = 0 if int(config.get("moe_experts", 0) or 0) or quantize != "none" else depth
     print(f"{label}: {forwards[0]} forwards, launches {counts}", flush=True)
     assert forwards[0] >= 4, forwards  # 3 chunks of embed + >= 1 batch
     assert counts == {"flash_fwd": depth * forwards[0],
@@ -1024,9 +1068,12 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
     cfg32 = type(config)(config)
     cfg32.precision = "fp32"
     cpu_svc = EmbeddingService(
-        cfg32, params=svc.model.state_dict(), device=cpu_device,
-        max_batch=8, warmup=False,
+        cfg32, params=svc.model.state_dict() if params is None else params,
+        device=cpu_device, max_batch=8, warmup=False, quantize=quantize,
     )
+    for k, v in cpu_svc.model.state_dict().items():
+        if v.dtype == torch.int8 or k.endswith(".scale"):
+            assert torch.equal(v, svc.model.state_dict()[k].cpu()), k
     ref = cpu_svc.embed(rows[:8])
     rel = max(
         float(np.linalg.norm(via_embed["embeddings"][k][:8] - ref["embeddings"][k])
@@ -1058,6 +1105,8 @@ def check_slice(config, device, cpu_device="cpu", n_rows=20, label="slice") -> d
         f"embed of {n_rows} rows {embed_s * 1e3:.1f} ms ({n_rows / embed_s:.1f} rows/s)",
         flush=True,
     )
+    if keep is not None:
+        keep.update(svc=svc, rows=rows, via_embed=via_embed, cpu_svc=cpu_svc)
     return counts
 
 
@@ -1747,16 +1796,97 @@ def check_eao_bwd_kernels(cfg, device) -> None:
 
 def probe_run(emb_dir, out_dir, device: str, **overrides) -> tuple:
     """``probe`` with configs/tcga_probe.yaml's settings on ``emb_dir``;
-    returns ``(final record, epoch records, seconds)``."""
+    returns ``(final record, epoch records, seconds, last epoch's
+    logits and labels)``, the last as the loop handed them to
+    ``probe._record``: ``train_logits``, ``train_y`` (rows in the loop's
+    own order), ``eval_logits``, ``eval_y``."""
     cfg = embedding_eval_config(str(PROBE_CONFIG), make_output_dir=False)
     cfg.embedding_dir, cfg.output_dir = str(emb_dir), str(out_dir)
     cfg.update(overrides)
+    last = {}
+    real = probe_lib._record
+
+    def record(*args):
+        last.update(zip(("train_logits", "train_y", "eval_logits", "eval_y"),
+                        (np.array(a, np.float64) for a in args[-4:])))
+        return real(*args)
+
     t0 = time.perf_counter()
-    final = probe_lib.probe(cfg, device=device)
+    with mock.patch.object(probe_lib, "_record", record):
+        final = probe_lib.probe(cfg, device=device)
     seconds = time.perf_counter() - t0
     recs = [r for r in run_records(out_dir) if "train_loss" in r]
     assert [r["step"] for r in recs] == list(range(int(cfg.epochs))), len(recs)
-    return final, recs, seconds
+    return final, recs, seconds, last
+
+
+def rank_shares(logits: np.ndarray, y: np.ndarray) -> dict:
+    """What one pair or one prediction moves a split's rank metrics by:
+    AUROC 1 / (positive x negative entries), F1 the largest change that
+    one entry's prediction flipping makes from the split's counts."""
+    cm = binary_metrics(logits, y)["cm"]
+    (tn, fp), (fn, tp) = (int(x) for x in cm[0]), (int(x) for x in cm[1])
+
+    def f1(tp, fp, fn):
+        return 2 * tp / max(2 * tp + fp + fn, 1)
+
+    flips = [c for c, ok in (((tp - 1, fp, fn + 1), tp), ((tp + 1, fp, fn - 1), fn),
+                             ((tp, fp - 1, fn), fp), ((tp, fp + 1, fn), tn)) if ok]
+    n_pos = int((y == 1).sum())
+    return {"auroc": 1.0 / (n_pos * (y.size - n_pos)),
+            "f1": max(abs(f1(*c) - f1(tp, fp, fn)) for c in flips)}
+
+
+def rank_gap_ok(dev: float, host: float, share: float) -> bool:
+    return abs(dev - host) <= share * (1 + 1e-9)
+
+
+def aligned_logits(host: dict, dev: dict) -> tuple:
+    """The two loops' last-epoch train rows matched by their logits (each
+    device row to the host row nearest it, which must make a
+    permutation): ``(rows whose labels disagree, largest logit gap over
+    the train and eval rows, relative to the largest logit)``."""
+    lh, ld = host["train_logits"], dev["train_logits"]
+    lh, ld = lh.reshape(len(lh), -1), ld.reshape(len(ld), -1)
+    match = ((ld[:, None, :] - lh[None, :, :]) ** 2).sum(-1).argmin(axis=1)
+    assert sorted(match.tolist()) == list(range(len(lh))), "rows do not pair up"
+    yh = host["train_y"].reshape(len(lh), -1)
+    yd = dev["train_y"].reshape(len(ld), -1)
+    wrong = int((yd != yh[match]).any(axis=1).sum())
+    scale = max(np.abs(lh).max(), np.abs(host["eval_logits"]).max())
+    gap = max(np.abs(ld - lh[match]).max(),
+              np.abs(dev["eval_logits"] - host["eval_logits"]).max()) / scale
+    return wrong, float(gap)
+
+
+def check_probe_loops(host: dict, dev: dict, host_last: dict, dev_last: dict) -> float:
+    """Phase 9 (c)'s gate on the two loops' final records and last-epoch
+    rows (``PROBE_LOOPS_RTOL``, ``PROBE_RANK_KEYS``), with its planted
+    fault: the device loop's train labels rolled by one row must fail
+    the row check.  Returns the largest relative gap of the other keys."""
+    gaps = {k: abs(dev[k] - host[k]) / max(abs(host[k]), 1e-6)
+            for k in ("train_loss", "eval_loss", "param_norm", "grad_norm")}
+    shares = {"train": rank_shares(host_last["train_logits"], host_last["train_y"]),
+              "eval": rank_shares(host_last["eval_logits"], host_last["eval_y"])}
+    rank = {k: (dev[k], host[k], shares[k.split("_")[0]][k.split("_")[1]])
+            for k in PROBE_RANK_KEYS}
+    wrong, logit_gap = aligned_logits(host_last, dev_last)
+    rolled = dict(dev_last, train_y=np.roll(dev_last["train_y"], 1, axis=0))
+    planted = aligned_logits(host_last, rolled)[0]
+    print(f"eval (c): probe final records, device vs host loop, relative gap by key: "
+          f"{', '.join(f'{k} {dev[k]!r} vs {host[k]!r} ({x:.3e})' for k, x in gaps.items())}; "
+          f"rank metrics, absolute gap against one pair's or prediction's share: "
+          f"{', '.join(f'{k} {d!r} vs {h!r} ({abs(d - h):.3e} vs {sh:.3e})' for k, (d, h, sh) in rank.items())}; "
+          f"last-epoch logits, train rows matched by value: {wrong} rows with other labels, "
+          f"largest gap {logit_gap:.3e} of the largest logit; planted fault (device labels "
+          f"rolled by one row) leaves {planted} rows with other labels", flush=True)
+    assert max(gaps.values()) <= PROBE_LOOPS_RTOL, gaps
+    assert all(rank_gap_ok(*r) for r in rank.values()), rank
+    assert wrong == 0 and logit_gap <= PROBE_LOOPS_RTOL, (wrong, logit_gap)
+    assert planted > 0, "planted fault passes: the device loop's labels rolled by one row"
+    # the reading the relative bound refused: 1/4096 apart at 4096 pairs
+    assert rank_gap_ok(2702 / 4096, 2701 / 4096, 1 / 4096)
+    return max(gaps.values())
 
 
 def check_eval(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
@@ -1823,25 +1953,19 @@ def check_eval(config, device, tmp: Path, rows: list, cpu_device="cpu") -> dict:
         check_family_kernels(name, cfg, device)
 
     # (c) the probe on (a)'s files: the two loops, the card against the CPU
-    host, host_recs, host_s = probe_run(tmp / "i_mca", tmp / "p_host", device.type)
-    dev, _, dev_s = probe_run(tmp / "i_mca", tmp / "p_dev", device.type, scan_epochs=True,
-                              scan_epochs_chunk=256)
-    cpu, cpu_recs, cpu_s = probe_run(tmp / "i_mca", tmp / "p_cpu", cpu_device)
-    gaps = {k: abs(dev[k] - host[k]) / max(abs(host[k]), 1e-6)
-            for k in ("train_loss", "eval_loss", "param_norm", "grad_norm", "eval_f1",
-                      "eval_auroc", "train_auroc")}
-    loops = max(gaps.values())
+    host, host_recs, host_s, host_last = probe_run(tmp / "i_mca", tmp / "p_host", device.type)
+    dev, _, dev_s, dev_last = probe_run(tmp / "i_mca", tmp / "p_dev", device.type,
+                                        scan_epochs=True, scan_epochs_chunk=256)
+    cpu, cpu_recs, cpu_s, _ = probe_run(tmp / "i_mca", tmp / "p_cpu", cpu_device)
+    loops = check_probe_loops(host, dev, host_last, dev_last)
     vs_cpu = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(host_recs, cpu_recs)
                  for k in ("train_loss", "eval_loss", "param_norm"))
-    print(f"eval (c): probe final records, device vs host loop, relative gap by key: "
-          f"{', '.join(f'{k} {dev[k]!r} vs {host[k]!r} ({x:.3e})' for k, x in gaps.items())}",
-          flush=True)
     print(f"eval (c): probe final records, device vs host loop: relative gap {loops:.3e}; "
           f"host loop card vs CPU, every epoch's train_loss, eval_loss, param_norm: "
           f"{vs_cpu:.3e}; final eval_auroc {host['eval_auroc']:.4f}", flush=True)
-    assert loops <= PROBE_LOOPS_RTOL and vs_cpu <= PROBE_CPU_RTOL, (loops, vs_cpu)
-    eao, _, eao_s = probe_run(tmp / "i_eao", tmp / "p_eao", device.type,
-                              embedding_key="combo:0,1")
+    assert vs_cpu <= PROBE_CPU_RTOL, vs_cpu
+    eao, _, eao_s, _ = probe_run(tmp / "i_eao", tmp / "p_eao", device.type,
+                                 embedding_key="combo:0,1")
     bad = {k: v for k, v in eao.items() if isinstance(v, float) and not math.isfinite(v)}
     assert not bad, bad
     print(f"eval (c): EAO probe on combo:0,1: final eval_auroc {eao['eval_auroc']:.4f}, "
@@ -2287,6 +2411,185 @@ def check_moe(device, tmp: Path, cpu_device="cpu") -> dict:
             "geglu_ff": served["geglu_ff"], **trained}
 
 
+def spread_params(config, seed: int = 0) -> dict:
+    """The seed-0 weights of ``config``'s model with each block
+    projection's output channels scaled by factors drawn log-uniform in
+    [1/2, 2] (phase 13): per-channel int8 scales then differ as a
+    trained model's do, where the init's uniform weights give every
+    channel the same scale to 0.2% and a scale fault could not show."""
+    params = seed_model(config).state_dict()
+    g = torch.Generator().manual_seed(seed)
+    for k, v in params.items():
+        if k.startswith("layers.") and k.endswith(".weight") and (
+                ".attn.to_" in k or ".feedforward." in k):
+            f = torch.exp((torch.rand(v.shape[0], generator=g) * 2 - 1) * math.log(2.0))
+            params[k] = v * f[:, None]
+    return params
+
+
+def rel_l2_keys(got: dict, ref: dict, keys, n: int) -> float:
+    """The largest relative L2 over ``keys`` of two ``embed`` answers'
+    first ``n`` rows."""
+    return max(float(np.linalg.norm(got["embeddings"][k][:n] - ref["embeddings"][k][:n])
+                     / np.linalg.norm(ref["embeddings"][k][:n])) for k in keys)
+
+
+def cos_min(got: dict, ref: dict, keys) -> float:
+    """The smallest cosine similarity of two ``embed`` answers over every
+    live row (norm above 1e-6) and key."""
+    worst = 1.0
+    for k in keys:
+        a = np.asarray(ref["embeddings"][k], np.float64)
+        b = np.asarray(got["embeddings"][k], np.float64)
+        na, nb = np.linalg.norm(a, axis=-1), np.linalg.norm(b, axis=-1)
+        live = na > 1e-6
+        worst = min(worst, float(((a * b).sum(-1)[live] / (na[live] * nb[live])).min()))
+    return worst
+
+
+def check_int8_products(svc, device, cpu_device="cpu") -> list:
+    """``int8_matmul`` on the card against the CPU on the same int8
+    operands at the five projections' shapes (block 0's int8 weights,
+    8 x T activation rows quantised from seeded normals): bitwise equal,
+    integer sums being exact.  Returns ``(name, m, k, n)`` per shape."""
+    block = svc.model.layers[0]
+    mods = {"to_q": block.attn.to_q, "to_kv": block.attn.to_kv, "to_out": block.attn.to_out,
+            "w_in": block.ff.feedforward[0], "w_out": block.ff.feedforward[2]}
+    m = 8 * len(svc.model.mask_set.token_types)
+    g = torch.Generator().manual_seed(0)
+    shapes = []
+    for name, mod in mods.items():
+        k, n = mod.weight_q.shape
+        xq = quant.quantize_rows(torch.randn((m, k), generator=g))[0]
+        card = quant.int8_matmul(xq.to(device), mod.weight_q).cpu()
+        plain = quant.int8_matmul(xq.to(cpu_device), mod.weight_q.to(cpu_device))
+        assert card.dtype == torch.int32 and torch.equal(card, plain), name
+        shapes.append((name, m, k, n))
+    return shapes
+
+
+AOT_ATOL = 1e-3  # the loaded program against the eager service: same kernels
+
+
+def check_quant_aot(config, device, card: str, tmp: Path, cpu_device="cpu") -> dict:
+    """Phase 13: int8 serving and the exported serving forward at
+    TCGA_config1 (module docstring).  Returns the K1 and K5 launches of
+    its main paths: (a)'s serving and (b)'s loaded programs."""
+    t0 = time.perf_counter()
+    params = spread_params(config)
+    # (a) int8 serving, as phase 5, against the same int8 weights in fp32
+    # on the CPU
+    keep = {}
+    counts = check_slice(config, device, cpu_device, label="int8 (a)", params=params,
+                         quantize="int8", keep=keep)
+    svc8, rows, via_embed, cpu8 = keep["svc"], keep["rows"], keep["via_embed"], keep["cpu_svc"]
+    keys, depth = svc8.emb_keys, len(svc8.model.layers)
+    fp_svc = EmbeddingService(config, params=params, device=device, max_batch=8)
+    cos = cos_min(via_embed, fp_svc.embed(rows), keys)
+    scale = cpu8.model.layers[0].attn.to_q.scale
+    with torch.no_grad():
+        scale.copy_(scale.flip(0))
+    planted = rel_l2_keys(via_embed, cpu8.embed(rows[:8]), keys, 8)
+    shapes = check_int8_products(svc8, device, cpu_device)
+    print(f"int8 (a): cosine to the fp32-weight service, worst live row and key {cos:.6f} "
+          f"(bound > {COS_MIN}); planted fault (block 0's to_q scales reversed on the CPU) "
+          f"reads {planted:.3e} against the {SLICE_REL_L2} bound; s32 products card vs CPU "
+          f"bitwise equal at {', '.join(f'{n} [{m}, {k}] x [{k}, {c}]' for n, m, k, c in shapes)}",
+          flush=True)
+    assert cos > COS_MIN, cos
+    assert planted > SLICE_REL_L2, "planted fault passes: a block's to_q scales reversed"
+
+    # (b) the exported forwards, served from their artifacts
+    batch = svc8._pad(rows[:8])
+    programs, sizes = {}, {}
+    for name, svc in (("fp", fp_svc), ("int8", svc8)):
+        t1 = time.perf_counter()
+        blob, ek, mk = export_aot.export_packed_forward(config, None, batch, model=svc.model,
+                                                        device=device.type)
+        path = tmp / f"{name}.aot"
+        export_aot.save_aot(str(path), blob, ek, mk, modality_config=config.modality_config
+                            .to_plain(), batch=8, device=device.type, quantize=svc.quantize)
+        aot = EmbeddingService.from_aot(str(path), device=device.type)
+        export_s = time.perf_counter() - t1
+        want = svc.embed(rows[:8])
+        reset_launches()
+        got = aot.embed(rows[:8])  # the main path: one forward of the loaded program
+        launched = launches_now()
+        assert launched == {"flash_fwd": depth, "geglu_ff": depth if name == "fp" else 0,
+                            **dict.fromkeys(flash.bwd_launches, 0)}, (name, launched)
+        for k in ("flash_fwd", "geglu_ff"):
+            counts[k] += launched[k]
+        gap = max(float(np.abs(got["embeddings"][k] - want["embeddings"][k]).max())
+                  for k in keys)
+        assert aot.emb_keys == keys and gap <= AOT_ATOL, (name, gap)
+        for m in svc.mask_keys:
+            np.testing.assert_array_equal(got["present"][m], want["present"][m])
+        programs[name], sizes[name] = aot, path.stat().st_size
+        print(f"aot (b): {name} exported, saved and loaded in {export_s:.1f} s, "
+              f"{sizes[name]} bytes; loaded program vs eager service max abs gap {gap!r} "
+              f"(bound {AOT_ATOL}); launches of one forward {launched}", flush=True)
+    proj = [v for k, v in svc8.model.state_dict().items() if k.endswith(".weight_q")]
+    q_bytes = sum(v.numel() for v in proj)
+    print(f"aot (b): the five projections a block, {len(proj)} matrices: {q_bytes} bytes "
+          f"int8 against {4 * q_bytes} fp32; artifacts {sizes['int8']} bytes int8 against "
+          f"{sizes['fp']} fp ({sizes['int8'] / sizes['fp']:.3f})", flush=True)
+    fresh = served_in_fresh_process(tmp / "fp.aot", rows[0], device.type)
+    assert fresh["launches"] == {"flash_fwd": depth, "geglu_ff": depth}, fresh["launches"]
+    model_code = {f"mca_tpu_torch.{m}" for m in ("models", "config", "encoders", "masks")}
+    assert not model_code & set(fresh["loaded"]), fresh["loaded"]
+    alone = programs["fp"].embed([rows[0]])
+    fresh_gap = max(float(np.abs(np.asarray(fresh["embeddings"][k]) - alone["embeddings"][k][0])
+                          .max()) for k in keys)
+    assert fresh_gap <= AOT_ATOL, fresh_gap
+    print(f"aot (b): a fresh process that imports the service and the loader only "
+          f"({len(fresh['loaded'])} modules of the port) served a row from the fp artifact "
+          f"in {fresh['seconds']:.1f} s, K1 {fresh['launches']['flash_fwd']} and K5 "
+          f"{fresh['launches']['geglu_ff']} launches, max abs gap {fresh_gap!r} to this "
+          f"process's", flush=True)
+
+    # (c) ms per batch-8 forward on the staged batch, CUDA events
+    with torch.inference_mode():
+        times = {name: cuda_ms(lambda fn=fn: fn(batch), 20) for name, fn in (
+            ("eager fp", fp_svc._fn), ("eager int8", svc8._fn),
+            ("aot fp", programs["fp"]._fn), ("aot int8", programs["int8"]._fn))}
+    print(f"int8 / aot (c): ms per batch-8 forward on {card}: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in times.items())}", flush=True)
+    print(f"int8 and aot: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def served_in_fresh_process(path: Path, row: dict, device: str = "cuda") -> dict:
+    """``EmbeddingService.from_aot`` in a new process that imports only the
+    service (and through it the loader, the collator and the kernels'
+    operator modules), embedding ``row``: its embeddings, launches, the
+    port's modules it imported, and its seconds."""
+    code = (
+        "import json, sys, time\n"
+        "t0 = time.perf_counter()\n"
+        "import numpy as np\n"
+        "from mca_tpu_torch.serve import EmbeddingService\n"
+        "from mca_tpu_torch.ops import flash_attention as flash, fused_ff as ff\n"
+        f"svc = EmbeddingService.from_aot({str(path)!r}, device={device!r})\n"
+        "row = {m: {f: np.asarray(v, np.float32) for f, v in d.items()}\n"
+        "       for m, d in json.loads(sys.stdin.read()).items()}\n"
+        "flash.launches = ff.launches = 0\n"
+        "out = svc.embed([row])\n"
+        "print(json.dumps({'embeddings': {k: v[0].tolist() for k, v in out['embeddings'].items()},\n"
+        "                  'launches': {'flash_fwd': flash.launches, 'geglu_ff': ff.launches},\n"
+        "                  'loaded': sorted(m for m in sys.modules if m.startswith('mca_tpu')),\n"
+        "                  'seconds': time.perf_counter() - t0}))\n"
+    )
+    payload = json.dumps({m: {f: np.asarray(v).tolist() for f, v in d.items()}
+                          for m, d in row.items()})
+    res = subprocess.run([sys.executable, "-c", code], input=payload, capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert not [m for m in out["loaded"] if m == "mca_tpu" or m.startswith("mca_tpu.")]
+    return out
+
+
 def probe_tol(plain: torch.Tensor) -> torch.Tensor:
     """Tolerance of each entry of a measurement kernel's output: PROBE_RTOL
     of the entry plus PROBE_RTOL of the largest, at its dtype's rtol."""
@@ -2684,11 +2987,13 @@ def main() -> int:
     eao_counts = check_eao_train(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
         moe_counts = check_moe(device, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
+        quant_counts = check_quant_aot(config, device, card, Path(tmp))
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
-    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts):
+    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:

@@ -8,7 +8,10 @@ map is the port's own copy of ``mca_tpu/interop.py``'s
 ``build_key_map`` / ``export_state_dict``: torch ``nn.Linear`` stores
 ``[out, in]`` kernels and flax ``[in, out]``, so the ``linear`` kind
 transposes; flax LayerNorm ``scale`` / ``bias`` map to ``weight`` /
-``bias``, the transformer's bias-less norm ``scale`` to ``gamma``.
+``bias``, the transformer's bias-less norm ``scale`` to ``gamma``.  A
+tree after ``mca_tpu.ops.quant.quantize_params`` carries its int8
+``{kernel_q, scale}`` projections to the int8 model's ``weight_q`` /
+``scale`` buffers, untransposed.
 :func:`probe_head_state_from_jax` carries a probe head the same way.
 """
 
@@ -91,6 +94,20 @@ def _map_pool_projections(out: KeyMap, key: str, tree: Dict[str, Any]) -> None:
                 out.append(((key, sub, "bias"), f"attn_pool.proj.{i}.bias", "direct"))
 
 
+def _map_projection(
+    out: KeyMap, tree: Dict[str, Any], base: Tuple[str, ...], prefix: str
+) -> None:
+    """A block projection: ``kernel`` -> ``<prefix>.weight``, transposed;
+    after ``mca_tpu.ops.quant.quantize_params``, ``{kernel_q, scale}`` ->
+    ``<prefix>.weight_q`` (int8, ``[in, out]`` as it stands) and
+    ``<prefix>.scale``."""
+    if "kernel_q" in tree:
+        out.append((base + ("kernel_q",), f"{prefix}.weight_q", "direct"))
+        out.append((base + ("scale",), f"{prefix}.scale", "direct"))
+    else:
+        out.append((base + ("kernel",), f"{prefix}.weight", "linear"))
+
+
 def build_key_map(params: Dict[str, Any]) -> KeyMap:
     """(flax path, reference state_dict key, kind) triplets generated
     from a flax parameter tree."""
@@ -101,12 +118,9 @@ def build_key_map(params: Dict[str, Any]) -> KeyMap:
         if key.startswith("layer_"):
             i = int(key.split("_")[1])
             for proj in ("to_q", "to_kv", "to_out"):
-                out.append(
-                    (
-                        (key, "attn", proj, "kernel"),
-                        f"layers.{i}.attn.{proj}.weight",
-                        "linear",
-                    )
+                _map_projection(
+                    out, tree["attn"][proj], (key, "attn", proj),
+                    f"layers.{i}.attn.{proj}",
                 )
             if "router" in tree.get("ff", {}):
                 # the MoE feed-forward under the JAX package's extension
@@ -116,12 +130,11 @@ def build_key_map(params: Dict[str, Any]) -> KeyMap:
                                    ("w_in", "experts.w_in"), ("w_out", "experts.w_out")):
                     out.append(((key, "ff", leaf), f"layers.{i}.ff.{name}", "direct"))
             else:
-                out.append(
-                    ((key, "ff", "w_in", "kernel"), f"layers.{i}.ff.feedforward.0.weight", "linear")
-                )
-                out.append(
-                    ((key, "ff", "w_out", "kernel"), f"layers.{i}.ff.feedforward.2.weight", "linear")
-                )
+                for leaf, index in (("w_in", 0), ("w_out", 2)):
+                    _map_projection(
+                        out, tree["ff"][leaf], (key, "ff", leaf),
+                        f"layers.{i}.ff.feedforward.{index}",
+                    )
             out.append(
                 ((key, "norm", "LayerNorm_0", "scale"), f"layers.{i}.norm.gamma", "direct")
             )
@@ -160,7 +173,9 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     p = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
     for path, key, kind in build_key_map({"params": p}):
-        v = np.asarray(_get(p, path), dtype=np.float32)
+        v = np.asarray(_get(p, path))
+        if v.dtype != np.int8:  # int8 kernels stay int8
+            v = v.astype(np.float32)
         sd[key] = torch.from_numpy(np.array(v.T if kind == "linear" else v))
     return sd
 

@@ -8,10 +8,12 @@
   the Hopper kernel on CUDA, its plain version on the CPU) and refuses
   to run where autograd would need its weights' gradients;
   ``fused=False`` (training) is the differentiable linear -> gelu ->
-  linear chain.
+  linear chain; ``quant="int8"`` (serving) the same chain over int8
+  weights (:mod:`mca_tpu_torch.ops.quant`).
 - :class:`Attention` — MHA with a fused ``to_kv`` projection (k the
   first half), cross-attention through ``context`` (the attentive
-  pool), and the static / dynamic mask pair.
+  pool), and the static / dynamic mask pair; int8 projections with
+  ``quant="int8"``.
 - :class:`MCALayer` — one shared norm, residuals around the *normed*
   activations: ``x = norm(x); x = attn(x) + x; x = norm(x);
   x = ff(x) + x``; with ``moe_experts > 0`` the feed-forward is
@@ -37,6 +39,7 @@ from mca_tpu_torch.encoders import LN_EPS
 from mca_tpu_torch.models.moe import MoEFeedForward
 from mca_tpu_torch.ops.attention import masked_attention
 from mca_tpu_torch.ops.fused_ff import geglu_ff, prepare_geglu_weights
+from mca_tpu_torch.ops.quant import QUANT_MODES, QuantLinear
 
 
 class LayerNorm(nn.Module):
@@ -53,15 +56,21 @@ class LayerNorm(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, fused (forward only) or unfused.
+    """GEGLU feed-forward: fused (forward only), unfused, or int8.
 
     ``feedforward.0`` is W1 ``[2*inner, dim]`` (u half first),
     ``feedforward.2`` is W2 ``[dim, inner]``; index 1 stands for the
     reference's parameter-free GEGLU.  On the fused path the transposed,
-    interleaved, padded compute-dtype copies the op takes are made
-    once per weight version and device, not on every call; they are
-    detached, so that path raises when grad mode is on and a weight
-    requires grad, instead of leaving the weights without gradients.
+    interleaved, padded compute-dtype copies the op takes are the
+    non-persistent buffers ``w1t`` / ``w2t``, remade by an eager call
+    only when a weight's storage or version changed, and read as they
+    stand by a traced one (``torch.export``), so they must have been
+    made by one eager call before tracing.  They are detached, so that
+    path raises when grad mode is on and a weight requires grad, instead
+    of leaving the weights without gradients.  ``quant="int8"`` holds
+    the two matrices as :class:`~mca_tpu_torch.ops.quant.QuantLinear`
+    (``weight_q`` / ``scale``) and runs the unfused chain over them, as
+    the JAX package does.
     """
 
     def __init__(
@@ -73,47 +82,56 @@ class FeedForward(nn.Module):
         fused: bool = True,
     ):
         super().__init__()
-        if quant != "none":
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 serving comes with the quant slice"
-            )
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         inner = int(dim * mult * 2 / 3)
-        self.feedforward = nn.ModuleList(
-            [
-                nn.Linear(dim, inner * 2, bias=False),
-                nn.Identity(),
-                nn.Linear(inner, dim, bias=False),
-            ]
-        )
+        self.quant = quant
+        if quant == "int8":
+            lin1 = QuantLinear(dim, inner * 2, dtype)
+            lin2 = QuantLinear(inner, dim, dtype)
+        else:
+            lin1 = nn.Linear(dim, inner * 2, bias=False)
+            lin2 = nn.Linear(inner, dim, bias=False)
+        self.feedforward = nn.ModuleList([lin1, nn.Identity(), lin2])
         self.dtype = dtype
-        self.fused = fused
-        self._prepared = None
+        self.fused = fused and quant == "none"
+        if self.fused:
+            self.register_buffer("w1t", torch.empty(0), persistent=False)
+            self.register_buffer("w2t", torch.empty(0), persistent=False)
         self._prepared_key = None
 
     def _weights(self):
-        w1 = self.feedforward[0].weight
-        w2 = self.feedforward[2].weight
-        key = (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
-        if key != self._prepared_key:
-            with torch.no_grad():
-                self._prepared = prepare_geglu_weights(
-                    w1.t(), w2.t(), self.dtype
-                )
-            self._prepared_key = key
-        return self._prepared
+        if not torch.compiler.is_compiling():
+            w1 = self.feedforward[0].weight
+            w2 = self.feedforward[2].weight
+            key = (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+            if key != self._prepared_key:
+                # plain tensors even under inference_mode, so that a
+                # later trace can take them
+                with torch.inference_mode(False), torch.no_grad():
+                    self.w1t, self.w2t = prepare_geglu_weights(
+                        w1.t(), w2.t(), self.dtype
+                    )
+                self._prepared_key = key
+        return self.w1t, self.w2t
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w1 = self.feedforward[0].weight
-        w2 = self.feedforward[2].weight
         x = x.to(self.dtype)
+        if self.quant == "int8":
+            h, gate = self.feedforward[0](x).chunk(2, dim=-1)
+            return self.feedforward[2](F.gelu(gate, approximate="none") * h)
         if self.fused:
-            if torch.is_grad_enabled() and (w1.requires_grad or w2.requires_grad):
+            if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()
+            ):
                 raise RuntimeError(
                     "the fused GEGLU feed-forward is forward-only: build "
                     "the model with fused_ff=False to train, or run under "
                     "torch.no_grad() / inference_mode()"
                 )
             return geglu_ff(x.contiguous(), *self._weights())
+        w1 = self.feedforward[0].weight
+        w2 = self.feedforward[2].weight
         h, gate = F.linear(x, w1.to(self.dtype)).chunk(2, dim=-1)
         return F.linear(
             F.gelu(gate, approximate="none") * h, w2.to(self.dtype)
@@ -122,7 +140,10 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention; ``attn_mask`` static ``[Tq, Tk]`` (True =
-    blocked), ``key_padding_mask`` ``[B, Tk]`` (True = padded)."""
+    blocked), ``key_padding_mask`` ``[B, Tk]`` (True = padded).
+    ``quant="int8"`` makes ``to_q``, ``to_kv`` and ``to_out``
+    :class:`~mca_tpu_torch.ops.quant.QuantLinear`; the attention itself
+    is unchanged (the flash kernel on the flash path)."""
 
     def __init__(
         self,
@@ -134,21 +155,26 @@ class Attention(nn.Module):
         quant: str = "none",
     ):
         super().__init__()
-        if quant != "none":
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 serving comes with the quant slice"
-            )
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         inner = dim_head * heads
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_kv = nn.Linear(dim, inner * 2, bias=False)
-        self.to_out = nn.Linear(inner, dim, bias=False)
+        if quant == "int8":
+            self.to_q = QuantLinear(dim, inner, dtype)
+            self.to_kv = QuantLinear(dim, inner * 2, dtype)
+            self.to_out = QuantLinear(inner, dim, dtype)
+        else:
+            self.to_q = nn.Linear(dim, inner, bias=False)
+            self.to_kv = nn.Linear(dim, inner * 2, bias=False)
+            self.to_out = nn.Linear(inner, dim, bias=False)
+        self.quant = quant
         self.heads, self.dim_head = heads, dim_head
         self.dtype = dtype
         self.impl = impl
 
-    def _linear(self, x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    def _linear(self, x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+        if self.quant == "int8":
+            return lin(x)
         return F.linear(x, lin.weight.to(self.dtype))
-
     def forward(
         self,
         x: torch.Tensor,

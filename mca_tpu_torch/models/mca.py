@@ -32,8 +32,11 @@ instead of keeping its activations.
 ``moe_experts > 0`` puts the expert-choice mixture of experts
 (:mod:`mca_tpu_torch.models.moe`) in every block's feed-forward.
 
-Not ported yet (they raise): pipeline / sequence parallelism, int8
-quantization.
+``quant="int8"`` runs the blocks' five projections on int8 weights
+(:mod:`mca_tpu_torch.ops.quant`, serving only); the attentive pool
+stays float.
+
+Not ported yet (it raises): pipeline / sequence parallelism.
 """
 
 from __future__ import annotations

@@ -26,7 +26,10 @@ Semantics (shared by the kernels and the plain versions
   a padded key's dk and dv are 0.
 
 :func:`flash_attention` is the differentiable wrapper: a CPU tensor goes
-to the plain versions, a CUDA tensor to the kernels (the backward to K2
+to the plain versions, a CUDA tensor to the kernels (the forward through
+the operator :func:`flash_fwd_op`, ``mca_tpu_torch::flash_fwd``, whose
+CPU implementation is the plain version, so that ``torch.export`` traces
+it as one call; the backward to K2
 with ``bwd_impl="fused"``, the default as in the JAX package, or to
 K3a + K3b with ``"split"``; a call that names none takes
 ``default_bwd_impl``), anything else raises.  There is no fallback
@@ -64,17 +67,19 @@ bwd_launches = {"flash_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 # (id(mask), device) -> (mask, schedule tensors on that device)
 _SCHED_CACHE: Dict[Tuple[int, str], tuple] = {}
-# T -> the all-live [T, T] mask of an unmasked call
-_ALL_LIVE: Dict[int, np.ndarray] = {}
+# (Tq, Tk) -> the all-live mask of an unmasked call
+_ALL_LIVE: Dict[Tuple[int, int], np.ndarray] = {}
 
 
-def all_live_mask(t: int) -> np.ndarray:
-    """The static mask of a call without one (EAO's passes): all live,
-    one array per length, so that the schedule cache, keyed by the
-    mask's identity, builds and uploads each length's schedule once."""
-    mask = _ALL_LIVE.get(t)
+def all_live_mask(t: int, s: Optional[int] = None) -> np.ndarray:
+    """The static ``[t, s]`` mask (``s`` defaults to ``t``) of a call
+    without one (EAO's passes): all live, one array per shape, so that
+    the schedule cache, keyed by the mask's identity, builds and uploads
+    each shape's schedule once."""
+    key = (t, t if s is None else s)
+    mask = _ALL_LIVE.get(key)
     if mask is None:
-        mask = _ALL_LIVE[t] = np.zeros((t, t), bool)
+        mask = _ALL_LIVE[key] = np.zeros(key, bool)
     return mask
 
 
@@ -333,9 +338,20 @@ def _schedule_on(mask: np.ndarray, device: torch.device) -> dict:
     key = (id(mask), str(device))
     hit = _SCHED_CACHE.get(key)
     if hit is None or hit[0] is not mask:
+        if torch.compiler.is_compiling():
+            # a trace holds the uploaded tensors as constants; it cannot
+            # make them
+            raise RuntimeError(
+                "the flash schedule of this mask is not on "
+                f"{device} yet: run the forward once before tracing it"
+            )
+
         def up(schedule):
             arrays = (*schedule, kv_pair_order(schedule[0]))
-            return tuple(torch.from_numpy(a).to(device) for a in arrays)
+            # plain tensors even under inference_mode, so that a later
+            # trace can hold them
+            with torch.inference_mode(False):
+                return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
         hit = (mask, {
             "pair": up(pair_schedule(mask)),
@@ -402,10 +418,62 @@ def _q_operand(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
     return q * torch.tensor(sq, dtype=q.dtype, device=q.device), 1.0
 
 
-def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
-    attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
+def mask_from_pair_schedule(
+    pair_ptr: np.ndarray, pair_kv: np.ndarray, pair_bits: np.ndarray,
+    t: int, s: int, block: int = BLOCK,
+) -> np.ndarray:
+    """The static ``[t, s]`` mask back from :func:`pair_schedule`'s walk:
+    the visited tiles' rows from their bits, every tile the walk skips
+    blocked (it is, or the schedule would visit it).  The exact inverse
+    of :func:`pair_schedule` on the mask's own region."""
+    pair_ptr, pair_kv = np.asarray(pair_ptr), np.asarray(pair_kv)
+    n_pairs, nk = len(pair_ptr) - 1, -(-s // block)
+    padded = np.ones((n_pairs, 2, block, nk, block), dtype=bool)
+    pair_of = np.repeat(np.arange(n_pairs), np.diff(pair_ptr))
+    bits = np.ascontiguousarray(pair_bits).view(np.uint64)[..., None]
+    cols = np.arange(block, dtype=np.uint64)
+    padded[pair_of, :, :, pair_kv, :] = (bits >> cols) & np.uint64(1) != 0
+    return padded.reshape(2 * n_pairs * block, nk * block)[:t, :s]
+
+
+@torch.library.custom_op(
+    "mca_tpu_torch::flash_fwd",
+    mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? key_padding_mask, "
+    "Tensor pair_ptr, Tensor pair_kv, Tensor pair_flags, Tensor pair_bits, "
+    "float scale) -> (Tensor, Tensor)",
+)
+def flash_fwd_op(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
+                 pair_bits, scale):
+    """K1 as an operator: ``(out, lse)`` from q, k, v, the key padding
+    and the static mask's :func:`pair_schedule` (the first four of
+    ``_schedule_on(mask, device)["pair"]``).  The CPU implementation is
+    the plain version, on the mask the schedule's bits hold; the CUDA
+    one launches the kernel."""
+    mask = mask_from_pair_schedule(
+        pair_ptr.numpy(), pair_kv.numpy(), pair_bits.numpy(), q.shape[2], k.shape[2]
+    )
+    return flash_attention_reference(q, k, v, mask, key_padding_mask, scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
+                    pair_bits, scale):
     b, h, t, _ = q.shape
-    pair_ptr, pair_kv, pair_flags, pair_bits, _ = _schedule_on(attn_mask, q.device)["pair"]
+    return torch.empty_like(q), q.new_empty((b, h, t), dtype=torch.float32)
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_kernel(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
+                      pair_bits, scale):
+    b, h, t, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_cuda(x, name, (b, h, t, d), torch.bfloat16)
+    if key_padding_mask is not None:
+        _check_cuda(key_padding_mask, "key_padding_mask", (b, t), torch.bool)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
@@ -414,12 +482,11 @@ def _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale):
         + [ctypes.c_float, ctypes.c_void_p],
     )
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        pad.data_ptr() if pad is not None else None,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
         pair_ptr.data_ptr(), pair_kv.data_ptr(), pair_flags.data_ptr(),
         pair_bits.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b * h, h, t, len(pair_ptr) - 1, _scale_q(scale, q.dtype),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _stream(q),
     )
     _build.check("flash_fwd", err)
     global launches
@@ -567,16 +634,27 @@ def flash_attention_backward(
 
 
 def _forward(q, k, v, attn_mask, key_padding_mask, scale):
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, attn_mask, key_padding_mask, scale
-        )
-    if q.device.type != "cuda":
+    """``(out, lse)`` through the :func:`flash_fwd_op` operator: the
+    static mask becomes its schedule on q's device, the key padding
+    contiguous bool."""
+    if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(
             f"flash_attention runs on CPU (plain) or CUDA (kernel) "
             f"tensors, not {q.device}"
         )
-    return _flash_fwd_kernel(q, k, v, attn_mask, key_padding_mask, scale)
+    t, s = q.shape[2], k.shape[2]
+    if attn_mask is None:
+        attn_mask = all_live_mask(t, s)
+    if not isinstance(attn_mask, np.ndarray) or attn_mask.shape != (t, s):
+        raise ValueError(
+            "attn_mask must be a static numpy [Tq, Tk] array (it becomes "
+            "the kernel's tile schedule)"
+        )
+    pad = key_padding_mask
+    if pad is not None:
+        pad = pad.bool().contiguous()
+    pair_ptr, pair_kv, pair_flags, pair_bits, _ = _schedule_on(attn_mask, q.device)["pair"]
+    return flash_fwd_op(q, k, v, pad, pair_ptr, pair_kv, pair_flags, pair_bits, scale)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -18,8 +18,10 @@ to a multiple of 64, and W1's rows interleaved so that every 64-wide
 inner chunk is ``[u 32 | g 32 | u 32 | g 32]``: a 64-row slice then gives
 one warpgroup the u and the gate of the same 32 inner columns.
 :func:`split_geglu_weights` undoes it.  :func:`geglu_ff` is the
-wrapper: CPU tensors go to the plain version, CUDA tensors to the
-kernel, anything else raises.  ``launches`` counts kernel launches.
+wrapper around the operator :func:`geglu_ff_op` (``mca_tpu_torch::geglu_ff``):
+CPU tensors go to the plain version, its CPU implementation, CUDA
+tensors to the kernel, anything else raises; ``torch.export`` traces
+the operator as one call.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -119,34 +121,29 @@ def _check_cuda(t: torch.Tensor, name: str, shape) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def geglu_ff(x: torch.Tensor, w1t: torch.Tensor, w2t: torch.Tensor) -> torch.Tensor:
-    """GEGLU FF on weights from :func:`prepare_geglu_weights`; ``x`` is
-    ``[..., D]``.  CUDA: the fused kernel (bf16, D = D_out = 512,
-    forward only).  CPU: the plain version."""
-    if x.device.type == "cpu":
-        return geglu_ff_plain(x, w1t, w2t)
-    if x.device.type != "cuda":
-        raise RuntimeError(
-            f"geglu_ff runs on CPU (plain) or CUDA (kernel) tensors, "
-            f"not {x.device}"
-        )
-    if any(t.requires_grad for t in (x, w1t, w2t)):
-        raise RuntimeError(
-            "the fused GEGLU kernel is forward-only: training runs the "
-            "unfused chain"
-        )
+@torch.library.custom_op(
+    "mca_tpu_torch::geglu_ff",
+    mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor x, Tensor w1t, Tensor w2t) -> Tensor",
+)
+def geglu_ff_op(x, w1t, w2t):
+    """K5 as an operator on ``[n, D]`` rows and the prepared weights: the
+    plain version on the CPU, the kernel on CUDA."""
+    return geglu_ff_plain(x, w1t, w2t)
+
+
+@geglu_ff_op.register_fake
+def _geglu_ff_fake(x, w1t, w2t):
+    return x.new_empty((x.shape[0], w2t.shape[0]))
+
+
+@geglu_ff_op.register_kernel("cuda")
+def _geglu_ff_kernel(x, w1t, w2t):
     two_ip, d = w1t.shape
     ip = two_ip // 2
-    if d != MODEL_DIM or w2t.shape[0] != MODEL_DIM or ip % INNER_MULTIPLE:
-        raise ValueError(
-            f"the kernel takes D = D_out = {MODEL_DIM} and inner padded "
-            f"to a multiple of {INNER_MULTIPLE}; got w1t {tuple(w1t.shape)}"
-            f", w2t {tuple(w2t.shape)}"
-        )
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, d)
-    n = x2.shape[0]
-    _check_cuda(x2, "x", (n, d))
+    n = x.shape[0]
+    _check_cuda(x, "x", (n, d))
     _check_cuda(w1t, "w1t", (two_ip, d))
     _check_cuda(w2t, "w2t", (d, ip))
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
@@ -154,10 +151,39 @@ def geglu_ff(x: torch.Tensor, w1t: torch.Tensor, w2t: torch.Tensor) -> torch.Ten
         "geglu_ff", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     err = fn(
-        x2.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), out.data_ptr(), n, ip,
+        x.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), out.data_ptr(), n, ip,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("geglu_ff", err)
     global launches
     launches += 1
-    return out.reshape(*lead, d)
+    return out
+
+
+def geglu_ff(x: torch.Tensor, w1t: torch.Tensor, w2t: torch.Tensor) -> torch.Tensor:
+    """GEGLU FF on weights from :func:`prepare_geglu_weights`; ``x`` is
+    ``[..., D]``.  Through :func:`geglu_ff_op`: on CUDA the fused kernel
+    (bf16, D = D_out = 512, forward only), on the CPU the plain
+    version."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"geglu_ff runs on CPU (plain) or CUDA (kernel) tensors, "
+            f"not {x.device}"
+        )
+    two_ip, d = w1t.shape
+    if x.device.type == "cuda":
+        if any(t.requires_grad for t in (x, w1t, w2t)):
+            raise RuntimeError(
+                "the fused GEGLU kernel is forward-only: training runs the "
+                "unfused chain"
+            )
+        if (d != MODEL_DIM or w2t.shape[0] != MODEL_DIM
+                or (two_ip // 2) % INNER_MULTIPLE):
+            raise ValueError(
+                f"the kernel takes D = D_out = {MODEL_DIM} and inner padded "
+                f"to a multiple of {INNER_MULTIPLE}; got w1t {tuple(w1t.shape)}"
+                f", w2t {tuple(w2t.shape)}"
+            )
+    lead = x.shape[:-1]
+    out = geglu_ff_op(x.reshape(-1, d), w1t, w2t)
+    return out.reshape(*lead, w2t.shape[0])

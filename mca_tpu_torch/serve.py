@@ -28,9 +28,14 @@ Usage::
 ``--restart DIR`` (``restart=``) serves the parameters of a training
 checkpoint: a train-state directory (``output_dir`` or
 ``output_dir/<epoch>``) or the final ``output_dir``'s ``model``
-(:func:`mca_tpu_torch.checkpoint.load_params`).  AOT artifacts
-(``--aot``) and int8 serving (``--quantize int8``) are not ported yet
-and raise.
+(:func:`mca_tpu_torch.checkpoint.load_params`).  ``--quantize int8``
+(``quantize="int8"``) serves the five block projections on int8 weights
+made from the fp32 ones (:mod:`mca_tpu_torch.ops.quant`), as
+``mca_tpu.serve`` does.  ``--aot model.aot``
+(:meth:`EmbeddingService.from_aot`) serves a
+``mca_tpu_torch.tools.export_aot`` artifact without the YAML, the
+checkpoint or the model code: that path imports only the collator and
+the modules that register the kernels' operators.
 """
 
 from __future__ import annotations
@@ -46,12 +51,19 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from mca_tpu_torch import checkpoint
-from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
-from mca_tpu_torch.models import build_model
+from mca_tpu_torch.ops.quant import QUANT_MODES
 
 logger = logging.getLogger(__name__)
+
+
+def pack_outputs(out: Mapping[str, Any], emb_keys: Sequence[str],
+                 mask_keys: Sequence[str]):
+    """A ``no_loss`` forward's outputs as one ``[E, B, D]`` embedding
+    stack and one ``[M, B]`` mask stack, in the given key orders."""
+    emb = torch.stack([out[k] for k in emb_keys])
+    msk = torch.stack([out["modality_sample_mask"][k] for k in mask_keys])
+    return emb, msk
 
 
 class EmbeddingService:
@@ -62,6 +74,8 @@ class EmbeddingService:
     :func:`mca_tpu_torch.interop.state_dict_from_jax_params`; without
     it the weights are random, drawn from ``seed``.  ``restart`` (a
     checkpoint directory) takes the parameters from there instead.
+    ``quantize="int8"`` quantises those fp32 weights for the int8 model.
+    :meth:`from_aot` builds a service from an exported artifact instead.
     """
 
     def __init__(
@@ -76,35 +90,62 @@ class EmbeddingService:
         device: str = "cuda",
         seed: int = 0,
     ):
+        from mca_tpu_torch import checkpoint
+        from mca_tpu_torch.config import get_model_config
+        from mca_tpu_torch.models import build_model
+        from mca_tpu_torch.ops.quant import quantize_state_dict
+
         if restart and params is not None:
             raise ValueError("pass params= or restart=, not both")
-        if quantize != "none":
-            raise NotImplementedError(
-                "quantize: int8 serving comes with the quant slice"
+        if quantize not in QUANT_MODES:
+            raise ValueError(f"quantize must be one of {QUANT_MODES}, got {quantize!r}")
+        mods = (
+            config.modality_config.to_plain()
+            if hasattr(config.modality_config, "to_plain")
+            else dict(config.modality_config)
+        )
+        self._common_init(mods, max_batch, max_wait_ms, device)
+        self.config = config
+        if restart:
+            params = checkpoint.load_params(restart)
+        mc = get_model_config(config)
+        model = build_model(mc, fused_ff=True)
+        if params is None:
+            model.init_weights(torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(
+                {k: torch.as_tensor(v) for k, v in params.items()},
+                strict=True,
             )
+        if quantize != "none":
+            # post-training int8 of the fp32 weights, as mca_tpu.serve
+            # quantises its restored tree; the fp model is dropped
+            fp_state = model.state_dict()
+            model = build_model(dict(mc, quant=quantize), fused_ff=True)
+            model.load_state_dict(quantize_state_dict(fp_state), strict=True)
+        self.quantize = quantize
+        self.model = model.to(self.device).eval()
+        self.mask_keys = tuple(sorted(self.model.modality_types))
+        self.emb_keys = self.model.loss.output_keys()
+        self._fn = lambda batch: pack_outputs(
+            self.model(batch, no_loss=True), self.emb_keys, self.mask_keys
+        )
+        if warmup:
+            # builds the kernels and uploads the tile schedule, so the
+            # first request pays neither
+            self._warmup()
+
+    def _common_init(self, mods: Dict[str, Any], max_batch: int,
+                     max_wait_ms: float, device: str) -> None:
+        """Runtime fields of both ways to build a service (from a config
+        and :meth:`from_aot`): a field added here cannot drift between
+        them."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port serves on the GPU; pass "
                 "device='cpu' to run the plain versions on the CPU"
             )
-        self.config = config
-        if restart:
-            params = checkpoint.load_params(restart)
-        self.model = build_model(get_model_config(config), fused_ff=True)
-        if params is None:
-            self.model.init_weights(torch.Generator().manual_seed(seed))
-        else:
-            self.model.load_state_dict(
-                {k: torch.as_tensor(v) for k, v in params.items()},
-                strict=True,
-            )
-        self.model.to(self.device).eval()
-        mods = (
-            config.modality_config.to_plain()
-            if hasattr(config.modality_config, "to_plain")
-            else dict(config.modality_config)
-        )
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.collate = MultimodalCollator(mods)
@@ -113,12 +154,45 @@ class EmbeddingService:
         self._batcher: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
-        self.mask_keys = tuple(sorted(self.model.modality_types))
-        self.emb_keys = self.model.loss.output_keys()
+    def _warmup(self) -> None:
+        """One padded forward, so that the first request pays neither a
+        kernel build nor a schedule upload."""
+        self._materialise(self._dispatch([self._template]), 1)
+
+    @classmethod
+    def from_aot(
+        cls,
+        path: str,
+        max_wait_ms: float = 5.0,
+        warmup: bool = True,
+        device: str = "cuda",
+    ) -> "EmbeddingService":
+        """Serve a ``tools.export_aot`` artifact: the forward and its
+        weights come from the exported program, the collator and the
+        request padding from the artifact's header; no YAML, model code
+        or checkpoint is read.  The artifact runs on the device type it
+        was exported on."""
+        from mca_tpu_torch.tools.export_aot import load_aot_full, read_aot_header
+
+        header = read_aot_header(path)
+        mods = header.get("modality_config")
+        if not mods or not header.get("batch"):
+            raise ValueError(
+                "artifact lacks serving metadata (modality_config / batch): "
+                "export it again with mca_tpu_torch.tools.export_aot"
+            )
+        self = object.__new__(cls)
+        self._common_init(mods, int(header["batch"]), max_wait_ms, device)
+        fn, header = load_aot_full(path, device=device)
+        self.config = None
+        self.model = None
+        self.quantize = header.get("quantize", "none")
+        self.emb_keys = tuple(header["emb_keys"])
+        self.mask_keys = tuple(header["mask_keys"])
+        self._fn = fn
         if warmup:
-            # builds the kernels and uploads the tile schedule, so the
-            # first request pays neither
-            self._materialise(self._dispatch([self._template]), 1)
+            self._warmup()
+        return self
 
     # -- request paths -------------------------------------------------
 
@@ -162,12 +236,7 @@ class EmbeddingService:
         """Collate + copy + launch one chunk; returns the device tensors
         without waiting for them (CUDA launches are asynchronous)."""
         with torch.inference_mode():
-            out = self.model(self._pad(rows), no_loss=True)
-            emb = torch.stack([out[k] for k in self.emb_keys])
-            msk = torch.stack(
-                [out["modality_sample_mask"][k] for k in self.mask_keys]
-            )
-        return emb, msk
+            return self._fn(self._pad(rows))
 
     @staticmethod
     def _materialise(dev, n: int):
@@ -362,31 +431,23 @@ def make_server(service: EmbeddingService, port: int = 0):
     return ThreadingHTTPServer(("127.0.0.1", port), Handler)
 
 
-def main(argv=None) -> None:
-    import argparse
-    import sys
-
+def service_from_args(args) -> EmbeddingService:
+    """The service the CLI's arguments ask for: from ``--aot``, or from
+    the config with ``--restart`` / ``--allow-random-weights``."""
+    if args.aot:
+        if args.quantize != "none":
+            raise ValueError(
+                "--quantize applies when the model is built: quantise when "
+                "exporting the artifact (tools.export_aot --quantize int8), "
+                "not when serving it"
+            )
+        return EmbeddingService.from_aot(
+            args.aot, max_wait_ms=args.max_wait_ms, device=args.device
+        )
     from mca_tpu_torch.config import training_config
 
-    logging.basicConfig(level=logging.INFO)
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("config", help="train yaml")
-    p.add_argument("--restart", default=None, help="checkpoint dir: a train state or a final model")
-    p.add_argument("--aot", default=None, help="AOT artifact (not ported yet)")
-    p.add_argument("--port", type=int, default=8777)
-    p.add_argument("--max-batch", type=int, default=8)
-    p.add_argument("--max-wait-ms", type=float, default=5.0)
-    p.add_argument("--quantize", choices=("none", "int8"), default="none")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument(
-        "--allow-random-weights",
-        action="store_true",
-        help="serve from random weights drawn from --seed (demo only)",
-    )
-    args = p.parse_args(argv if argv is not None else sys.argv[1:])
-    if args.aot:
-        raise NotImplementedError("--aot: AOT serving comes with the export slice")
+    if not args.config:
+        raise SystemExit("pass a train yaml, or --aot <artifact>")
     config = training_config(args.config)
     restart = args.restart or (config.restart or None)
     if not (restart or args.allow_random_weights):
@@ -394,7 +455,7 @@ def main(argv=None) -> None:
             "no checkpoint: pass --restart <dir>, or --allow-random-weights "
             "for a demo server"
         )
-    svc = EmbeddingService(
+    return EmbeddingService(
         config,
         restart=restart,
         max_batch=args.max_batch,
@@ -403,6 +464,40 @@ def main(argv=None) -> None:
         device=args.device,
         seed=args.seed,
     )
+
+
+def parse_args(argv=None):
+    import argparse
+    import sys
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("config", nargs="?", default=None, help="train yaml (omit with --aot)")
+    p.add_argument("--restart", default=None, help="checkpoint dir: a train state or a final model")
+    p.add_argument(
+        "--aot", default=None,
+        help="serve a tools.export_aot artifact (no config or checkpoint)",
+    )
+    p.add_argument("--port", type=int, default=8777)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument(
+        "--quantize", choices=QUANT_MODES, default="none",
+        help="int8 weights for the block projections (ops.quant)",
+    )
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--allow-random-weights",
+        action="store_true",
+        help="serve from random weights drawn from --seed (demo only)",
+    )
+    return p.parse_args(argv if argv is not None else sys.argv[1:])
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = parse_args(argv)
+    svc = service_from_args(args)
     server = make_server(svc, args.port)
     logger.info(
         "serving embeddings on :%d (keys: %s)",

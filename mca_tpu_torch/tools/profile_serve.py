@@ -1,11 +1,12 @@
 """Where the time of one serving forward goes, on the GPU.
 
     python -m mca_tpu_torch.tools.profile_serve [config.yaml] \\
-        [--forwards 10] [--trace out.json]
+        [--forwards 10] [--quantize int8] [--trace out.json]
 
 Builds ``EmbeddingService`` from the config (default
 ``configs/tcga_mca.yaml``: TCGA_config1, batch 8; ``configs/cmu_mca.yaml``
-is CMU_config1) with random weights from ``--seed`` on request rows
+is CMU_config1) with random weights from ``--seed`` (``--quantize int8``:
+quantised to int8, ``mca_tpu_torch.ops.quant``) on request rows
 shaped as the config's modalities (``tools.request_rows``), times the
 host's side of a batch as buckets of its own (collate, and the copy to
 the device, ``tools.host_batch_costs``), warms it up, then runs ``--forwards`` batch-8 forwards
@@ -28,7 +29,7 @@ from pathlib import Path
 import torch
 
 from mca_tpu_torch.config import training_config
-from mca_tpu_torch.serve import EmbeddingService
+from mca_tpu_torch.serve import QUANT_MODES, EmbeddingService
 from mca_tpu_torch.tools import host_batch_costs, request_rows
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
@@ -52,6 +53,7 @@ def main(argv=None) -> None:
     p.add_argument("config", nargs="?", default=str(DEFAULT_CONFIG))
     p.add_argument("--forwards", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--quantize", choices=QUANT_MODES, default="none")
     p.add_argument("--trace", default=None, help="write a chrome trace here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -62,7 +64,7 @@ def main(argv=None) -> None:
     ).stdout.strip().splitlines()[0]
 
     config = training_config(args.config)
-    svc = EmbeddingService(config, device="cuda", seed=args.seed)
+    svc = EmbeddingService(config, device="cuda", seed=args.seed, quantize=args.quantize)
     rows = request_rows(config, svc.max_batch)
     host_batch = host_batch_costs(config, rows, "cuda", stage_dtypes=("fp32",))
     for _ in range(3):
@@ -94,7 +96,7 @@ def main(argv=None) -> None:
         by_kind[kind_of(name)] += ms
     n = args.forwards
     print(card)
-    print(f"{n} batch-{svc.max_batch} forwards: {wall_ms / n:.3f} ms wall each, "
+    print(f"quantize {args.quantize}: {n} batch-{svc.max_batch} forwards: {wall_ms / n:.3f} ms wall each, "
           f"{busy_ms / n:.3f} ms device busy each, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     print(f"host ms per batch (inside the wall above): collate "
@@ -108,6 +110,7 @@ def main(argv=None) -> None:
         print(f"  {ms / n:9.4f}  {name[:110]}")
     print(json.dumps({
         "card": card,
+        "quantize": args.quantize,
         "forwards": n,
         "wall_ms_per_forward": wall_ms / n,
         "device_ms_per_forward": busy_ms / n,
