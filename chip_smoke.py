@@ -38,9 +38,12 @@ Phases (each asserted; any failure exits non-zero):
    planted faults (the plain backward with one partly masked tile
    dropped, or the second kv tile of a pair item) must fail the
    relative-L2 check.
-   Times: each kernel,
-   the plain backward, and the backward alone of
-   ``F.scaled_dot_product_attention`` with the same mask as a yardstick.
+   Times: each kernel (queued behind a spin kernel, so that the host's
+   enqueueing stays out), the plain backward, and the backward alone of
+   ``F.scaled_dot_product_attention`` with the same mask as a yardstick;
+   then the same mask at H 4 (a rank's heads at ``mesh_model: 2``): K1
+   as in 2 (its planted fault too), K2, K3a and K3b as above, held and
+   timed again.
 5. the serving slice: ``EmbeddingService`` at TCGA_config1 width (dim
    512, depth 5, 8 x 64 heads, T 2548, bf16, max_batch 8) on the GPU
    with weights from a fixed seed answers ``embed`` (20 rows, three
@@ -200,12 +203,38 @@ Phases (each asserted; any failure exits non-zero):
    the int8 projections' bytes. (c) ms per batch-8 forward (CUDA events)
    for eager fp, eager int8, loaded fp and loaded int8, beside the
    card's name and power limit.
-14. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+14. data and tensor parallelism (``mca_tpu_torch.parallel``) at
+   TCGA_config1 width and depth, 3 steps (warm-up 2) on a batch of 8
+   from the seed-0 weights. (a) Through ``init_multihost`` with a
+   one-rank NCCL group (``MCA_MULTIHOST=auto``), ``mesh_data: 0``,
+   ``fsdp: true``, on the split backward with deterministic algorithms:
+   bitwise equal to the same steps without a process group, K1 + K3a +
+   K3b 5 each a step; its checkpoint served (``EmbeddingService``
+   ``restart=``) for one batch, K1 and K5 5. (b) Two ranks on the one card
+   over gloo (NCCL refuses two ranks on one device), started by
+   ``mca_tpu_torch.parallel.launch`` with a hard timeout: (i) ``mesh_data:
+   2, fsdp: true``, (ii) ``mesh_data: 2`` without fsdp, (iii)
+   ``mesh_model: 2, seq_shard: true``; on each rank K1 5 and K2 5 a
+   step, at H 4 under (iii) (from the heads of every launch); per-step
+   total_loss, grad_norm and param_norm and the final parameters'
+   update held to the unsharded steps on the card (fused backward);
+   planted faults must fail their gate: on (i) the loss gather with
+   ``BackpropType.NONE`` (the update) and the gradient summed, not
+   averaged, over ``data`` (grad_norm), on (iii) rank 1 keeping its own
+   partial of block 0's ``to_out`` (the update). Each rank's peak
+   device memory and optimizer state, with and without fsdp; after the
+   runs, which collectives gloo accepts on CUDA tensors (and FSDP2's
+   ``fully_shard`` on one ``nn.Linear``). (c) ``python -m mca_tpu_torch.infer``'s ``main`` at 2 ranks
+   against 1 from (a)'s checkpoint on 40 rows: keys, row order, masks and
+   labels equal, embeddings within ``AGREE_ATOL``. Prints wall ms a step
+   for (a) and (b) beside the host and the card: two processes sharing
+   one card through host-staged gloo, not a scaling number.
+15. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
    training and infer, phase 11's training, phase 12's serving,
-   training and ``moe_stats`` and phase 13's serving and loaded
-   programs, each counted from 0), then the last line
-   ``{"ok": true, "device": {...}}``.
+   training and ``moe_stats``, phase 13's serving and loaded programs
+   and phase 14's steps, serving and infer ranks, each counted from 0),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -216,6 +245,7 @@ limit is printed beside them.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -234,6 +264,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import yaml
 
 import mca_tpu_torch
 from mca_tpu_torch import _build
@@ -241,7 +273,8 @@ from mca_tpu_torch import infer as infer_lib
 from mca_tpu_torch import native
 from mca_tpu_torch import probe as probe_lib
 from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state, save_params
-from mca_tpu_torch.config import embedding_eval_config, get_model_config, training_config
+from mca_tpu_torch.config import (embedding_eval_config, get_model_config, load_yaml,
+                                   training_config)
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.masks import adjusted_powerset, build_masks
@@ -254,6 +287,9 @@ from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.ops import fused_ff as ff
 from mca_tpu_torch.ops import probes
 from mca_tpu_torch.ops import quant
+from mca_tpu_torch.parallel import collectives as coll
+from mca_tpu_torch.parallel import launch as launch_lib
+from mca_tpu_torch.parallel.multihost import init_multihost, make_stager
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
                                  median_host_ms, request_rows, sample_tokens)
@@ -273,6 +309,7 @@ from mca_tpu_torch.train import (
     to_device,
     train,
     train_step,
+    training_mesh,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -305,6 +342,7 @@ BWD_REL_L2 = 2e-3
 # a softmax scale whose bf16 is not a power of two: K2 and K3b then read
 # q_s = bf16(q * bf16(scale)) from the wrapper instead of scaling in fp32
 SCALE_NOT_POW2 = 0.1
+TP_HEADS = 4  # heads a rank holds at mesh_model 2 (8 / 2)
 # modality widths that give an odd number of 64-key tiles (T 160 with 22
 # fusion tokens, two for each of the 11 modality combinations)
 ODD_DIMS = (48, 30, 40, 20)
@@ -403,6 +441,32 @@ PLANTED_GATE_SCALE = 1 + 2**-6
 # (e) moe_stats: the router's probabilities sum to 1 over the experts
 MOE_MASS_ATOL = 1e-4
 PROBE_CONFIG = ROOT / "configs" / "tcga_probe.yaml"
+# phase 14: 3 steps of TCGA_config1 at full width and depth on each layout,
+# two ranks on the one card over gloo; a fault planted on each layout
+PAR_STEPS = 3
+PAR_LAYOUTS = {"dp_fsdp": {"mesh_data": 2, "fsdp": True},
+               "dp": {"mesh_data": 2},
+               "tp_seq": {"mesh_model": 2, "seq_shard": True}}
+PAR_FAULTS = {"dp_fsdp": ["none_gather", "unscaled_grads"], "dp": [],
+              "tp_seq": ["skip_out_reduce"]}
+PAR_TIMEOUT = 600  # seconds for the two ranks of one launch
+# sharded against unsharded on the card, both bf16 on the fused backward:
+# per-step total_loss, grad_norm and param_norm (relative), and the
+# relative L2 of the final parameters' update (final - initial) against
+# the unsharded update; set from a CPU rehearsal at tiny shapes in bf16
+# (loss 1.2e-4, grad_norm 1.8e-4, param_norm 2e-7, update 1.2e-2 and
+# 3.0e-2; the planted faults' updates 1.0 and 0.68, the summed gradient's
+# grad_norm 1.0 with its update at 1.2e-2)
+PAR_LOSS_RTOL = 2e-3
+PAR_NORM_RTOL = 1e-2
+PAR_UPDATE_REL_L2 = 0.15
+PAR_BOUNDS = {"loss": PAR_LOSS_RTOL, "grad_norm": PAR_NORM_RTOL, "param_norm": PAR_NORM_RTOL,
+              "update": PAR_UPDATE_REL_L2}
+# the gate each planted fault must fail: a gradient summed, not averaged,
+# over data scales every gradient alike, which AdamW's update and the
+# clipped step do not see, so only grad_norm shows it
+FAULT_GATES = {"none_gather": "update", "skip_out_reduce": "update", "unscaled_grads": "grad_norm"}
+PAR_INFER_ROWS = 40
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
 # package's pin for its scanned loop, tests/test_e2e.py): losses, norms
@@ -561,6 +625,8 @@ def hold_flash(mask, q, k, v, pad) -> dict:
 
 
 def check_flash(device, b=8, h=8) -> dict:
+    """K1 against its plain version at TCGA_config1's mask, timed beside
+    SDPA; at ``h`` 8 (the model's heads) or 4 (a rank's under mesh_model 2)."""
     mask, q, k, v, pad = flash_inputs(device, b=b, h=h)
     b, h, t, d = q.shape
     scale = d**-0.5
@@ -586,7 +652,7 @@ def check_flash(device, b=8, h=8) -> dict:
     n_bytes = 4 * q.numel() * 2 + lse.numel() * 4 + mask.size + pad.numel()
     bms, by = bound_ms(n_bytes, n_ops)
     print(
-        f"K1 flash_fwd: max_abs_err {err:.3e} (lse {lse_err:.3e}), "
+        f"K1 flash_fwd{'' if h == 8 else f' at H {h}'}: max_abs_err {err:.3e} (lse {lse_err:.3e}), "
         f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, "
         f"bound {bms:.4f} ms ({by}), {pairs:.4g} live score entries; planted fault "
         f"(tile q{qi} x kv{kj}, {n_live} live entries over the batch, dropped) puts "
@@ -835,13 +901,7 @@ def check_flash_bwd(device) -> list:
             padded_o = pad_o[:, None, :].expand(got[1].shape[:3])
             assert bool((got[1][padded_o] == 0).all() and (got[2][padded_o] == 0).all()), impl
 
-        dq_acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=device)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        ms = {
-            "flash_bwd": cuda_ms(lambda: flash.flash_bwd(*args, dq_acc, dk, dv), 10),
-            "flash_bwd_dq": cuda_ms(lambda: flash.flash_bwd_dq(*args, dq), 10),
-            "flash_bwd_dkv": cuda_ms(lambda: flash.flash_bwd_dkv(*args, dk, dv), 10),
-        }
+        ms = bwd_kernel_ms(args, q)
         plain_ms = cuda_ms(
             lambda: flash.flash_attention_bwd_reference(q, k, v, mask, pad, out, lse, do, scale),
             3, 1,
@@ -901,7 +961,41 @@ def check_flash_bwd(device) -> list:
         f"(all heads); {pairs:.4g} live score entries",
         flush=True,
     )
+    # the heads a rank holds under mesh_model 2 (phase 14): the same
+    # mask and inputs at H 4, K1 and the backward held and timed as above
+    del held, args, do
+    check_flash(device, h=TP_HEADS)
+    _, q4, k4, v4, pad4 = flash_inputs(device, h=TP_HEADS)
+    do4 = torch.randn(q4.shape, generator=g, device=device).to(torch.bfloat16)
+    held4 = hold_flash_bwd(mask, q4, k4, v4, pad4, do4, f"phase 4 (H {TP_HEADS})")
+    with torch.inference_mode():
+        out4, lse4 = held4["out"], held4["lse"]
+        ms4 = bwd_kernel_ms((q4, k4, v4, do4, lse4, flash.attention_delta(out4, do4), mask,
+                             pad4, scale), q4)
+    pairs4 = float((~held4["blocked"]).sum()) * TP_HEADS
+    for name, (products, n_bytes, tpu_name, _, _) in work.items():
+        bms4, by4 = bound_ms(n_bytes * TP_HEADS / h, 2.0 * d * products * pairs4)
+        print(
+            f"{name} at H {TP_HEADS}: {ms4[name]:.4f} ms kernel (queued), bound "
+            f"{bms4:.4f} ms ({by4}); relative L2 against plain "
+            + ", ".join(f"{o} {held4['rels'][('fused' if name == 'flash_bwd' else 'split', o)]:.3e}"
+                        for o in ("dq", "dk", "dv")),
+            flush=True,
+        )
     return entries
+
+
+def bwd_kernel_ms(args, q) -> dict:
+    """K2, K3a and K3b each timed over 10 launches queued behind the spin
+    kernel (:func:`cuda_ms`), so that the host's enqueueing stays out of
+    the reading; ``args`` as :func:`flash.flash_bwd` takes them."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    return {
+        "flash_bwd": cuda_ms(lambda: flash.flash_bwd(*args, dq_acc, dk, dv), 10, queued=True),
+        "flash_bwd_dq": cuda_ms(lambda: flash.flash_bwd_dq(*args, dq), 10, queued=True),
+        "flash_bwd_dkv": cuda_ms(lambda: flash.flash_bwd_dkv(*args, dk, dv), 10, queued=True),
+    }
 
 
 def ff_inputs(device, n, dim=512, inner=1365, seed=0) -> tuple:
@@ -2941,6 +3035,433 @@ def check_counter_sass(report: str) -> None:
     assert seen == {"fwdpair", "bwd5", "big", "sweep"}, seen
     check_ptxas("roofline_counter", report)
 
+# ---------------------------------------------------------------------------
+# phase 14: data and tensor parallelism
+
+
+def par_config(config, **overrides):
+    """Phase 14's configuration: ``config`` (TCGA_config1) with 2 warm-up
+    steps (the config's 3000 would keep lr near 0 for 3 steps) and
+    ``overrides``."""
+    cfg = type(config)(config)
+    cfg.num_warmup_steps = TRAIN_WARMUP
+    for k, v in overrides.items():
+        cfg[k] = v
+    return cfg
+
+
+def flat_params(state: dict) -> torch.Tensor:
+    return torch.cat([v.detach().float().reshape(-1).cpu() for _, v in sorted(state.items())])
+
+
+def par_steps(cfg, device, params, batch, stage=lambda b: b, plant=None) -> dict:
+    """PAR_STEPS steps of ``build_trainer`` (on the mesh the process group
+    and ``cfg`` give) from ``params`` on the collated ``batch`` (this
+    rank's rows of it, through ``stage``): per-step metrics, wall ms and
+    launches, the whole final parameters on the host, and this process's
+    peak device memory and optimizer state in MiB."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    model, opt, sched = build_trainer(cfg, device.type, num_training_steps=PAR_STEPS,
+                                      params=params)
+    if plant is not None:
+        plant(model, opt)
+    local = to_device(stage(batch), device)
+    hist, wall, per_step = [], [], []
+    for _ in range(PAR_STEPS):
+        before = launches_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist.append(train_step(model, opt, sched, local, clip=float(cfg.clip)))
+        wall.append(1e3 * (time.perf_counter() - t0))  # train_step ends in a sync
+        per_step.append({k: v - before[k] for k, v in launches_now().items()})
+    peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else None
+    whole = opt.model_state_dict() if hasattr(opt, "model_state_dict") else model.state_dict()
+    return {"metrics": hist, "wall_ms": wall, "launches": per_step,
+            "params": {k: v.detach().cpu() for k, v in whole.items()},
+            "peak_mib": peak, "opt_mib": optimizer_state_bytes(getattr(opt, "inner", opt)) / 2**20}
+
+
+def skip_out_reduce(model, opt) -> None:
+    """Phase 14 (b)'s planted fault on rank 1: block 0's row-parallel
+    output keeps its own partial.  The collective still runs, forward and
+    backward (its result enters at weight 0), so that rank 0 gets the
+    true sum and the ranks' collectives stay in step."""
+    attn = model.layers[0].attn
+    real = attn.reduce_out
+
+    def faulty(out):
+        summed = real(out)
+        if dist.get_rank() != 1:
+            return summed
+        mine = out.float()
+        mine = coll.chunk(mine, attn.model_group, 1) if attn.seq_shard else mine
+        return summed * 0 + mine
+
+    attn.reduce_out = faulty
+
+
+def unscaled_grads(model, opt) -> None:
+    """Phase 14 (b)'s planted fault on a data axis: the gradient summed
+    over ``data``, not averaged (the 1 / data of ``reduce_gradients``
+    dropped)."""
+    real = opt.reduce_gradients
+
+    def faulty():
+        real()
+        for g in opt.gradients():
+            g.mul_(opt.mesh.data)
+
+    opt.reduce_gradients = faulty
+
+
+PLANTS = {"none_gather": lambda m, o: setattr(m.loss, "backprop", coll.BackpropType.NONE),
+          "skip_out_reduce": skip_out_reduce, "unscaled_grads": unscaled_grads, None: None}
+
+
+def probe_collectives(device) -> dict:
+    """Which collectives the process group's backend accepts on
+    ``device``'s tensors, at two ranks: per collective "ok" (right
+    values) or the first line of its error.  The port chooses its
+    collectives by backend, not from this; phase 14 (b) prints it."""
+    r = dist.get_rank()
+    x, o = torch.full((2,), r + 1.0, device=device), torch.zeros(4, device=device)
+
+    def fsdp2():
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard
+
+        lin = fully_shard(torch.nn.Linear(4, 4, device=device),
+                          mesh=init_device_mesh(device.type, (2,)))
+        lin(torch.ones(2, 4, device=device)).sum().backward()
+        return lin.weight.grad is not None
+
+    checks = {
+        "all_gather_into_tensor": lambda: (dist.all_gather_into_tensor(o, x), o.tolist())[1]
+        == [1, 1, 2, 2],
+        "reduce_scatter_tensor": lambda: (dist.reduce_scatter_tensor(o[:2], torch.cat([x, 2 * x])),
+                                          o[:2].tolist())[1] == [3 * (r + 1)] * 2,
+        "all_reduce": lambda: (dist.all_reduce(o[2:].copy_(x)), o[2:].tolist())[1] == [3, 3],
+        "broadcast": lambda: (dist.broadcast(o[2:].copy_(x), 0), o[2:].tolist())[1] == [1, 1],
+        "fully_shard": fsdp2,
+    }
+    res = {}
+    for name, fn in checks.items():
+        try:
+            res[name] = "ok" if fn() else "wrong values"
+        except Exception as e:  # noqa: BLE001 - the refusal is the reading
+            res[name] = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:160]}"
+    return res
+
+
+def parallel_rank(job_path: str) -> None:
+    """One rank of :func:`check_layouts` (``python3 chip_smoke.py
+    --parallel-rank job.json``, started by ``mca_tpu_torch.parallel.launch``):
+    each run of the job on ``MCA_DIST_BACKEND``, through :func:`par_steps`;
+    the heads of every K1 and K2 launch are recorded; rank 0 writes the
+    results."""
+    job = json.loads(Path(job_path).read_text())
+    device = torch.device(job["device"])
+    init_multihost(device=device.type)  # MCA_DIST_BACKEND: launch_ranks sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash.default_bwd_impl = "fused"
+    heads = {"fwd": [], "bwd": []}
+    real_forward, real_bwd = flash._forward, flash.flash_bwd
+
+    def forward(q, *a):
+        heads["fwd"].append(int(q.shape[1]))
+        return real_forward(q, *a)
+
+    def bwd(q, *a):
+        heads["bwd"].append(int(q.shape[1]))
+        return real_bwd(q, *a)
+
+    flash._forward, flash.flash_bwd = forward, bwd
+    inputs = torch.load(job["inputs"], weights_only=False)
+    config = training_config(job["config"])
+    out = {}
+    for run in job["runs"]:
+        cfg = par_config(config, **run["mesh"])
+        mesh = training_mesh(cfg, device)
+        heads["fwd"].clear(), heads["bwd"].clear()
+        res = par_steps(cfg, device, inputs["params"], inputs["batch"],
+                        make_stager(mesh, int(cfg.batch_size)), PLANTS[run.get("fault")])
+        res["heads"] = {k: sorted(set(v)) for k, v in heads.items()}
+        res["params"] = flat_params(res["params"])
+        all_res = [None] * dist.get_world_size()
+        dist.all_gather_object(all_res, {k: res[k] for k in ("launches", "heads", "wall_ms",
+                                                             "peak_mib", "opt_mib")})
+        res["ranks"] = all_res
+        out[run["name"]] = res
+    if job.get("probe"):  # after the runs, which it cannot then disturb
+        out["probe"] = probe_collectives(device)
+    if dist.get_rank() == 0:
+        torch.save(out, job["out"])
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def infer_rank(cfg_path: str, counts_path: str, device: str) -> None:
+    """One rank of phase 14 (c): ``python -m mca_tpu_torch.infer``'s
+    ``main`` on ``PAR_INFER_ROWS`` synthetic rows; each rank writes its
+    launch counts."""
+    reset_launches()
+    infer_lib.main([cfg_path, "--synthetic", str(PAR_INFER_ROWS), "--device", device])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    Path(f"{counts_path}.rank{rank}").write_text(json.dumps(launches_now()))
+
+
+def launch_ranks(argv: list, log_dir: Path, world: int = 2, backend: str = "gloo") -> None:
+    """``world`` ranks of ``argv`` over ``backend`` (rank r on card r
+    modulo the cards there are), ended together if one fails or they
+    outlive ``PAR_TIMEOUT``."""
+    try:
+        launch_lib.launch(argv, world, timeout=PAR_TIMEOUT, log_dir=str(log_dir),
+                          env={"MCA_DIST_BACKEND": backend, "PYTHONPATH": str(ROOT)})
+    except launch_lib.LaunchError as e:
+        raise AssertionError(f"phase 14: {e}") from None
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_layouts(cfg, device, card: str, params, batch, tmp: Path, world: int, backend: str,
+                  layouts: dict, faults: dict, label: str) -> dict:
+    """``world`` ranks over ``backend`` (started by
+    :func:`launch_ranks`), each layout of ``layouts`` and, for each, its
+    planted faults of ``faults``, PAR_STEPS steps from ``params`` on
+    ``batch``, held to the same steps unsharded in this process on the
+    fused route: K1 and K2 once a block and step on every rank, at the
+    heads the model axis leaves; per-step total_loss, grad_norm and
+    param_norm and the final parameters' update within PAR_BOUNDS, and
+    each fault past the bound of its gate (FAULT_GATES).  Prints each
+    rank's peak device memory and optimizer state, and over gloo which
+    collectives it accepts.  Returns the launches of the layouts' runs,
+    summed over the ranks."""
+    n = int(cfg.layers)
+    ref = par_steps(cfg, device, params, batch)
+    init_flat = flat_params(params)
+    ref_update = flat_params(ref["params"]) - init_flat
+    torch.save({"params": params, "batch": batch}, tmp / "par_inputs.pt")
+    runs = [{"name": name if fault is None else f"{name}+{fault}", "mesh": mesh, "fault": fault}
+            for name, mesh in layouts.items() for fault in [None, *faults[name]]]
+    job = {"config": str(CONFIG), "device": device.type, "inputs": str(tmp / "par_inputs.pt"),
+           "out": str(tmp / "par_out.pt"), "runs": runs, "probe": backend == "gloo"}
+    (tmp / "par_job.json").write_text(json.dumps(job))
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+                  str(tmp / "par_job.json")], tmp / "par_logs", world, backend)
+    launch_s = time.perf_counter() - t0
+    out = torch.load(tmp / "par_out.pt", weights_only=False)
+
+    def gaps(res) -> dict:
+        per_step = {k: max(abs(m[k] - w[k]) / abs(w[k])
+                           for m, w in zip(res["metrics"], ref["metrics"]))
+                    for k in ("total_loss", "grad_norm", "param_norm")}
+        return {"loss": per_step["total_loss"], "grad_norm": per_step["grad_norm"],
+                "param_norm": per_step["param_norm"],
+                "update": rel_l2(res["params"] - init_flat, ref_update)}
+
+    def show(g: dict) -> str:
+        return ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+
+    def mib(x) -> str:
+        return "not measured" if x is None else f"{x:.1f}"
+
+    counts = dict.fromkeys(launches_now(), 0)
+    for name, mesh in layouts.items():
+        res = out[name]
+        want_heads = [int(cfg.heads) // int(mesh.get("mesh_model", 1))]
+        for r, rank in enumerate(res["ranks"]):
+            for c in rank["launches"]:
+                assert c == {**dict.fromkeys(c, 0), "flash_fwd": n, "flash_bwd": n}, (name, r, c)
+            assert rank["heads"] == {"fwd": want_heads, "bwd": want_heads}, (name, r, rank["heads"])
+            for k in counts:
+                counts[k] += sum(c[k] for c in rank["launches"])
+        held = gaps(res)
+        planted = {f: gaps(out[f"{name}+{f}"]) for f in faults[name]}
+        walls = "; ".join(f"rank {r} " + ", ".join(f"{x:.3f}" for x in rank["wall_ms"])
+                          for r, rank in enumerate(res["ranks"]))
+        memory = "; ".join(f"rank {r} peak {mib(rank['peak_mib'])}, optimizer state "
+                           f"{rank['opt_mib']:.1f}" for r, rank in enumerate(res["ranks"]))
+        print(
+            f"{label} {name} ({mesh}): {world} ranks over {backend} against the unsharded steps "
+            f"(fused backward): largest per-step gap {show(held)} (bounds "
+            f"{show(PAR_BOUNDS)}); "
+            + "".join(f"planted {f} ({FAULT_GATES[f]} must fail): {show(g)}; "
+                      for f, g in planted.items())
+            + f"K1 {n} + K2 {n} a step on each rank at H {want_heads[0]}; wall ms a step {walls}; "
+            f"unsharded {', '.join(f'{x:.3f}' for x in ref['wall_ms'])}; MiB {memory} "
+            f"(unsharded peak {mib(ref['peak_mib'])}, optimizer state {ref['opt_mib']:.1f})",
+            flush=True,
+        )
+        for gate, bound in PAR_BOUNDS.items():
+            assert held[gate] <= bound, (name, gate, held[gate])
+        for f, g in planted.items():
+            assert g[FAULT_GATES[f]] > PAR_BOUNDS[FAULT_GATES[f]], (name, f, g)
+    if "probe" in out:
+        print(f"{label}: {backend} on {device.type} tensors, two ranks: {out['probe']}", flush=True)
+    print(f"{label}: the launch took {launch_s:.1f} s; {host_description()}; {card}", flush=True)
+    return counts
+
+
+def par_inputs(config) -> tuple:
+    """Phase 14's configuration, seed-0 weights and one collated batch of
+    ``synthetic_rows``."""
+    cfg = par_config(config)
+    batch = MultimodalCollator(cfg.modality_config.to_plain())(
+        synthetic_rows(cfg, int(cfg.batch_size)))
+    return cfg, {k: v.clone() for k, v in seed_model(cfg).state_dict().items()}, batch
+
+
+def parallel_cards(world: int) -> int:
+    """``python3 chip_smoke.py --parallel-cards N``: phase 14 (b)'s check
+    over NCCL on N cards of one host, one rank a card: DP + FSDP over all
+    N, and ``configs/tcga_parallel.yaml``'s layout (data N / 2 x model 2,
+    fsdp, seq_shard), each with its planted fault, against the unsharded
+    steps on card 0.  Not part of the one-card run."""
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: --parallel-cards {world} needs {world} CUDA devices, "
+              f"found {torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print("\n".join(card), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    cfg, params, batch = par_inputs(training_config(str(CONFIG)))
+    layouts = {"dp_fsdp": {"mesh_data": world, "fsdp": True},
+               "tcga_parallel": {"mesh_data": world // 2, "mesh_model": 2, "fsdp": True,
+                                 "seq_shard": True}}
+    faults = {"dp_fsdp": ["none_gather", "unscaled_grads"], "tcga_parallel": ["skip_out_reduce"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
+        counts = check_layouts(cfg, torch.device("cuda"), card[0], params, batch, Path(tmp),
+                               world, "nccl", layouts, faults, f"{world} cards")
+    print(json.dumps({"launches": counts}), flush=True)
+    return 0
+
+
+def check_parallel(device, card: str, tmp: Path) -> dict:
+    """Phase 14, data and tensor parallelism (module docstring); returns
+    the launches of its main paths."""
+    config = training_config(str(CONFIG))
+    cfg, params, batch = par_inputs(config)
+    bs = int(cfg.batch_size)
+    counts = dict.fromkeys(launches_now(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    # (a) NCCL, world 1, on the split (deterministic) backward
+    old_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    flash.default_bwd_impl = "split"
+    env = {"MCA_MULTIHOST": "auto", "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    try:
+        alone = par_steps(cfg, device, params, batch)
+        with mock.patch.dict(os.environ, env):
+            assert init_multihost(device=device.type)
+        backend = {"cuda": "nccl", "cpu": "gloo"}[device.type]
+        assert dist.get_backend() == backend and dist.get_world_size() == 1
+        cfg_a = par_config(config, mesh_data=0, fsdp=True)
+        reset_launches()
+        grouped = par_steps(cfg_a, device, params, batch)
+        add(launches_now())
+        model = build_trainer(cfg_a, device.type, params=grouped["params"])[0]
+        Checkpointer().save_state({"model": model.state_dict(), "step": PAR_STEPS, "epoch": 0},
+                                  str(tmp / "a"))
+        del model
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        flash.default_bwd_impl = "fused"
+        if old_cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cublas
+    n = int(cfg.layers)
+    for c in grouped["launches"]:
+        assert c == {**dict.fromkeys(c, 0), "flash_fwd": n, "flash_bwd_dq": n,
+                     "flash_bwd_dkv": n}, c
+    a_losses = [m["total_loss"] for m in grouped["metrics"]]
+    assert a_losses == [m["total_loss"] for m in alone["metrics"]], (a_losses, alone["metrics"])
+    for k, v in alone["params"].items():
+        assert torch.equal(v, grouped["params"][k]), f"phase 14 (a): {k} differs"
+    svc = EmbeddingService(cfg, restart=str(tmp / "a"), device=device, max_batch=bs)
+    reset_launches()
+    served = svc.embed(request_rows(cfg, bs))
+    add(launches_now())
+    assert (flash.launches, ff.launches) == (n, n), (flash.launches, ff.launches)
+    assert all(np.isfinite(e).all() for e in served["embeddings"].values())
+    del svc
+    print(
+        f"phase 14 (a): 3 steps through init_multihost ({backend}, world 1, mesh_data 0, fsdp) "
+        f"bitwise equal to the same steps without a process group (split backward): "
+        f"total_loss {a_losses}; K1 {n} + K3a {n} + K3b {n} a step; serve --restart of its "
+        f"checkpoint: one batch of {bs}, K1 {n} + K5 {n}; wall ms a step "
+        f"{', '.join(f'{x:.3f}' for x in grouped['wall_ms'])} (without a group "
+        f"{', '.join(f'{x:.3f}' for x in alone['wall_ms'])}); {card}",
+        flush=True,
+    )
+
+    # (b) two ranks on the one card over gloo, against the unsharded steps
+    add(check_layouts(cfg, device, card, params, batch, tmp, 2, "gloo", PAR_LAYOUTS,
+                      PAR_FAULTS, "phase 14 (b)"))
+
+    # (c) infer at 2 ranks against 1, from (a)'s checkpoint
+    base = load_yaml(str(CONFIG))
+    files = {}
+    for world in (1, 2):
+        out_dir = tmp / f"infer{world}"
+        path = tmp / f"infer{world}.yaml"
+        path.write_text(yaml.safe_dump({**base, "restart": str(tmp / "a"), "split": RUN_SPLIT,
+                                        "output_dir": str(out_dir), "mesh_data": world},
+                                       sort_keys=False))  # the modalities' order is the model's
+        if world == 1:
+            reset_launches()
+            infer_lib.main([str(path), "--synthetic", str(PAR_INFER_ROWS), "--device",
+                            device.type])
+            one_counts = launches_now()
+        else:
+            launch_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--infer-rank", str(path),
+                          str(tmp / "infer_counts"), device.type], tmp / "infer_logs")
+            for r in range(2):
+                rank_counts = json.loads(Path(f"{tmp / 'infer_counts'}.rank{r}").read_text())
+                assert rank_counts == one_counts, (r, rank_counts, one_counts)
+                add(rank_counts)
+        files[world] = read_eval_files(out_dir)
+    assert one_counts["flash_fwd"] == one_counts["geglu_ff"] > 0, one_counts
+    gap = 0.0
+    for split in ("train", "eval"):
+        emb = [files[w][f"{split}_embeddings"] for w in (1, 2)]
+        msk = [files[w][f"{split}_masks"] for w in (1, 2)]
+        assert emb[0].keys() == emb[1].keys() and msk[0].keys() == msk[1].keys(), split
+        for k in msk[0]:
+            assert np.array_equal(msk[0][k], msk[1][k]), (split, k)
+        assert np.array_equal(files[1][f"{split}_labels"], files[2][f"{split}_labels"]), split
+        for k in emb[0]:
+            gap = max(gap, float(np.abs(emb[0][k] - emb[1][k]).max()))
+    assert gap <= AGREE_ATOL, gap
+    print(
+        f"phase 14 (c): infer at 2 ranks (gloo, {PAR_INFER_ROWS} rows) against 1 from (a)'s "
+        f"checkpoint: keys, masks, labels and row order equal, embeddings at most {gap:.3e} "
+        f"apart (bound {AGREE_ATOL}); world-1 launches {one_counts}",
+        flush=True,
+    )
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2989,11 +3510,15 @@ def main() -> int:
         moe_counts = check_moe(device, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
         quant_counts = check_quant_aot(config, device, card, Path(tmp))
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        par_counts = check_parallel(device, card, Path(tmp))
+    print(f"parallel slice: {time.perf_counter() - t14:.1f} s", flush=True)
     t7 = time.perf_counter()
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
-    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts):
+    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts, par_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:
@@ -3011,4 +3536,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--infer-rank"]:
+        sys.exit(infer_rank(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--parallel-cards"]:
+        sys.exit(parallel_cards(int(sys.argv[2])))
     sys.exit(main())

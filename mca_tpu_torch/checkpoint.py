@@ -15,7 +15,12 @@ orbax's:
 
 State dicts carry the torch reference's key names, which are the
 port's module names.  Every file is written to a temporary name and
-renamed, so a reader never sees half a checkpoint.
+renamed, so a reader never sees half a checkpoint.  A run on several
+ranks gathers the whole state first (tensor-parallel leaves over
+``model``, FSDP shards and moments over ``data``:
+:class:`mca_tpu_torch.parallel.sharding.ShardedOptimizer`) and rank 0
+writes it, in this same format, so a checkpoint restarts, serves and
+infers at any world size.
 """
 
 from __future__ import annotations

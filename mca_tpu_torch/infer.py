@@ -26,11 +26,20 @@ each split ends in one copy to the host.
 
 ``steps_per_call`` batches K forwards into one ``lax.scan`` launch in
 the JAX package and changes no result; eager PyTorch has no such
-launch, so the key is accepted and has no effect here.  The multi-host
-gather comes with the parallelism slice: ``mesh_data > 1`` or
-``mesh_model > 1`` raises before anything is read.  The entry point runs on
-``cuda`` and raises without one; pass ``--device cpu`` for the plain
-versions of the kernels.
+launch, so the key is accepted and has no effect here.
+
+Several ranks (the CLI joins them with ``init_multihost``; an explicit
+``output_dir`` is required) split each global batch over the
+``mesh_data`` axis: each rank embeds its rows, the model gathers the
+pooled tokens and masks over ``data`` (so the logged loss is the global
+batch's, as in the JAX package), and rank 0 writes the files a single
+process writes, the same keys and row order.  ``mesh_model > 1`` runs
+the replicated forward on each rank of a model group (the numerically
+identical path the JAX ``infer`` takes, whose model sees no mesh);
+``seq_shard`` and ``mesh_pipe`` are ignored, as there.  A mesh larger
+than the world raises ``ValueError`` before anything is read.  The entry
+point runs on ``cuda`` and raises without one; pass ``--device cpu`` for
+the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -49,8 +58,10 @@ from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.models import build_model
-from mca_tpu_torch.train import (check_mesh_keys, plain, require_device, synthetic_rows,
-                                 to_device)
+from mca_tpu_torch.parallel.mesh import SINGLE, Mesh, make_mesh
+from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
+                                              require_output_dir)
+from mca_tpu_torch.train import plain, require_device, synthetic_rows, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -107,21 +118,24 @@ def split_output_keys(out: Mapping[str, Any]) -> Tuple[List[str], List[str]]:
     return emb_keys, sorted(out["modality_sample_mask"])
 
 
-def build_inference_model(config, device: str = "cuda"):
+def build_inference_model(config, device: str = "cuda", mesh: Mesh = SINGLE):
     """The config's model with the fused feed-forward and the parameters
-    of ``config.restart``, in ``eval()`` on ``device``."""
+    of ``config.restart``, in ``eval()`` on ``device``; on a mesh with a
+    data axis above 1 it gathers its outputs over ``data``."""
     if not config.restart:
         raise ValueError("inference needs restart: a checkpoint or model directory")
     dev = require_device(device)
-    model = build_model(get_model_config(config), fused_ff=True)
+    model = build_model(dict(get_model_config(config), data_group=mesh.data_group),
+                        fused_ff=True)
     model.load_state_dict(checkpoint.load_params(config.restart), strict=True)
     return model.to(dev).eval()
 
 
-def infer_split(model, loader, label_col: str,
-                device) -> Tuple[Dict, Dict, np.ndarray, List[float]]:
+def infer_split(model, loader, label_col: str, device,
+                stage=lambda batch: batch) -> Tuple[Dict, Dict, np.ndarray, List[float]]:
     """One split through ``model``: ``(embeddings, masks, labels, per-batch
-    losses)`` on the host, keyed as the files are."""
+    losses)`` on the host, keyed as the files are.  ``stage`` keeps this
+    rank's rows of each global batch (the model gathers the outputs)."""
     emb_keys = mask_keys = label_field = None
     packed, labels, bsz, dim = [], [], 0, 0
     with torch.inference_mode():
@@ -134,7 +148,7 @@ def infer_split(model, loader, label_col: str,
                 next(iter(batch_labels)),
             )
             labels.append(np.asarray(batch_labels[label_field]))
-            out = model(to_device(batch, device), no_loss=False)
+            out = model(to_device(stage(batch), device), no_loss=False)
             if emb_keys is None:
                 emb_keys, mask_keys = split_output_keys(out)
                 bsz, dim = out[emb_keys[0]].shape
@@ -163,15 +177,18 @@ def infer(config, device: str = "cuda", rows: Optional[Sequence[Dict[str, Any]]]
     docstring); returns ``output_dir``.  ``rows``: row dicts held in
     memory in place of ``dataset:``, split as the HF split would split
     them."""
-    check_mesh_keys(config)
+    dev = require_device(device)
+    mesh = make_mesh(config.get("mesh_data", 0), config.get("mesh_model", 1),
+                     batch_size=int(config.batch_size), device=dev.type)
     if not config.output_dir:
         raise ValueError("output_dir is empty: set it, or load the config with "
                          "training_config(..., make_output_dir=True)")
     if rows is None and not config.dataset:
         raise ValueError("no data: set dataset: to a save_to_disk directory, or pass rows")
-    model = build_inference_model(config, device)
-    dev = next(model.parameters()).device
-    os.makedirs(config.output_dir, exist_ok=True)
+    model = build_inference_model(config, device, mesh)
+    stage = make_stager(mesh, int(config.batch_size))
+    if is_primary():
+        os.makedirs(config.output_dir, exist_ok=True)
     mc = plain(config.modality_config)
     data = setup_data(
         config.dataset if rows is None else rows,
@@ -184,9 +201,12 @@ def infer(config, device: str = "cuda", rows: Optional[Sequence[Dict[str, Any]]]
     for split, part in (("train", data["train"]), ("eval", data["test"])):
         loader = BatchedLoader(part, collator, int(config.batch_size),
                                preload=preload, prefetch=prefetch)
-        embeddings, masks, labels, losses = infer_split(model, loader, config.label_col, dev)
+        embeddings, masks, labels, losses = infer_split(model, loader, config.label_col, dev,
+                                                        stage)
         logger.info("%s split: %d batches, mean loss %.4f", split, len(losses),
                     float(np.mean(losses)))
+        if not is_primary():
+            continue
         stem = os.path.join(config.output_dir, split)
         _save(masks, f"{stem}_masks")
         _save(embeddings, f"{stem}_embeddings")
@@ -195,7 +215,7 @@ def infer(config, device: str = "cuda", rows: Optional[Sequence[Dict[str, Any]]]
 
 
 def main(argv=None) -> None:
-    from mca_tpu_torch.config import training_config
+    from mca_tpu_torch.config import load_yaml, training_config
 
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description=__doc__,
@@ -207,7 +227,10 @@ def main(argv=None) -> None:
                         "instead of dataset:")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
-    config = training_config(args.config, make_output_dir=True)
+    # an env-gated no-op on one process; several ranks need one output_dir
+    init_multihost(device=args.device)
+    require_output_dir(load_yaml(args.config))
+    config = training_config(args.config, make_output_dir=is_primary())
     rows = synthetic_rows(config, args.synthetic, seed=int(config.seed)) if args.synthetic else None
     infer(config, device=args.device, rows=rows)
 

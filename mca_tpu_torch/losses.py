@@ -13,9 +13,15 @@
   aggregates ``fcl_loss``, ``no-fcl_loss`` and ``loss``.  One shared
   temperature (``loss.loss_fn.logit_scale`` in the state dict).
 
-Single process: the JAX package's ``axis_name`` all-gather comes with
-the parallelism slice.  Per-pair temperatures
-(``separate_modal_loss_fns``) are not ported yet and raise.
+Over a ``data_group`` of several ranks (:meth:`MCAPretrainingLoss.gather`)
+the pooled tokens and the modality masks are all-gathered before the
+loss, with ``GLOBAL`` backprop by default (``backprop``,
+:class:`mca_tpu_torch.parallel.collectives.BackpropType`): every rank then
+computes the loss of the global batch, whose masked row means divide by
+the global count of live rows; that is the JAX package's semantics (the
+loss written on the global batch), not the reference's per-rank labels.
+Per-pair temperatures (``separate_modal_loss_fns``) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Dict, FrozenSet, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from mca_tpu_torch.parallel.collectives import BackpropType, gather_masks, gather_tensor
 
 LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
 LOGIT_SCALE_MIN = math.log(1.0)
@@ -92,6 +100,7 @@ class MCAPretrainingLoss(nn.Module):
         bimodal_contrastive: bool = False,
         non_fusion_fcl: bool = False,
         separate_modal_loss_fns: bool = False,
+        data_group=None,
     ):
         super().__init__()
         if separate_modal_loss_fns:
@@ -106,6 +115,17 @@ class MCAPretrainingLoss(nn.Module):
         self.bimodal_contrastive = bimodal_contrastive
         self.non_fusion_fcl = non_fusion_fcl
         self.loss_fn = _LossFn()
+        self.data_group = data_group
+        self.backprop = BackpropType.GLOBAL
+
+    def gather(self, pooled_tokens: torch.Tensor, sample_mask: Dict[str, torch.Tensor]):
+        """The global batch from this rank's rows: ``pooled_tokens`` and
+        ``sample_mask`` gathered over ``data_group`` in rank order (the
+        tokens with ``backprop``); as they are without a group."""
+        if self.data_group is None:
+            return pooled_tokens, sample_mask
+        return (gather_tensor(pooled_tokens, self.data_group, self.backprop),
+                gather_masks(sample_mask, self.data_group))
 
     def output_keys(self) -> Tuple[str, ...]:
         """The embedding keys :meth:`forward` returns, sorted."""

@@ -62,6 +62,8 @@ class EAO(nn.Module):
         remat: bool = False,
         group_channels: bool = False,
         fused_ff: bool = True,
+        data_group=None,
+        model_group=None,
     ):
         super().__init__()
         if not mean_pool:
@@ -95,6 +97,7 @@ class EAO(nn.Module):
                     attn_impl=attention_impl, quant=quant,
                     moe_experts=moe_experts,
                     moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
+                    model_group=model_group,
                 )
                 for _ in range(depth)
             ]
@@ -110,6 +113,7 @@ class EAO(nn.Module):
             no_fusion=no_fusion,
             bimodal_contrastive=bimodal_contrastive,
             non_fusion_fcl=non_fusion_fcl,
+            data_group=data_group,
         )
 
     def single_pass(self, tokens: torch.Tensor, padding: torch.Tensor) -> torch.Tensor:
@@ -156,7 +160,8 @@ class EAO(nn.Module):
                 pooled = self.single_pass(torch.cat(toks), torch.cat(pad))
                 for j, ci in enumerate(idxs):
                     per_channel[ci] = pooled[j * bsz : (j + 1) * bsz]
-        outputs = self.loss(torch.cat(per_channel, dim=1), sample_mask, no_loss=no_loss)
+        pooled, sample_mask = self.loss.gather(torch.cat(per_channel, dim=1), sample_mask)
+        outputs = self.loss(pooled, sample_mask, no_loss=no_loss)
         outputs["modality_sample_mask"] = sample_mask
         return outputs
 

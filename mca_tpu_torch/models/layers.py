@@ -13,7 +13,12 @@
 - :class:`Attention` — MHA with a fused ``to_kv`` projection (k the
   first half), cross-attention through ``context`` (the attentive
   pool), and the static / dynamic mask pair; int8 projections with
-  ``quant="int8"``.
+  ``quant="int8"``.  With a ``model_group`` of several ranks it is
+  tensor-parallel by heads (:mod:`mca_tpu_torch.parallel.sharding`):
+  the rank holds ``heads / model`` heads, its input passes Megatron's
+  ``copy_to_model`` (or, under ``seq_shard``, the all-gather of the
+  sequence shards) and its output projection's partials are summed in
+  fp32 by ``reduce_from_model`` (or reduce-scattered back to shards).
 - :class:`MCALayer` — one shared norm, residuals around the *normed*
   activations: ``x = norm(x); x = attn(x) + x; x = norm(x);
   x = ff(x) + x``; with ``moe_experts > 0`` the feed-forward is
@@ -40,6 +45,7 @@ from mca_tpu_torch.models.moe import MoEFeedForward
 from mca_tpu_torch.ops.attention import masked_attention
 from mca_tpu_torch.ops.fused_ff import geglu_ff, prepare_geglu_weights
 from mca_tpu_torch.ops.quant import QUANT_MODES, QuantLinear
+from mca_tpu_torch.parallel import collectives as coll
 
 
 class LayerNorm(nn.Module):
@@ -153,10 +159,16 @@ class Attention(nn.Module):
         dtype: torch.dtype = torch.float32,
         impl: str = "dense",
         quant: str = "none",
+        model_group=None,
+        seq_shard: bool = False,
     ):
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+        m = coll.group_size(model_group)
+        if heads % m:
+            raise ValueError(f"heads={heads} do not split over mesh_model={m}")
+        heads //= m
         inner = dim_head * heads
         if quant == "int8":
             self.to_q = QuantLinear(dim, inner, dtype)
@@ -170,6 +182,15 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.dtype = dtype
         self.impl = impl
+        self.model_group = model_group if m > 1 else None
+        self.seq_shard = bool(seq_shard) and self.model_group is not None
+
+    def reduce_out(self, out: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of the row-parallel output's partials,
+        in fp32 (this rank's sequence shard of it under ``seq_shard``)."""
+        if self.seq_shard:
+            return coll.reduce_scatter_seq(out.float(), self.model_group)
+        return coll.reduce_from_model(out.float(), self.model_group)
 
     def _linear(self, x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
         if self.quant == "int8":
@@ -182,6 +203,9 @@ class Attention(nn.Module):
         attn_mask=None,
         key_padding_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        if self.model_group is not None:
+            x = (coll.gather_seq(x, self.model_group) if self.seq_shard
+                 else coll.copy_to_model(x, self.model_group))
         kv_x = x if context is None else context
         x = x.to(self.dtype)
         kv_x = kv_x.to(self.dtype)
@@ -207,7 +231,8 @@ class Attention(nn.Module):
         )
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
-        return self._linear(out, self.to_out)
+        out = self._linear(out, self.to_out)
+        return out if self.model_group is None else self.reduce_out(out)
 
 
 class MCALayer(nn.Module):
@@ -225,6 +250,8 @@ class MCALayer(nn.Module):
         moe_experts: int = 0,
         moe_capacity_factor: float = 2.0,
         fused_ff: bool = True,
+        model_group=None,
+        seq_shard: bool = False,
     ):
         super().__init__()
         self.moe = int(moe_experts) > 0
@@ -233,9 +260,14 @@ class MCALayer(nn.Module):
                 "int8 quantization covers the dense projections only; "
                 "moe_experts requires quant='none'"
             )
+        if self.moe and coll.group_size(model_group) > 1:
+            raise NotImplementedError(
+                "moe_experts with mesh_model > 1: expert parallelism is not "
+                "ported yet (ROADMAP.md Queue A item 9, the next parallelism slice)"
+            )
         self.attn = Attention(
             dim, dim_head=dim_head, heads=heads, dtype=dtype,
-            impl=attn_impl, quant=quant,
+            impl=attn_impl, quant=quant, model_group=model_group, seq_shard=seq_shard,
         )
         if self.moe:
             self.ff = MoEFeedForward(

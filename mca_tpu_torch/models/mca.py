@@ -36,7 +36,16 @@ instead of keeping its activations.
 (:mod:`mca_tpu_torch.ops.quant`, serving only); the attentive pool
 stays float.
 
-Not ported yet (it raises): pipeline / sequence parallelism.
+``data_group`` / ``model_group`` (the training run's mesh,
+:mod:`mca_tpu_torch.parallel`): over ``data`` the pooled tokens and the
+modality masks are gathered before the loss, so that every rank computes
+the loss of the global batch (:meth:`MCAPretrainingLoss.gather`); over
+``model`` the blocks' attention is tensor-parallel by heads, and with
+``seq_shard`` the residual stream between blocks is this rank's
+``T / model`` tokens.  Without groups (``infer``, ``serve``, export, one
+process) ``seq_shard`` and ``pipeline_stages`` are ignored, as in the JAX
+package, whose consumers without a mesh run the sequential stack; GPipe
+pipelining over a mesh is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from mca_tpu_torch.encoders import build_encoder
 from mca_tpu_torch.losses import LOGIT_SCALE_INIT, MCAPretrainingLoss
 from mca_tpu_torch.models.layers import Attention, LayerNorm, MCALayer
 from mca_tpu_torch.models.pool import MeanTokenProjectionPool
+from mca_tpu_torch.parallel import collectives as coll
 
 
 def dtype_of(precision: str) -> torch.dtype:
@@ -86,6 +96,8 @@ class MCA(nn.Module):
         moe_capacity_factor: float = 2.0,
         remat: bool = False,
         fused_ff: bool = True,
+        data_group=None,
+        model_group=None,
     ):
         super().__init__()
         if mean_pool and fcl and not zorro:
@@ -95,11 +107,16 @@ class MCA(nn.Module):
                 "mean_pool is incompatible with fusion-channel pooling "
                 "(fcl); use zorro or attentive pooling"
             )
-        if int(pipeline_stages or 0) > 1 or seq_shard:
+        meshed = data_group is not None or model_group is not None
+        if int(pipeline_stages or 0) > 1 and meshed:
             raise NotImplementedError(
-                "pipeline / sequence parallelism come with the "
-                "parallelism slice"
+                f"pipeline_stages={pipeline_stages}: GPipe pipelining over the mesh "
+                "is not ported yet (ROADMAP.md Queue A item 9, the next "
+                "parallelism slice)"
             )
+        # the residual stream is sharded over model only where the
+        # attention is (a mesh of one model rank runs the plain stack)
+        self.seq_group = model_group if seq_shard and coll.group_size(model_group) > 1 else None
         self.modality_types = tuple(encoder_configs.keys())
         token_dims = [
             int(encoder_configs[m]["max_tokens"]) for m in self.modality_types
@@ -128,6 +145,7 @@ class MCA(nn.Module):
                     attn_impl=attention_impl, quant=quant,
                     moe_experts=moe_experts,
                     moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
+                    model_group=model_group, seq_shard=self.seq_group is not None,
                 )
                 for _ in range(depth)
             ]
@@ -163,6 +181,7 @@ class MCA(nn.Module):
             no_fusion=no_fusion,
             bimodal_contrastive=bimodal_contrastive,
             non_fusion_fcl=non_fusion_fcl,
+            data_group=data_group,
         )
 
     def forward(
@@ -195,11 +214,15 @@ class MCA(nn.Module):
         padding = torch.cat(pad_masks, dim=1)
 
         attn_mask = self.mask_set.attn_mask
+        if self.seq_group is not None:
+            x = coll.split_seq(x, self.seq_group)
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, attn_mask, padding, use_reentrant=False)
             else:
                 x = layer(x, attn_mask, padding)
+        if self.seq_group is not None:
+            x = coll.gather_seq_out(x, self.seq_group)
         x = self.norm(x.float())
 
         if self.mean_pool:
@@ -215,6 +238,7 @@ class MCA(nn.Module):
                 )
                 + ret
             )
+        pooled, sample_mask = self.loss.gather(pooled, sample_mask)
         outputs = self.loss(pooled, sample_mask, no_loss=no_loss)
         outputs["modality_sample_mask"] = sample_mask
         return outputs

@@ -42,13 +42,30 @@ first step whose ``total_loss`` or ``grad_norm`` is not finite;
 ``output_dir``, a ``preempted.json`` marker and :class:`PreemptedError`
 at the next step boundary (the CLI exits 75).
 
+Several ranks (:mod:`mca_tpu_torch.parallel`; the CLI joins them with
+``init_multihost``, from ``MCA_COORDINATOR`` / ``MCA_NUM_PROCESSES`` /
+``MCA_PROCESS_ID`` or ``torchrun``'s ``MCA_MULTIHOST=auto``) train on a
+``mesh_data x mesh_model`` mesh as the JAX package trains on its device
+mesh: every rank runs the same loader and keeps its block of each
+global batch; the contrastive loss is computed on the global batch
+(gathered over ``data``); the gradient is averaged over ``data``; the
+attention is tensor-parallel by heads over ``model``, with the residual
+stream sharded over ``model`` under ``seq_shard``; ``fsdp`` shards the
+master parameters and AdamW moments of the large leaves over ``data``
+(:class:`~mca_tpu_torch.parallel.sharding.ShardedOptimizer`).  The
+global norms, clipping and the logit-scale clamp see the whole set, so
+a step is the single-process step up to summation order.  Rank 0 writes
+the log and whole-state checkpoints (in the single-process format, so a
+run restarts at any world size); ``halt_on_nan`` and preemption stop
+every rank together.  Encoder dropout draws per data rank.
+
 ``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
 the JAX package dispatches XLA, not what is trained; they have no
-counterpart here and are ignored.  A ``trace_dir``, and a mesh of
-more than one device (``mesh_data`` or ``mesh_model`` above 1), raise
-``NotImplementedError``.  The entry point runs on
-``cuda`` and raises without one; pass ``--device cpu`` for the plain
-versions of the kernels.
+counterpart here and are ignored.  A ``trace_dir``, ``mesh_pipe > 1``
+(GPipe) and ``moe_experts`` with ``mesh_model > 1`` (expert parallelism)
+raise ``NotImplementedError``; a mesh larger than the world raises
+``ValueError``.  The entry point runs on ``cuda`` and raises without
+one; pass ``--device cpu`` for the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -75,7 +92,12 @@ from mca_tpu_torch.data.synthetic import make_cmu_like, make_tcga_like
 from mca_tpu_torch.eval_metrics import epoch_metrics
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
 from mca_tpu_torch.models import MCA, build_model
-from mca_tpu_torch.utils.logging import JSONLLogger, ThroughputMeter
+from mca_tpu_torch.parallel import collectives as coll
+from mca_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
+                                              require_output_dir)
+from mca_tpu_torch.parallel.sharding import ShardedOptimizer, shard_state_dict
+from mca_tpu_torch.utils.logging import JSONLLogger, NullLogger, ThroughputMeter
 
 logger = logging.getLogger(__name__)
 
@@ -113,20 +135,32 @@ _DEFAULT_PAD_TOKEN = -10000.0
 
 
 def check_mesh_keys(config) -> None:
-    """Refuse a device mesh larger than one device: ``mesh_data > 1`` or
-    ``mesh_model > 1`` raises ``NotImplementedError`` (the JAX package
-    builds its mesh from these keys; the port runs on one device until
-    the parallelism slice).  ``mesh_data: 0`` (auto) and ``1`` and
-    ``mesh_model: 1`` are accepted; so is ``fsdp``, a no-op on a data
-    axis of 1 in the JAX package."""
-    for key in ("mesh_data", "mesh_model"):
-        n = int(config.get(key, 1) or 0)
-        if n > 1:
-            raise NotImplementedError(
-                f"{key}={n}: the port runs on one device; data and model "
-                "parallelism come with the parallelism slice (ROADMAP "
-                "Queue A item 9)"
-            )
+    """Refuse the mesh options that are not ported yet, before anything
+    is read: ``mesh_pipe > 1`` (GPipe over the layer stack) and
+    ``moe_experts`` with ``mesh_model > 1`` (expert parallelism) raise
+    ``NotImplementedError``.  The mesh itself is :func:`training_mesh`."""
+    pipe = int(config.get("mesh_pipe", 1) or 1)
+    if pipe > 1:
+        raise NotImplementedError(
+            f"mesh_pipe={pipe}: GPipe pipelining over the layer stack "
+            "(mca_tpu/parallel/pipeline.py) is not ported yet (ROADMAP.md "
+            "Queue A item 9, the next parallelism slice)"
+        )
+    if int(config.get("moe_experts", 0) or 0) > 0 and int(config.get("mesh_model", 1) or 1) > 1:
+        raise NotImplementedError(
+            "moe_experts with mesh_model > 1: expert parallelism is not ported "
+            "yet (ROADMAP.md Queue A item 9, the next parallelism slice)"
+        )
+
+
+def training_mesh(config, device) -> Mesh:
+    """The ``mesh_data x mesh_model`` mesh over the process group's ranks
+    (:func:`mca_tpu_torch.parallel.mesh.make_mesh`, ``mesh_data: 0`` =
+    every rank the model axis leaves); one process gets the single mesh.
+    A mesh larger than the world raises ``ValueError``."""
+    return make_mesh(config.get("mesh_data", 0), config.get("mesh_model", 1),
+                     batch_size=int(config.batch_size), pipe=config.get("mesh_pipe", 1),
+                     device=torch.device(device).type)
 
 
 def check_training_keys(config) -> None:
@@ -135,7 +169,7 @@ def check_training_keys(config) -> None:
     ``moment_dtype`` other than fp32 or bf16 and a ``stage_dtype`` other
     than fp32, fp16 or bf16 raise ``ValueError``; a ``trace_dir`` (a
     profiler trace) and a mesh of more than one device
-    (:func:`check_mesh_keys`) are not ported and raise
+    option that is not ported yet (:func:`check_mesh_keys`) raise
     ``NotImplementedError``."""
     check_mesh_keys(config)
     n_accum = int(config.get("grad_accum", 1) or 1)
@@ -272,26 +306,35 @@ class AdamW(torch.optim.Optimizer):
                 st[k] = st[k].to(self.moment_dtype)
 
 
+def make_adamw(params, config) -> torch.optim.Optimizer:
+    """AdamW with the torch defaults the JAX package copies (weight decay
+    0.01 on every parameter; ``moment_dtype: bf16`` takes :class:`AdamW`)
+    over ``params``."""
+    kwargs = dict(lr=float(config.lr), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    if str(config.get("moment_dtype", "fp32")) == "bf16":
+        return AdamW(params, moment_dtype=torch.bfloat16, **kwargs)
+    return torch.optim.AdamW(params, **kwargs)
+
+
 def make_optimizer(
     model: torch.nn.Module, config, num_training_steps: int
 ):
-    """AdamW with the torch defaults the JAX package copies (weight decay
-    0.01 on every parameter; ``moment_dtype: bf16`` takes
-    :class:`AdamW`) and the HF schedule as a ``LambdaLR``:
-    ``schedule.get_last_lr()[0]`` is the rate of the next step."""
-    kwargs = dict(lr=float(config.lr), betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
-    if str(config.get("moment_dtype", "fp32")) == "bf16":
-        optimizer = AdamW(model.parameters(), moment_dtype=torch.bfloat16, **kwargs)
-    else:
-        optimizer = torch.optim.AdamW(model.parameters(), **kwargs)
-    schedule = torch.optim.lr_scheduler.LambdaLR(
+    """:func:`make_adamw` over the model's parameters and the HF schedule
+    as a ``LambdaLR``: ``schedule.get_last_lr()[0]`` is the rate of the
+    next step."""
+    optimizer = make_adamw(model.parameters(), config)
+    return optimizer, make_schedule(optimizer, config, num_training_steps)
+
+
+def make_schedule(optimizer: torch.optim.Optimizer, config, num_training_steps: int):
+    """The HF learning-rate schedule of ``config`` as a ``LambdaLR``."""
+    return torch.optim.lr_scheduler.LambdaLR(
         optimizer,
         hf_lr_factor(
             config.lr_scheduler_type, int(config.num_warmup_steps),
             num_training_steps,
         ),
     )
-    return optimizer, schedule
 
 
 def scalar_losses(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -403,14 +446,18 @@ def narrow_for_staging(batch, stage_dtype, sentinels=None):
     return out
 
 
-def dropout_generator(seed: int, step: int, micro: Optional[int], device) -> torch.Generator:
+def dropout_generator(seed: int, step: int, micro: Optional[int], device,
+                      rank: Optional[int] = None) -> torch.Generator:
     """The encoders' dropout generator for one step (and microbatch) on
     ``device``, seeded from ``(seed, step[, micro])`` as the JAX package
     folds ``step`` (then ``micro``) into its dropout key, so a restarted
-    run draws what the straight run drew."""
+    run draws what the straight run drew; a data rank's ``rank`` enters
+    too, so that the ranks' rows draw apart."""
     # micro None and micro 0 must differ: a SeedSequence ignores
     # trailing zero words, so the microbatch enters as micro + 1
     entropy = [int(seed) % 2**32, int(step), 0 if micro is None else int(micro) + 1]
+    if rank is not None:
+        entropy.append(int(rank) + 1)
     hi, lo = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed((int(hi) << 31) ^ int(lo))
@@ -418,14 +465,17 @@ def dropout_generator(seed: int, step: int, micro: Optional[int], device) -> tor
 
 
 def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
-                     step: int = 0) -> Dict[str, torch.Tensor]:
+                     step: int = 0, dropout_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The loss forward and its backward; returns the step's scalar
     losses (:func:`scalar_losses`).  Every parameter ends with a
     ``.grad`` (zeros where the loss does not reach it, so AdamW decays
     it as optax does).
 
     ``n_accum > 1`` (``mca_tpu.train._accum_grads``): microbatch ``i``
-    is rows ``i, i + n_accum, ...``, each with its own contrastive loss;
+    is rows ``i, i + n_accum, ...``, each with its own contrastive loss
+    (on several data ranks, each rank's block strided so: together the
+    global microbatch ``i``, in order, when the block divides by
+    ``n_accum``);
     the gradients of the backward passes are summed, then scaled by
     ``1 / n_accum``; each metric is the mean over the microbatches where
     it is finite (a pair absent from one microbatch is NaN there), NaN
@@ -436,7 +486,7 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
         p.grad = None
     if n_accum == 1:
         out = model(batch, no_loss=False,
-                    generator=dropout_generator(dropout_seed, step, None, device))
+                    generator=dropout_generator(dropout_seed, step, None, device, dropout_rank))
         out["loss"].backward()
         scal = {k: v.detach().float() for k, v in scalar_losses(out).items()}
     else:
@@ -444,7 +494,7 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
         for i in range(n_accum):
             micro = {m: {k: v[i::n_accum] for k, v in f.items()} for m, f in batch.items()}
             out = model(micro, no_loss=False,
-                        generator=dropout_generator(dropout_seed, step, i, device))
+                        generator=dropout_generator(dropout_seed, step, i, device, dropout_rank))
             out["loss"].backward()
             s = scalar_losses(out)
             names = list(s)
@@ -475,18 +525,28 @@ def train_step(
 ) -> Dict[str, float]:
     """One training step (``mca_tpu.train._step_body``); returns the
     step's metrics as floats.  The step's index for the dropout
-    generator is the steps ``schedule`` has taken (restored with it)."""
+    generator is the steps ``schedule`` has taken (restored with it).
+    A :class:`ShardedOptimizer` (several ranks) reduces the gradients
+    over the mesh first and takes the norms over the whole set."""
     lr = schedule.get_last_lr()[0]
-    scal = forward_backward(model, batch, n_accum, dropout_seed, schedule.last_epoch)
-    grads = [p.grad for p in model.parameters()]
-    grad_norm = global_norm(grads)
+    sharded = isinstance(optimizer, ShardedOptimizer)
+    scal = forward_backward(model, batch, n_accum, dropout_seed, schedule.last_epoch,
+                            optimizer.mesh.data_rank if sharded else None)
+    if sharded:
+        optimizer.reduce_gradients()
+        grads = optimizer.gradients()
+        norm = optimizer.global_norm
+    else:
+        grads = [p.grad for p in model.parameters()]
+        norm = global_norm
+    grad_norm = norm(grads)
     if clip:
         clip_by_global_norm(grads, float(clip), grad_norm)
     optimizer.step()
     schedule.step()
     clamp_logit_scale(model)
     with torch.no_grad():
-        param_norm = global_norm(list(model.parameters()))
+        param_norm = norm(optimizer.opt_params if sharded else list(model.parameters()))
     names = list(scal) + ["param_norm", "grad_norm"]
     values = torch.stack(list(scal.values()) + [param_norm, grad_norm]).tolist()
     return {**dict(zip(names, values)), "lr": lr}
@@ -507,23 +567,50 @@ def build_trainer(
     device: str = "cuda",
     num_training_steps: int = 1000,
     params: Optional[Mapping[str, Any]] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """``(model, optimizer, schedule)`` on ``device``: the model built
     for training (unfused feed-forward) with random weights from
     ``config.seed``, or ``params`` (a state dict under the port's
-    names).  Refuses the keys :func:`check_training_keys` names."""
+    names).  Refuses the keys :func:`check_training_keys` names.
+
+    On a mesh of several ranks (``mesh``, else :func:`training_mesh`)
+    the model is this rank's part (tensor-parallel attention, the loss
+    gathered over ``data``, ``seq_shard`` where the model axis is above
+    1), loaded with its shards of the same whole weights, and the
+    optimizer a :class:`ShardedOptimizer` (``fsdp`` on a data axis above
+    1 shards its leaves); ``schedule`` steps the optimizer it wraps."""
     check_training_keys(config)
     dev = require_device(device)
-    model = build_model(get_model_config(config), fused_ff=False)
+    mesh = mesh if mesh is not None else training_mesh(config, dev)
+    n_accum = int(config.get("grad_accum", 1) or 1)
+    per_rank = int(config.batch_size) // mesh.data
+    if n_accum > 1 and per_rank % n_accum:
+        raise ValueError(
+            f"grad_accum={n_accum} must divide the per-rank batch {per_rank} "
+            f"(batch_size {config.batch_size} over {mesh.data} data ranks)"
+        )
+    mc = get_model_config(config)
+    model = build_model(mc, fused_ff=False)
     if params is None:
         model.init_weights(torch.Generator().manual_seed(int(config.seed)))
     else:
         model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in params.items()}, strict=True
         )
+    if mesh.size == 1:
+        model.to(dev).train()
+        optimizer, schedule = make_optimizer(model, config, num_training_steps)
+        return model, optimizer, schedule
+    whole = model.state_dict()
+    seq_shard = bool(mc.get("seq_shard")) and mesh.model > 1
+    model = build_model(dict(mc, data_group=mesh.data_group, model_group=mesh.model_group,
+                             seq_shard=seq_shard), fused_ff=False)
+    model.load_state_dict(shard_state_dict(whole, mesh), strict=True)
     model.to(dev).train()
-    optimizer, schedule = make_optimizer(model, config, num_training_steps)
-    return model, optimizer, schedule
+    optimizer = ShardedOptimizer(model, mesh, lambda ps: make_adamw(ps, config),
+                                 fsdp=bool(config.get("fsdp", False)), seq_shard=seq_shard)
+    return model, optimizer, make_schedule(optimizer.inner, config, num_training_steps)
 
 
 def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
@@ -672,6 +759,7 @@ def train(
     ``metrics.jsonl`` (its ``step`` included), before the guards act."""
     dev = require_device(device)
     check_training_keys(config)
+    mesh = training_mesh(config, dev)
     output_dir = config.output_dir
     if not output_dir:
         raise ValueError("output_dir is empty: set it, or load the config with "
@@ -686,6 +774,7 @@ def train(
     )
     collator = MultimodalCollator(modalities)
     bs = int(config.batch_size)
+    stage = make_stager(mesh, bs)  # every rank loads the global batch, keeps its rows
     preload = bool(config.get("preload_dataset", True))
     prefetch = int(config.get("prefetch_batches", 0))
     train_dl = BatchedLoader(data["train"], collator, bs, shuffle=True,
@@ -695,20 +784,34 @@ def train(
     steps_per_epoch = len(train_dl)
     model, optimizer, schedule = build_trainer(
         config, device, num_training_steps=int(config.epochs) * steps_per_epoch,
-        params=params,
+        params=params, mesh=mesh,
     )
+    sharded = isinstance(optimizer, ShardedOptimizer)
+    primary = is_primary()
     saver = checkpoint.Checkpointer()
     step = 0
 
+    def model_state() -> Dict[str, torch.Tensor]:
+        return optimizer.model_state_dict() if sharded else model.state_dict()
+
     def state(epoch: int) -> Dict[str, Any]:
-        return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+        # on several ranks: the whole state (collectives on every rank)
+        return {"model": model_state(), "optimizer": optimizer.state_dict(),
                 "schedule": schedule.state_dict(), "step": step, "epoch": epoch}
+
+    def save(epoch: int, directory: str, asynchronous: bool = False) -> None:
+        st = state(epoch)
+        if primary:
+            saver.save_state(st, directory, asynchronous=asynchronous)
 
     start_epoch, resume_skip = int(config.start_epoch), 0
     if config.restart:
         logger.info("Loading saved state from %s", config.restart)
         saved = checkpoint.load_state(config.restart)
-        model.load_state_dict(saved["model"])
+        if sharded:
+            optimizer.load_model_state_dict(saved["model"])
+        else:
+            model.load_state_dict(saved["model"])
         optimizer.load_state_dict(saved["optimizer"])
         schedule.load_state_dict(saved["schedule"])
         step = int(saved["step"])
@@ -726,7 +829,8 @@ def train(
                                "the batches of this epoch are trained again",
                                step, full_epochs, start_epoch)
 
-    sink = JSONLLogger(output_dir, wandb_config=make_wandb_config(config))
+    sink = (JSONLLogger(output_dir, wandb_config=make_wandb_config(config)) if primary
+            else NullLogger())
 
     def record(rec: Dict[str, Any], at: int) -> None:
         sink.log(rec, step=at)
@@ -770,7 +874,7 @@ def train(
             stream = iter(train_dl)
             try:
                 for batch in stream:
-                    staged = narrow_for_staging(batch, stage_dtype, sentinels)
+                    staged = narrow_for_staging(stage(batch), stage_dtype, sentinels)
                     metrics = train_step(model, optimizer, schedule, to_device(staged, dev),
                                          clip=clip, n_accum=n_accum,
                                          dropout_seed=int(config.seed))
@@ -783,34 +887,42 @@ def train(
                         try:
                             check_finite(metrics, step)
                         except DivergenceError:
-                            _forensic_save(saver, state(epoch), output_dir)
+                            # every rank sees the same metrics, so every
+                            # rank halts here
+                            st = state(epoch)
+                            if primary:
+                                _forensic_save(saver, st, output_dir)
                             raise
                     nb_done += 1
+                    if mesh.size > 1:  # a signal to one rank stops them all
+                        preempted[0] = coll.any_rank(preempted[0], dev)
                     if preempted[0]:
                         saver.wait_for_saves()
-                        saver.save_state(state(epoch), output_dir)
-                        with open(os.path.join(output_dir, "preempted.json"), "w") as f:
-                            json.dump({"step": step, "epoch": epoch, "signal": "SIGTERM",
-                                       "wandb_id": sink.wandb_id}, f)
+                        save(epoch, output_dir)
+                        if primary:
+                            with open(os.path.join(output_dir, "preempted.json"), "w") as f:
+                                json.dump({"step": step, "epoch": epoch, "signal": "SIGTERM",
+                                           "wandb_id": sink.wandb_id}, f)
                         logger.warning("preempted at step %d; state saved, resume with "
                                        "restart: %s", step, output_dir)
                         raise PreemptedError(step, output_dir)
                     if n_step and nb_done // n_step != last_bucket:
                         last_bucket = nb_done // n_step
-                        saver.save_state(state(epoch), output_dir, asynchronous=True)
+                        save(epoch, output_dir, asynchronous=True)
             finally:
                 close = getattr(stream, "close", None)
                 if close is not None:  # stops a prefetch thread on every exit
                     close()
-            saver.save_state(state(epoch), os.path.join(output_dir, str(epoch)),
-                             asynchronous=True)
-            if keep:
+            save(epoch, os.path.join(output_dir, str(epoch)), asynchronous=True)
+            if keep and primary:
                 saver.wait_for_saves()  # no directory is pruned mid-write
                 _prune_checkpoints(output_dir, epoch, keep)
             if config.run_eval_loop:
-                run_eval_epoch(model, eval_dl, record, step, dev)
+                run_eval_epoch(model, map(stage, eval_dl), record, step, dev)
         saver.wait_for_saves()
-        final = model.state_dict()
+        final = model_state()
+        if not primary:
+            return output_dir
         checkpoint.save_params(final, output_dir)
         if config.get("export_safetensors", True):
             try:
@@ -843,7 +955,7 @@ def _forensic_save(saver: checkpoint.Checkpointer, state: Dict[str, Any],
 
 
 def main(argv=None) -> None:
-    from mca_tpu_torch.config import training_config
+    from mca_tpu_torch.config import load_yaml, training_config
 
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description=__doc__,
@@ -855,7 +967,10 @@ def main(argv=None) -> None:
                         "instead of dataset:")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
-    config = training_config(args.config, make_output_dir=True)
+    # an env-gated no-op on one process; several ranks need one output_dir
+    init_multihost(device=args.device)
+    require_output_dir(load_yaml(args.config))
+    config = training_config(args.config, make_output_dir=is_primary())
     rows = synthetic_rows(config, args.synthetic, seed=int(config.seed)) if args.synthetic else None
     try:
         train(config, device=args.device, rows=rows)

@@ -1,6 +1,8 @@
 """The port's training loop honours ``halt_on_nan`` and refuses the
 training keys it cannot train as asked, as the JAX package's does;
-``train`` and ``infer`` refuse a mesh of more than one device.
+``train`` and ``infer`` refuse a mesh larger than the world (one process
+here) and the mesh options not ported yet (GPipe's ``mesh_pipe``, expert
+parallelism).
 
 Divergence: a misconfigured ``lr: inf`` with ``clip: 0``, as in
 ``tests/test_divergence.py``: the warm-up schedule's 0 * inf makes the
@@ -77,10 +79,13 @@ def test_halt_on_nan_disabled_runs_to_completion(tmp_path):
         ("stage_dtype", "fp8", ValueError),  # fp16 / bf16 staging is ported
         ("trace_dir", "traces", NotImplementedError),
         ("moment_dtype", "fp16", ValueError),
-        # a mesh of more than one device: the JAX package shards over it
-        ("mesh_model", 2, NotImplementedError),
-        ("mesh_data", 2, NotImplementedError),
-        ("mesh_data", 4, NotImplementedError),
+        # GPipe over the layer stack is not ported yet
+        ("mesh_pipe", 2, NotImplementedError),
+        ("mesh_pipe", 5, NotImplementedError),
+        # a mesh larger than the world of one process
+        ("mesh_model", 2, ValueError),
+        ("mesh_data", 2, ValueError),
+        ("mesh_data", 4, ValueError),
     ],
 )
 def test_unported_training_keys_are_refused(key, value, error, tmp_path):
@@ -94,12 +99,31 @@ def test_unported_training_keys_are_refused(key, value, error, tmp_path):
 
 @pytest.mark.parametrize("key", ["mesh_model", "mesh_data"])
 def test_infer_refuses_a_mesh_before_reading_anything(key, tmp_path):
+    """A mesh larger than the world; ``infer`` ignores ``mesh_pipe``, as
+    the JAX package's does."""
     from mca_tpu_torch import infer as port_infer
 
     cfg = _cfg(tmp_path, **{key: 2})
     cfg.restart = str(tmp_path / "no-such-checkpoint")
-    with pytest.raises(NotImplementedError, match=f"{key}.*Queue A item 9"):
+    with pytest.raises(ValueError, match=f"{key}=2 .*the world has 1"):
         port_infer.infer(cfg, device="cpu", rows=_rows())
+    assert not os.path.exists(cfg.output_dir)
+    cfg = _cfg(tmp_path, mesh_pipe=2)
+    cfg.restart = str(tmp_path / "no-such-checkpoint")
+    with pytest.raises(FileNotFoundError, match="no-such-checkpoint"):
+        port_infer.infer(cfg, device="cpu", rows=_rows())
+
+
+@pytest.mark.parametrize("entry", ["build_trainer", "train"])
+def test_expert_parallelism_is_refused(entry, tmp_path):
+    """``moe_experts`` with ``mesh_model > 1`` needs expert parallelism,
+    not ported yet: refused before the mesh is built."""
+    cfg = _cfg(tmp_path, moe_experts=2, mesh_model=2)
+    with pytest.raises(NotImplementedError, match="moe_experts.*ROADMAP.md Queue A item 9"):
+        if entry == "train":
+            port_train.train(cfg, device="cpu", rows=_rows())
+        else:
+            port_train.build_trainer(cfg, "cpu")
     assert not os.path.exists(cfg.output_dir)
 
 
@@ -111,5 +135,6 @@ def test_default_training_keys_are_accepted():
                      dict(steps_per_call=32, flat_state=True, fuse_optimizer=False),
                      dict(stage_dtype="fp32", trace_dir=""), dict(stage_dtype="bf16"),
                      dict(stage_dtype="fp16"), dict(mesh_data=0, mesh_model=1),
-                     dict(mesh_data=1, mesh_model=1, fsdp=True)):
+                     dict(mesh_data=1, mesh_model=1, fsdp=True),
+                     dict(mesh_data=2, mesh_model=2, fsdp=True, seq_shard=True)):
         port_train.check_training_keys(_cfg(**accepted))

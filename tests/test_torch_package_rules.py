@@ -43,7 +43,9 @@ def test_no_jax_or_jax_package_imports():
                    "models/pool.py", "models/eao.py", "encoders.py", "data/collators.py",
                    "data/synthetic.py", "serve.py", "tools/__init__.py",
                    "tools/profile_train.py", "tools/profile_serve.py", "models/moe.py",
-                   "tools/moe_stats.py", "native/__init__.py"):
+                   "tools/moe_stats.py", "native/__init__.py", "parallel/__init__.py",
+                   "parallel/multihost.py", "parallel/mesh.py", "parallel/collectives.py",
+                   "parallel/sharding.py", "parallel/launch.py"):
         assert f"mca_tpu_torch/{module}" in names, module
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
