@@ -41,9 +41,11 @@ Phases (each asserted; any failure exits non-zero):
    Times: each kernel (queued behind a spin kernel, so that the host's
    enqueueing stays out), the plain backward, and the backward alone of
    ``F.scaled_dot_product_attention`` with the same mask as a yardstick;
-   then the same mask at H 4 (a rank's heads at ``mesh_model: 2``): K1
-   as in 2 (its planted fault too), K2, K3a and K3b as above, held and
-   timed again.
+   then the same mask at H 4 (a rank's heads at ``mesh_model: 2``) and
+   at B 2 (phase 15's pipeline microbatch: rows 2:4 of the batch of 8,
+   its key padding copied from that row offset as ``pipeline_layers``
+   copies it): K1 as in 2 (its planted fault too), K2, K3a and K3b as
+   above, held and timed again.
 5. the serving slice: ``EmbeddingService`` at TCGA_config1 width (dim
    512, depth 5, 8 x 64 heads, T 2548, bf16, max_batch 8) on the GPU
    with weights from a fixed seed answers ``embed`` (20 rows, three
@@ -229,12 +231,32 @@ Phases (each asserted; any failure exits non-zero):
    labels equal, embeddings within ``AGREE_ATOL``. Prints wall ms a step
    for (a) and (b) beside the host and the card: two processes sharing
    one card through host-staged gloo, not a scaling number.
-15. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+15. GPipe and expert parallelism (``mca_tpu_torch.parallel.pipeline``,
+   ``models/moe.py``), two ranks on the one card over gloo as in phase 14
+   (b), 3 steps (warm-up 2) on a batch of 8 from the seed-0 weights, each
+   layout held to the same model's unsharded steps on the card (fused
+   backward) with phase 14's gates, and each planted fault past the bound
+   of each of its gates. (a) ``mesh_pipe: 2``, ``pipeline_microbatches:
+   4`` at TCGA_config1's width cut to depth 4 (5 does not divide by 2):
+   K1 and K2 exactly (L / S) x M = 8 a step on each rank at H 8; faults:
+   stage 1 one microbatch late (loss and update), the final-norm, pool and
+   logit-scale gradients summed over ``pipe`` (grad_norm). (b)
+   ``mesh_model: 2`` with phase 12's MoE (2 experts, capacity factor 2.0,
+   one expert a rank) at full depth, with and without ``seq_shard``: K1
+   and K2 5 a step on each rank at H 4; each expert leaf's and router
+   leaf's update gated too; faults: every rank computing rank 0's expert
+   (update and expert leaves), the router's gradient not summed over
+   ``model`` (router leaves). (c) Each layout's wall ms a step and peak
+   MiB a rank beside the card's name and power limit; which collectives
+   gloo takes on CUDA tensors, and ``send`` / ``recv`` and
+   ``batch_isend_irecv`` on CUDA tensors, each in two processes of its
+   own (a reading, not a gate).
+16. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
    training and infer, phase 11's training, phase 12's serving,
-   training and ``moe_stats``, phase 13's serving and loaded programs
-   and phase 14's steps, serving and infer ranks, each counted from 0),
-   then the last line ``{"ok": true, "device": {...}}``.
+   training and ``moe_stats``, phase 13's serving and loaded programs,
+   phase 14's steps, serving and infer ranks and phase 15's ranks, each
+   counted from 0), then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -289,6 +311,7 @@ from mca_tpu_torch.ops import probes
 from mca_tpu_torch.ops import quant
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel import launch as launch_lib
+from mca_tpu_torch.parallel import pipeline
 from mca_tpu_torch.parallel.multihost import init_multihost, make_stager
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
@@ -343,6 +366,10 @@ BWD_REL_L2 = 2e-3
 # q_s = bf16(q * bf16(scale)) from the wrapper instead of scaling in fp32
 SCALE_NOT_POW2 = 0.1
 TP_HEADS = 4  # heads a rank holds at mesh_model 2 (8 / 2)
+# the rows of the batch of 8 that phase 15's pipe (4 microbatches) gives
+# K1 and K2 at once: microbatch 1, whose [2, T] key padding starts 8
+# bytes off 16-byte alignment in the batch's [8, T] bools
+MICRO_ROWS = slice(2, 4)
 # modality widths that give an odd number of 64-key tiles (T 160 with 22
 # fusion tokens, two for each of the 11 modality combinations)
 ODD_DIMS = (48, 30, 40, 20)
@@ -460,12 +487,39 @@ PAR_TIMEOUT = 600  # seconds for the two ranks of one launch
 PAR_LOSS_RTOL = 2e-3
 PAR_NORM_RTOL = 1e-2
 PAR_UPDATE_REL_L2 = 0.15
+# each MoE expert leaf's and router leaf's update (relative L2 against the
+# unsharded update), phase 14's update bound; a CPU rehearsal at tiny
+# shapes in bf16 read experts 4.3e-2 and router 7.7e-3 at model 2, 6.9e-2
+# and 7.6e-2 at data 2 x model 2 with 4 experts, and the planted faults
+# 0.58 (experts) and 0.84 (router)
+PAR_LEAF_UPDATE_REL_L2 = 0.15
 PAR_BOUNDS = {"loss": PAR_LOSS_RTOL, "grad_norm": PAR_NORM_RTOL, "param_norm": PAR_NORM_RTOL,
-              "update": PAR_UPDATE_REL_L2}
+              "update": PAR_UPDATE_REL_L2, "experts": PAR_LEAF_UPDATE_REL_L2,
+              "router": PAR_LEAF_UPDATE_REL_L2}
 # the gate each planted fault must fail: a gradient summed, not averaged,
 # over data scales every gradient alike, which AdamW's update and the
 # clipped step do not see, so only grad_norm shows it
-FAULT_GATES = {"none_gather": "update", "skip_out_reduce": "update", "unscaled_grads": "grad_norm"}
+FAULT_GATES = {"none_gather": ("update",), "skip_out_reduce": ("update",),
+               "unscaled_grads": ("grad_norm",),
+               # phase 15: stage 1 one microbatch late; the pool, final-norm and
+               # logit-scale gradients summed over pipe (S times too large, which
+               # AdamW does not see); every rank computing model rank 0's experts;
+               # the router's gradient left partial over model
+               "late_stage": ("loss", "update"), "summed_replicated": ("grad_norm",),
+               "first_experts": ("update", "experts"), "router_not_summed": ("router",)}
+# phase 15: GPipe over two stages (TCGA_config1 cut to depth 4: 5 does not
+# divide by 2) and expert parallelism over two model ranks (phase 12's MoE,
+# full depth), two ranks on the one card over gloo
+PIPE_EP_LAYOUTS = {
+    "pipe": {"layers": 4, "mesh_pipe": 2, "pipeline_microbatches": 4},
+    "ep": {"moe_experts": MOE_EXPERTS, "moe_capacity_factor": MOE_CF, "mesh_model": 2},
+    "ep_seq": {"moe_experts": MOE_EXPERTS, "moe_capacity_factor": MOE_CF, "mesh_model": 2,
+               "seq_shard": True},
+}
+PIPE_EP_FAULTS = {"pipe": ["late_stage", "summed_replicated"],
+                  "ep": ["first_experts", "router_not_summed"], "ep_seq": []}
+# the keys of a layout that change the model (and so its reference steps)
+MODEL_KEYS = ("layers", "moe_experts", "moe_capacity_factor")
 PAR_INFER_ROWS = 40
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
@@ -555,10 +609,10 @@ def bf16_err(kernel: torch.Tensor, plain: torch.Tensor, atol: float) -> float:
 
 
 def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0,
-                 masked=True, combos=(4, 3, 2), zorro=False, full_rows=()):
+                 masked=True, combos=(4, 3, 2), zorro=False, full_rows=(), missing_row=1):
     """q, k, v at the model's shapes, the real MCA mask (MMA's with
-    ``zorro``), and key padding with ragged modality tails and one
-    sample missing a modality (the second, or the only one).
+    ``zorro``), and key padding with ragged modality tails and sample
+    ``missing_row`` missing a modality (the second, or the only one).
     ``masked=False``: one EAO pass over the modalities ``dims``, no
     static mask (None) and no fusion tokens.  ``full_rows``: samples
     whose modalities keep their whole length (no ragged tail), so that
@@ -582,8 +636,17 @@ def flash_inputs(device, b=8, h=8, dims=(800, 198, 800, 662), fusion=88, seed=0,
             if i not in full_rows:
                 pad[i, starts[m] + cut : starts[m + 1]] = True
     missing = min(1, len(dims) - 1)
-    pad[1, starts[missing] : starts[missing + 1]] = True  # sample 1 misses it
+    pad[missing_row, starts[missing] : starts[missing + 1]] = True  # that sample misses it
     return mask, q, k, v, pad.to(device)
+
+
+def microbatch_inputs(device, h=8, rows=MICRO_ROWS) -> tuple:
+    """One pipeline microbatch of :func:`flash_inputs`' batch of 8:
+    ``rows`` of q, k, v and the key padding (one of them missing a
+    modality), each copied, as ``pipeline_layers`` copies its
+    microbatches' padding from a row offset into the batch's."""
+    mask, q, k, v, pad = flash_inputs(device, h=h, missing_row=rows.stop - 1)
+    return (mask, *(x[rows].clone() for x in (q, k, v, pad)))
 
 
 def hold_flash(mask, q, k, v, pad) -> dict:
@@ -624,10 +687,17 @@ def hold_flash(mask, q, k, v, pad) -> dict:
             "planted": (qi, kj, n_live, flagged)}
 
 
-def check_flash(device, b=8, h=8) -> dict:
+def shape_label(b: int, h: int) -> str:
+    """How phase 4 names a shape other than the batch of 8 at 8 heads."""
+    return "".join(f" at {k} {v}" for k, v, full in (("B", b, 8), ("H", h, 8)) if v != full)
+
+
+def check_flash(device, h=8, rows=None) -> dict:
     """K1 against its plain version at TCGA_config1's mask, timed beside
-    SDPA; at ``h`` 8 (the model's heads) or 4 (a rank's under mesh_model 2)."""
-    mask, q, k, v, pad = flash_inputs(device, b=b, h=h)
+    SDPA; at ``h`` 8 (the model's heads) or 4 (a rank's under mesh_model 2),
+    on the batch of 8 or on its ``rows`` (:func:`microbatch_inputs`)."""
+    mask, q, k, v, pad = (flash_inputs(device, h=h) if rows is None
+                          else microbatch_inputs(device, h, rows))
     b, h, t, d = q.shape
     scale = d**-0.5
     held = hold_flash(mask, q, k, v, pad)
@@ -652,7 +722,7 @@ def check_flash(device, b=8, h=8) -> dict:
     n_bytes = 4 * q.numel() * 2 + lse.numel() * 4 + mask.size + pad.numel()
     bms, by = bound_ms(n_bytes, n_ops)
     print(
-        f"K1 flash_fwd{'' if h == 8 else f' at H {h}'}: max_abs_err {err:.3e} (lse {lse_err:.3e}), "
+        f"K1 flash_fwd{shape_label(b, h)}: max_abs_err {err:.3e} (lse {lse_err:.3e}), "
         f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa, "
         f"bound {bms:.4f} ms ({by}), {pairs:.4g} live score entries; planted fault "
         f"(tile q{qi} x kv{kj}, {n_live} live entries over the batch, dropped) puts "
@@ -916,24 +986,13 @@ def check_flash_bwd(device) -> list:
     )
     del sdpa_out
 
-    # this run's work: every live (query, key) pair, over all heads;
-    # products of depth 64: K2 five (s, dp, dv, dk, dq), K3a three (s,
-    # dp, dq), K3b four (s, dp, dv, dk); bytes: the inputs read once
-    # (q, k, v, do bf16; lse, delta fp32; mask; padding), the outputs
-    # written once (bf16)
+    # this run's work: every live (query, key) pair, over all heads
     pairs = float((~blocked).sum()) * h
-    n_in = 4 * q.numel() * 2 + 2 * lse.numel() * 4 + mask.size + pad.numel()
-    work = {
-        "flash_bwd": (5, n_in + 3 * q.numel() * 2, "_fused_bwd_kernel", 337, "flash_bwd.cu"),
-        "flash_bwd_dq": (3, n_in + q.numel() * 2, "_dq_kernel", 281, "flash_bwd_dq.cu"),
-        "flash_bwd_dkv": (4, n_in + 2 * q.numel() * 2, "_dkv_kernel", 523, "flash_bwd_dkv.cu"),
-    }
     entries = []
-    for name, (products, n_bytes, tpu_name, line, src) in work.items():
-        bms, by = bound_ms(n_bytes, 2.0 * d * products * pairs)
+    for name, (_, _, tpu_name, line, src) in BWD_WORK.items():
+        bms, by = bwd_bound(name, q, lse, mask, pad, pairs)
         impl = "fused" if name == "flash_bwd" else "split"
-        outs = {"flash_bwd": ("dq", "dk", "dv"), "flash_bwd_dq": ("dq",),
-                "flash_bwd_dkv": ("dk", "dv")}[name]
+        outs = BWD_OUTS[name]
         err = max(errs[impl, o] for o in outs)
         print(
             f"{name} ({tpu_name}): max_abs_err {err:.3e} "
@@ -961,28 +1020,62 @@ def check_flash_bwd(device) -> list:
         f"(all heads); {pairs:.4g} live score entries",
         flush=True,
     )
-    # the heads a rank holds under mesh_model 2 (phase 14): the same
-    # mask and inputs at H 4, K1 and the backward held and timed as above
+    # the shapes the parallel phases give the kernels besides the batch
+    # of 8 at 8 heads: a rank's heads under mesh_model 2 (phases 14, 15)
+    # and a microbatch of the pipe (phase 15), with the same mask; K1 and
+    # the backward held and timed as above
     del held, args, do
-    check_flash(device, h=TP_HEADS)
-    _, q4, k4, v4, pad4 = flash_inputs(device, h=TP_HEADS)
-    do4 = torch.randn(q4.shape, generator=g, device=device).to(torch.bfloat16)
-    held4 = hold_flash_bwd(mask, q4, k4, v4, pad4, do4, f"phase 4 (H {TP_HEADS})")
-    with torch.inference_mode():
-        out4, lse4 = held4["out"], held4["lse"]
-        ms4 = bwd_kernel_ms((q4, k4, v4, do4, lse4, flash.attention_delta(out4, do4), mask,
-                             pad4, scale), q4)
-    pairs4 = float((~held4["blocked"]).sum()) * TP_HEADS
-    for name, (products, n_bytes, tpu_name, _, _) in work.items():
-        bms4, by4 = bound_ms(n_bytes * TP_HEADS / h, 2.0 * d * products * pairs4)
-        print(
-            f"{name} at H {TP_HEADS}: {ms4[name]:.4f} ms kernel (queued), bound "
-            f"{bms4:.4f} ms ({by4}); relative L2 against plain "
-            + ", ".join(f"{o} {held4['rels'][('fused' if name == 'flash_bwd' else 'split', o)]:.3e}"
-                        for o in ("dq", "dk", "dv")),
-            flush=True,
-        )
+    for h2, rows in ((TP_HEADS, None), (h, MICRO_ROWS)):
+        check_flash(device, h=h2, rows=rows)
+        _, q2, k2, v2, pad2 = (flash_inputs(device, h=h2) if rows is None
+                               else microbatch_inputs(device, h2, rows))
+        label = shape_label(q2.shape[0], h2)
+        do2 = torch.randn(q2.shape, generator=g, device=device).to(torch.bfloat16)
+        held2 = hold_flash_bwd(mask, q2, k2, v2, pad2, do2, f"phase 4 ({label.strip()})")
+        with torch.inference_mode():
+            out2, lse2 = held2["out"], held2["lse"]
+            ms2 = bwd_kernel_ms((q2, k2, v2, do2, lse2, flash.attention_delta(out2, do2), mask,
+                                 pad2, scale), q2)
+        pairs2 = float((~held2["blocked"]).sum()) * h2
+        planted2 = "; ".join(
+            f"{fault} (tile q{qi} x kv{kj}, {n_live} live entries) relative L2 "
+            + ", ".join(f"{x:.3e}" for x in rel) for fault, (qi, kj, n_live, rel)
+            in held2["planted"].items())
+        for name in BWD_WORK:
+            bms2, by2 = bwd_bound(name, q2, lse2, mask, pad2, pairs2)
+            impl = "fused" if name == "flash_bwd" else "split"
+            print(
+                f"{name}{label}: {ms2[name]:.4f} ms kernel (queued), bound {bms2:.4f} ms "
+                f"({by2}); max_abs_err "
+                + ", ".join(f"{o} {held2['errs'][(impl, o)]:.3e}" for o in BWD_OUTS[name])
+                + "; relative L2 against plain "
+                + ", ".join(f"{o} {held2['rels'][(impl, o)]:.3e}" for o in ("dq", "dk", "dv")),
+                flush=True,
+            )
+        print(f"backward{label}: planted faults (dq, dk, dv) {planted2}", flush=True)
+        del held2, do2, q2, k2, v2
     return entries
+
+
+#: per backward kernel: products of depth 64 a live (query, key) pair
+#: (K2 five: s, dp, dv, dk, dq; K3a three: s, dp, dq; K3b four: s, dp,
+#: dv, dk), the gradients it writes, the TPU kernel and its line, the source
+BWD_WORK = {
+    "flash_bwd": (5, 3, "_fused_bwd_kernel", 337, "flash_bwd.cu"),
+    "flash_bwd_dq": (3, 1, "_dq_kernel", 281, "flash_bwd_dq.cu"),
+    "flash_bwd_dkv": (4, 2, "_dkv_kernel", 523, "flash_bwd_dkv.cu"),
+}
+BWD_OUTS = {"flash_bwd": ("dq", "dk", "dv"), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
+
+
+def bwd_bound(name, q, lse, mask, pad, pairs):
+    """``bound_ms`` of backward kernel ``name`` on this run's inputs: the
+    inputs read once (q, k, v, do bf16; lse, delta fp32; mask; padding),
+    its gradients written once (bf16), and its products on ``pairs`` live
+    (query, key) pairs over all heads."""
+    products, n_out, *_ = BWD_WORK[name]
+    n_in = 4 * q.numel() * 2 + 2 * lse.numel() * 4 + mask.size + pad.numel()
+    return bound_ms(n_in + n_out * q.numel() * 2, 2.0 * q.shape[-1] * products * pairs)
 
 
 def bwd_kernel_ms(args, q) -> dict:
@@ -3116,15 +3209,64 @@ def unscaled_grads(model, opt) -> None:
     opt.reduce_gradients = faulty
 
 
+def late_stage(model, opt) -> None:
+    """Phase 15 (a)'s planted fault: stage 1 runs on the activation of the
+    microbatch before its own (zeros for the first), one tick late; the
+    shifts stay as they are.  :func:`parallel_rank` puts the real
+    ``stage_input`` back after the run."""
+    real, held = pipeline.stage_input, [None]
+
+    def late(stage, m, xm, recv):
+        if stage != 1:
+            return real(stage, m, xm, recv)
+        out = torch.zeros_like(recv) if m == 0 else held[0]
+        held[0] = recv
+        return out
+
+    pipeline.stage_input = late
+
+
+def summed_replicated(model, opt) -> None:
+    """Phase 15 (a)'s planted fault: the gradients every stage already
+    holds whole (final norm, pool, logit scales) summed over ``pipe``."""
+    real = opt.reduce_gradients
+
+    def faulty():
+        real()
+        opt._all_reduce_flat([p.grad for p, s in zip(opt.params, opt.pipe_partial) if not s],
+                             opt.mesh.pipe_group)
+
+    opt.reduce_gradients = faulty
+
+
+def first_experts(model, opt) -> None:
+    """Phase 15 (b)'s planted fault: every model rank computes the experts
+    of rank 0's range with its own experts' weights."""
+    for mod in model.modules():
+        if isinstance(mod, MoEFeedForward):
+            n = mod.experts["w_in"].shape[0]
+            mod.local_experts = lambda n=n: (0, n)
+
+
+def router_not_summed(model, opt) -> None:
+    """Phase 15 (b)'s planted fault: the router's gradient left as each
+    model rank's partial sum (the all-reduce over ``model`` dropped)."""
+    opt.model_partial = [s and not n.endswith("router.weight")
+                         for n, s in zip(opt.names, opt.model_partial)]
+
+
 PLANTS = {"none_gather": lambda m, o: setattr(m.loss, "backprop", coll.BackpropType.NONE),
-          "skip_out_reduce": skip_out_reduce, "unscaled_grads": unscaled_grads, None: None}
+          "skip_out_reduce": skip_out_reduce, "unscaled_grads": unscaled_grads,
+          "late_stage": late_stage, "summed_replicated": summed_replicated,
+          "first_experts": first_experts, "router_not_summed": router_not_summed, None: None}
 
 
 def probe_collectives(device) -> dict:
     """Which collectives the process group's backend accepts on
     ``device``'s tensors, at two ranks: per collective "ok" (right
     values) or the first line of its error.  The port chooses its
-    collectives by backend, not from this; phase 14 (b) prints it."""
+    collectives by backend, not from this; phase 14 (b) prints it.  The
+    point-to-point ops are :func:`probe_p2p`'s, in processes of their own."""
     r = dist.get_rank()
     x, o = torch.full((2,), r + 1.0, device=device), torch.zeros(4, device=device)
 
@@ -3155,6 +3297,82 @@ def probe_collectives(device) -> dict:
     return res
 
 
+P2P_OPS = ("send_recv", "batch_isend_irecv")
+
+
+def p2p_rank(op: str, out_path: str) -> None:
+    """One rank of :func:`probe_p2p` (``python3 chip_smoke.py --p2p-rank op
+    out``): ``op`` (one of P2P_OPS) between two ranks on CUDA tensors over
+    ``MCA_DIST_BACKEND``; rank 0 writes "ok", "wrong values" or the
+    error's first line."""
+    device = torch.device("cuda")
+    init_multihost(device="cuda")
+    r = dist.get_rank()
+    x, y = torch.full((4,), r + 1.0, device=device), torch.zeros(4, device=device)
+    try:
+        if op == "send_recv":
+            if r == 0:
+                dist.send(x, 1)
+                dist.recv(y, 1)
+            else:
+                dist.recv(y, 0)
+                dist.send(x, 0)
+        else:
+            reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - r),
+                                           dist.P2POp(dist.irecv, y, 1 - r)])
+            for q in reqs:
+                q.wait()
+        torch.cuda.synchronize()
+        reading = "ok" if y.tolist() == [2.0 - r] * 4 else "wrong values"
+    except Exception as e:  # noqa: BLE001 - the refusal is the reading
+        reading = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:160]}"
+    if r == 0:
+        Path(out_path).write_text(reading)
+    dist.destroy_process_group()
+
+
+def probe_p2p(backend: str, tmp: Path) -> dict:
+    """``send`` / ``recv`` and ``batch_isend_irecv`` on CUDA tensors between
+    two ranks over ``backend``, each op in two processes of its own (gloo
+    documents them for CPU tensors only, so an op may take its processes
+    down, or hang them until a 60 s timeout): per op the reading, or how
+    its processes ended.  A reading, not a gate: the ring shift's route
+    is chosen by backend (``parallel/collectives.py``)."""
+    res = {}
+    for op in P2P_OPS:
+        out = tmp / f"p2p_{backend}_{op}.txt"
+        try:
+            launch_lib.launch([sys.executable, str(ROOT / "chip_smoke.py"), "--p2p-rank", op,
+                               str(out)], 2, timeout=60, log_dir=str(tmp / f"p2p_{op}_logs"),
+                              env={"MCA_DIST_BACKEND": backend, "PYTHONPATH": str(ROOT)})
+            res[op] = out.read_text()
+        except launch_lib.LaunchError as e:
+            lines = [ln for ln in str(e).splitlines() if ln.strip() and not ln.startswith("---")]
+            res[op] = f"ranks failed: {lines[0][:120]} ({lines[-1][:160]})"
+    return res
+
+
+def model_key(mesh: dict) -> str:
+    """The model overrides of a layout (MODEL_KEYS), as a key."""
+    return json.dumps({k: mesh[k] for k in MODEL_KEYS if k in mesh}, sort_keys=True)
+
+
+def layout_launches(cfg, mesh: dict) -> int:
+    """K1 (and K2) launches a step on each rank of a layout: once a block,
+    or, under ``mesh_pipe``, once a block of the rank's stage and
+    microbatch: ``(L / S) * M``."""
+    depth, stages = int(cfg.layers), int(mesh.get("mesh_pipe", 1))
+    if stages == 1:
+        return depth
+    rows = int(cfg.batch_size) // int(mesh.get("mesh_data", 1))
+    micro = int(mesh.get("pipeline_microbatches", 0) or stages)
+    return depth // stages * pipeline.local_microbatches(rows, micro)
+
+
+def moe_leaves(params: dict) -> dict:
+    return {k: v for k, v in params.items() if ".ff.router." in k or ".ff.experts." in k}
+
+
 def parallel_rank(job_path: str) -> None:
     """One rank of :func:`check_layouts` (``python3 chip_smoke.py
     --parallel-rank job.json``, started by ``mca_tpu_torch.parallel.launch``):
@@ -3168,6 +3386,7 @@ def parallel_rank(job_path: str) -> None:
     flash.default_bwd_impl = "fused"
     heads = {"fwd": [], "bwd": []}
     real_forward, real_bwd = flash._forward, flash.flash_bwd
+    real_stage_input = pipeline.stage_input
 
     def forward(q, *a):
         heads["fwd"].append(int(q.shape[1]))
@@ -3185,9 +3404,11 @@ def parallel_rank(job_path: str) -> None:
         cfg = par_config(config, **run["mesh"])
         mesh = training_mesh(cfg, device)
         heads["fwd"].clear(), heads["bwd"].clear()
-        res = par_steps(cfg, device, inputs["params"], inputs["batch"],
+        res = par_steps(cfg, device, inputs["params"][model_key(run["mesh"])], inputs["batch"],
                         make_stager(mesh, int(cfg.batch_size)), PLANTS[run.get("fault")])
+        pipeline.stage_input = real_stage_input
         res["heads"] = {k: sorted(set(v)) for k, v in heads.items()}
+        res["leaves"] = moe_leaves(res["params"])
         res["params"] = flat_params(res["params"])
         all_res = [None] * dist.get_world_size()
         dist.all_gather_object(all_res, {k: res[k] for k in ("launches", "heads", "wall_ms",
@@ -3220,7 +3441,7 @@ def launch_ranks(argv: list, log_dir: Path, world: int = 2, backend: str = "gloo
         launch_lib.launch(argv, world, timeout=PAR_TIMEOUT, log_dir=str(log_dir),
                           env={"MCA_DIST_BACKEND": backend, "PYTHONPATH": str(ROOT)})
     except launch_lib.LaunchError as e:
-        raise AssertionError(f"phase 14: {e}") from None
+        raise AssertionError(f"parallel ranks: {e}") from None
 
 
 def free_port() -> int:
@@ -3231,24 +3452,34 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def check_layouts(cfg, device, card: str, params, batch, tmp: Path, world: int, backend: str,
+def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backend: str,
                   layouts: dict, faults: dict, label: str) -> dict:
-    """``world`` ranks over ``backend`` (started by
-    :func:`launch_ranks`), each layout of ``layouts`` and, for each, its
-    planted faults of ``faults``, PAR_STEPS steps from ``params`` on
-    ``batch``, held to the same steps unsharded in this process on the
-    fused route: K1 and K2 once a block and step on every rank, at the
-    heads the model axis leaves; per-step total_loss, grad_norm and
-    param_norm and the final parameters' update within PAR_BOUNDS, and
-    each fault past the bound of its gate (FAULT_GATES).  Prints each
-    rank's peak device memory and optimizer state, and over gloo which
+    """``world`` ranks over ``backend`` (started by :func:`launch_ranks`),
+    each layout of ``layouts`` (mesh keys, and the MODEL_KEYS that change
+    ``config``'s model) and, for each, its planted faults of ``faults``,
+    PAR_STEPS steps from the seed-0 weights on ``batch``, held to the same
+    model's steps unsharded in this process on the fused route: K1 and K2
+    :func:`layout_launches` times a step on every rank, at the heads the
+    model axis leaves; per-step total_loss, grad_norm and param_norm, the
+    final parameters' update and, for a MoE model, each expert leaf's and
+    each router leaf's update, within PAR_BOUNDS, and each fault past the
+    bound of each of its gates (FAULT_GATES).  Prints each rank's wall ms
+    a step, peak device memory and optimizer state, and over gloo which
     collectives it accepts.  Returns the launches of the layouts' runs,
     summed over the ranks."""
-    n = int(cfg.layers)
-    ref = par_steps(cfg, device, params, batch)
-    init_flat = flat_params(params)
-    ref_update = flat_params(ref["params"]) - init_flat
-    torch.save({"params": params, "batch": batch}, tmp / "par_inputs.pt")
+    refs = {}
+    for mesh in layouts.values():
+        key = model_key(mesh)
+        if key not in refs:
+            cfg = par_config(config, **json.loads(key))
+            params = {k: v.clone() for k, v in seed_model(cfg).state_dict().items()}
+            ref = par_steps(cfg, device, params, batch)
+            refs[key] = {"cfg": cfg, "params": params, "ref": ref,
+                         "update": flat_params(ref["params"]) - flat_params(params),
+                         "leaf_update": {k: v - params[k]
+                                         for k, v in moe_leaves(ref["params"]).items()}}
+    torch.save({"params": {k: r["params"] for k, r in refs.items()}, "batch": batch},
+               tmp / "par_inputs.pt")
     runs = [{"name": name if fault is None else f"{name}+{fault}", "mesh": mesh, "fault": fault}
             for name, mesh in layouts.items() for fault in [None, *faults[name]]]
     job = {"config": str(CONFIG), "device": device.type, "inputs": str(tmp / "par_inputs.pt"),
@@ -3260,13 +3491,20 @@ def check_layouts(cfg, device, card: str, params, batch, tmp: Path, world: int, 
     launch_s = time.perf_counter() - t0
     out = torch.load(tmp / "par_out.pt", weights_only=False)
 
-    def gaps(res) -> dict:
+    def gaps(res, r) -> dict:
+        ref = r["ref"]
         per_step = {k: max(abs(m[k] - w[k]) / abs(w[k])
                            for m, w in zip(res["metrics"], ref["metrics"]))
                     for k in ("total_loss", "grad_norm", "param_norm")}
-        return {"loss": per_step["total_loss"], "grad_norm": per_step["grad_norm"],
-                "param_norm": per_step["param_norm"],
-                "update": rel_l2(res["params"] - init_flat, ref_update)}
+        g = {"loss": per_step["total_loss"], "grad_norm": per_step["grad_norm"],
+             "param_norm": per_step["param_norm"],
+             "update": rel_l2(res["params"] - flat_params(r["params"]), r["update"])}
+        leaf = {k: rel_l2(v - r["params"][k], r["leaf_update"][k])
+                for k, v in res["leaves"].items()}
+        for gate, part in (("experts", ".ff.experts."), ("router", ".ff.router.")):
+            if any(part in k for k in leaf):
+                g[gate] = max(v for k, v in leaf.items() if part in k)
+        return g
 
     def show(g: dict) -> str:
         return ", ".join(f"{k} {v:.3e}" for k, v in g.items())
@@ -3276,35 +3514,40 @@ def check_layouts(cfg, device, card: str, params, batch, tmp: Path, world: int, 
 
     counts = dict.fromkeys(launches_now(), 0)
     for name, mesh in layouts.items():
-        res = out[name]
-        want_heads = [int(cfg.heads) // int(mesh.get("mesh_model", 1))]
-        for r, rank in enumerate(res["ranks"]):
+        res, r = out[name], refs[model_key(mesh)]
+        n = layout_launches(r["cfg"], mesh)
+        want_heads = [int(r["cfg"].heads) // int(mesh.get("mesh_model", 1))]
+        for rank_i, rank in enumerate(res["ranks"]):
             for c in rank["launches"]:
-                assert c == {**dict.fromkeys(c, 0), "flash_fwd": n, "flash_bwd": n}, (name, r, c)
-            assert rank["heads"] == {"fwd": want_heads, "bwd": want_heads}, (name, r, rank["heads"])
+                assert c == {**dict.fromkeys(c, 0), "flash_fwd": n, "flash_bwd": n}, \
+                    (name, rank_i, c)
+            assert rank["heads"] == {"fwd": want_heads, "bwd": want_heads}, \
+                (name, rank_i, rank["heads"])
             for k in counts:
                 counts[k] += sum(c[k] for c in rank["launches"])
-        held = gaps(res)
-        planted = {f: gaps(out[f"{name}+{f}"]) for f in faults[name]}
-        walls = "; ".join(f"rank {r} " + ", ".join(f"{x:.3f}" for x in rank["wall_ms"])
-                          for r, rank in enumerate(res["ranks"]))
-        memory = "; ".join(f"rank {r} peak {mib(rank['peak_mib'])}, optimizer state "
-                           f"{rank['opt_mib']:.1f}" for r, rank in enumerate(res["ranks"]))
+        held = gaps(res, r)
+        planted = {f: gaps(out[f"{name}+{f}"], r) for f in faults[name]}
+        walls = "; ".join(f"rank {i} " + ", ".join(f"{x:.3f}" for x in rank["wall_ms"])
+                          for i, rank in enumerate(res["ranks"]))
+        memory = "; ".join(f"rank {i} peak {mib(rank['peak_mib'])}, optimizer state "
+                           f"{rank['opt_mib']:.1f}" for i, rank in enumerate(res["ranks"]))
         print(
             f"{label} {name} ({mesh}): {world} ranks over {backend} against the unsharded steps "
             f"(fused backward): largest per-step gap {show(held)} (bounds "
-            f"{show(PAR_BOUNDS)}); "
-            + "".join(f"planted {f} ({FAULT_GATES[f]} must fail): {show(g)}; "
+            f"{show({k: PAR_BOUNDS[k] for k in held})}); "
+            + "".join(f"planted {f} ({'/'.join(FAULT_GATES[f])} must fail): {show(g)}; "
                       for f, g in planted.items())
             + f"K1 {n} + K2 {n} a step on each rank at H {want_heads[0]}; wall ms a step {walls}; "
-            f"unsharded {', '.join(f'{x:.3f}' for x in ref['wall_ms'])}; MiB {memory} "
-            f"(unsharded peak {mib(ref['peak_mib'])}, optimizer state {ref['opt_mib']:.1f})",
+            f"unsharded {', '.join(f'{x:.3f}' for x in r['ref']['wall_ms'])}; MiB {memory} "
+            f"(unsharded peak {mib(r['ref']['peak_mib'])}, optimizer state "
+            f"{r['ref']['opt_mib']:.1f})",
             flush=True,
         )
-        for gate, bound in PAR_BOUNDS.items():
-            assert held[gate] <= bound, (name, gate, held[gate])
+        for gate, value in held.items():
+            assert value <= PAR_BOUNDS[gate], (name, gate, value)
         for f, g in planted.items():
-            assert g[FAULT_GATES[f]] > PAR_BOUNDS[FAULT_GATES[f]], (name, f, g)
+            for gate in FAULT_GATES[f]:
+                assert g[gate] > PAR_BOUNDS[gate], (name, f, gate, g)
     if "probe" in out:
         print(f"{label}: {backend} on {device.type} tensors, two ranks: {out['probe']}", flush=True)
     print(f"{label}: the launch took {launch_s:.1f} s; {host_description()}; {card}", flush=True)
@@ -3320,12 +3563,31 @@ def par_inputs(config) -> tuple:
     return cfg, {k: v.clone() for k, v in seed_model(cfg).state_dict().items()}, batch
 
 
+#: ``--parallel-cards N``: each layout with its planted faults, NCCL, a
+#: rank a card; the last three are phase 15's at four ranks (depth 4)
+CARD_FAULTS = {"dp_fsdp": ["none_gather", "unscaled_grads"], "tcga_parallel": ["skip_out_reduce"],
+               "dp_pp_fsdp": [], "tp_pp": [], "dp_ep": []}
+
+
+def card_layouts(world: int) -> dict:
+    return {"dp_fsdp": {"mesh_data": world, "fsdp": True},
+            "tcga_parallel": {"mesh_data": world // 2, "mesh_model": 2, "fsdp": True,
+                              "seq_shard": True},
+            "dp_pp_fsdp": {"layers": 4, "mesh_data": world // 2, "mesh_pipe": 2, "fsdp": True},
+            "tp_pp": {"layers": 4, "mesh_data": world // 4, "mesh_model": 2, "mesh_pipe": 2},
+            "dp_ep": {"layers": 4, "moe_experts": 4, "moe_capacity_factor": MOE_CF,
+                      "mesh_data": world // 2, "mesh_model": 2}}
+
+
 def parallel_cards(world: int) -> int:
-    """``python3 chip_smoke.py --parallel-cards N``: phase 14 (b)'s check
-    over NCCL on N cards of one host, one rank a card: DP + FSDP over all
-    N, and ``configs/tcga_parallel.yaml``'s layout (data N / 2 x model 2,
-    fsdp, seq_shard), each with its planted fault, against the unsharded
-    steps on card 0.  Not part of the one-card run."""
+    """``python3 chip_smoke.py --parallel-cards N``: phases 14 (b) and 15's
+    checks over NCCL on N cards of one host, one rank a card: DP + FSDP
+    over all N, ``configs/tcga_parallel.yaml``'s layout (data N / 2 x
+    model 2, fsdp, seq_shard), data N / 2 x pipe 2 + fsdp, model 2 x pipe 2
+    (TP inside the stages) and data N / 2 x model 2 with 4 experts (EP),
+    the last three at depth 4, against the unsharded steps on card 0;
+    then NCCL's point-to-point ops on CUDA tensors.  Not part of the
+    one-card run."""
     if torch.cuda.device_count() < world:
         print(f"chip_smoke: --parallel-cards {world} needs {world} CUDA devices, "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
@@ -3337,14 +3599,13 @@ def parallel_cards(world: int) -> int:
     print("\n".join(card), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build()
-    cfg, params, batch = par_inputs(training_config(str(CONFIG)))
-    layouts = {"dp_fsdp": {"mesh_data": world, "fsdp": True},
-               "tcga_parallel": {"mesh_data": world // 2, "mesh_model": 2, "fsdp": True,
-                                 "seq_shard": True}}
-    faults = {"dp_fsdp": ["none_gather", "unscaled_grads"], "tcga_parallel": ["skip_out_reduce"]}
+    config = training_config(str(CONFIG))
+    _, _, batch = par_inputs(config)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
-        counts = check_layouts(cfg, torch.device("cuda"), card[0], params, batch, Path(tmp),
-                               world, "nccl", layouts, faults, f"{world} cards")
+        counts = check_layouts(config, torch.device("cuda"), card[0], batch, Path(tmp), world,
+                               "nccl", card_layouts(world), CARD_FAULTS, f"{world} cards")
+        print(f"{world} cards: nccl point to point on cuda tensors, two ranks: "
+              f"{probe_p2p('nccl', Path(tmp))}", flush=True)
     print(json.dumps({"launches": counts}), flush=True)
     return 0
 
@@ -3417,7 +3678,7 @@ def check_parallel(device, card: str, tmp: Path) -> dict:
     )
 
     # (b) two ranks on the one card over gloo, against the unsharded steps
-    add(check_layouts(cfg, device, card, params, batch, tmp, 2, "gloo", PAR_LAYOUTS,
+    add(check_layouts(config, device, card, batch, tmp, 2, "gloo", PAR_LAYOUTS,
                       PAR_FAULTS, "phase 14 (b)"))
 
     # (c) infer at 2 ranks against 1, from (a)'s checkpoint
@@ -3463,6 +3724,20 @@ def check_parallel(device, card: str, tmp: Path) -> dict:
     return counts
 
 
+def check_pipe_ep(device, card: str, tmp: Path) -> dict:
+    """Phase 15, GPipe and expert parallelism (module docstring); returns
+    the launches of its main paths."""
+    config = training_config(str(CONFIG))
+    _, _, batch = par_inputs(config)
+    counts = check_layouts(config, device, card, batch, tmp, 2, "gloo", PIPE_EP_LAYOUTS,
+                           PIPE_EP_FAULTS, "phase 15")
+    print(f"phase 15: gloo point to point on {device.type} tensors, two ranks: "
+          f"{probe_p2p('gloo', tmp)}; the ring shift takes "
+          f"{'an all_gather over pipe' if device.type == 'cuda' else 'batch_isend_irecv'} "
+          f"on gloo {device.type} tensors", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3480,7 +3755,15 @@ def main() -> int:
     )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
+    seconds = {}  # each phase's wall seconds, printed together at the end
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
     reports = _build.build()
     print(f"built {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
@@ -3491,34 +3774,51 @@ def main() -> int:
     check_counter_sass(reports["roofline_counter"])
     check_probe_sass(reports["probe_overlap"])
 
+    lap("1 build and SASS")
     device = torch.device("cuda")
-    kernels = [check_flash(device), check_ff(device), *check_flash_bwd(device)]
+    kernels = [check_flash(device), check_ff(device)]
+    lap("2-3 K1, K5")
+    kernels += check_flash_bwd(device)
+    lap("4 backward")
     config = training_config(str(CONFIG))
     counts = check_slice(config, device)
+    lap("5 serving")
     counts.update(check_train(config, device)[0])
+    lap("6 training step")
     rows = synthetic_rows(config, RUN_ROWS, seed=int(config.seed))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as tmp:
-        t8 = time.perf_counter()
         check_run(config, device, Path(tmp), rows)
-        print(f"training run: {time.perf_counter() - t8:.1f} s", flush=True)
-        t9 = time.perf_counter()
+        lap("8 training run")
+        print(f"training run: {seconds['8 training run']:.1f} s", flush=True)
         eval_counts = check_eval(config, device, Path(tmp), rows)
-        print(f"evaluation path: {time.perf_counter() - t9:.1f} s", flush=True)
+        lap("9 evaluation")
+        print(f"evaluation path: {seconds['9 evaluation']:.1f} s", flush=True)
         cmu_counts = check_cmu(device, Path(tmp))
+        lap("10 cmu")
     eao_counts = check_eao_train(device)
+    lap("11 eao")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
         moe_counts = check_moe(device, Path(tmp))
+    lap("12 moe")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
         quant_counts = check_quant_aot(config, device, card, Path(tmp))
-    t14 = time.perf_counter()
+    lap("13 int8 and aot")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
         par_counts = check_parallel(device, card, Path(tmp))
-    print(f"parallel slice: {time.perf_counter() - t14:.1f} s", flush=True)
-    t7 = time.perf_counter()
+    lap("14 parallel")
+    print(f"parallel slice: {seconds['14 parallel']:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_ep_") as tmp:
+        pipe_ep_counts = check_pipe_ep(device, card, Path(tmp))
+    lap("15 pipe and ep")
+    print(f"pipeline and expert parallelism: {seconds['15 pipe and ep']:.1f} s", flush=True)
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
-    print(f"measurement slice: {time.perf_counter() - t7:.1f} s", flush=True)
-    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts, par_counts):
+    lap("7 measurement")
+    print(f"measurement slice: {seconds['7 measurement']:.1f} s", flush=True)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total {time.perf_counter() - start:.1f}", flush=True)
+    for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts, par_counts,
+                  pipe_ep_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:
@@ -3538,6 +3838,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--p2p-rank"]:
+        sys.exit(p2p_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--infer-rank"]:
         sys.exit(infer_rank(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--parallel-cards"]:

@@ -23,7 +23,7 @@
   activations: ``x = norm(x); x = attn(x) + x; x = norm(x);
   x = ff(x) + x``; with ``moe_experts > 0`` the feed-forward is
   :class:`~mca_tpu_torch.models.moe.MoEFeedForward`, routed under the
-  padding mask.
+  padding mask (its experts split over ``model`` where they divide).
 
 dtype chain (as in the JAX package): the norm returns fp32; attention
 and FF cast their input to the compute dtype; their outputs are cast
@@ -260,11 +260,6 @@ class MCALayer(nn.Module):
                 "int8 quantization covers the dense projections only; "
                 "moe_experts requires quant='none'"
             )
-        if self.moe and coll.group_size(model_group) > 1:
-            raise NotImplementedError(
-                "moe_experts with mesh_model > 1: expert parallelism is not "
-                "ported yet (ROADMAP.md Queue A item 9, the next parallelism slice)"
-            )
         self.attn = Attention(
             dim, dim_head=dim_head, heads=heads, dtype=dtype,
             impl=attn_impl, quant=quant, model_group=model_group, seq_shard=seq_shard,
@@ -273,6 +268,7 @@ class MCALayer(nn.Module):
             self.ff = MoEFeedForward(
                 dim, int(moe_experts), mult=ff_mult,
                 capacity_factor=moe_capacity_factor, dtype=dtype,
+                model_group=model_group, seq_shard=seq_shard,
             )
         else:
             self.ff = FeedForward(

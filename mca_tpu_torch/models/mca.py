@@ -36,16 +36,22 @@ instead of keeping its activations.
 (:mod:`mca_tpu_torch.ops.quant`, serving only); the attentive pool
 stays float.
 
-``data_group`` / ``model_group`` (the training run's mesh,
-:mod:`mca_tpu_torch.parallel`): over ``data`` the pooled tokens and the
-modality masks are gathered before the loss, so that every rank computes
-the loss of the global batch (:meth:`MCAPretrainingLoss.gather`); over
-``model`` the blocks' attention is tensor-parallel by heads, and with
-``seq_shard`` the residual stream between blocks is this rank's
-``T / model`` tokens.  Without groups (``infer``, ``serve``, export, one
-process) ``seq_shard`` and ``pipeline_stages`` are ignored, as in the JAX
-package, whose consumers without a mesh run the sequential stack; GPipe
-pipelining over a mesh is not ported yet and raises.
+``data_group`` / ``model_group`` / ``pipe_group`` (the training run's
+mesh, :mod:`mca_tpu_torch.parallel`): over ``data`` the pooled tokens and
+the modality masks are gathered before the loss, so that every rank
+computes the loss of the global batch (:meth:`MCAPretrainingLoss.gather`);
+over ``model`` the blocks' attention is tensor-parallel by heads (and a
+MoE block's experts are split over it), and with ``seq_shard`` the
+residual stream between blocks is this rank's ``T / model`` tokens; over
+``pipe`` (``pipeline_stages > 1``) the block stack runs as a GPipe
+pipeline of ``pipeline_microbatches`` (:mod:`mca_tpu_torch.parallel.pipeline`),
+its input widened to the blocks' fp32 output dtype (the shared norm
+returns fp32, so the sequential stack's later blocks see fp32 too), with
+``remat`` per block inside a stage; the pool and the loss then run on
+every stage.  ``seq_shard`` and a pipeline together raise, as in the JAX
+package.  Without groups (``infer``, ``serve``, export, one process)
+``seq_shard`` and ``pipeline_stages`` are ignored, as in the JAX package,
+whose consumers without a mesh run the sequential stack.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from mca_tpu_torch.losses import LOGIT_SCALE_INIT, MCAPretrainingLoss
 from mca_tpu_torch.models.layers import Attention, LayerNorm, MCALayer
 from mca_tpu_torch.models.pool import MeanTokenProjectionPool
 from mca_tpu_torch.parallel import collectives as coll
+from mca_tpu_torch.parallel.pipeline import pipeline_layers
 
 
 def dtype_of(precision: str) -> torch.dtype:
@@ -91,6 +98,7 @@ class MCA(nn.Module):
         attention_impl: str = "dense",
         quant: str = "none",
         pipeline_stages: int = 0,
+        pipeline_microbatches: int = 0,
         seq_shard: bool = False,
         moe_experts: int = 0,
         moe_capacity_factor: float = 2.0,
@@ -98,6 +106,7 @@ class MCA(nn.Module):
         fused_ff: bool = True,
         data_group=None,
         model_group=None,
+        pipe_group=None,
     ):
         super().__init__()
         if mean_pool and fcl and not zorro:
@@ -107,13 +116,14 @@ class MCA(nn.Module):
                 "mean_pool is incompatible with fusion-channel pooling "
                 "(fcl); use zorro or attentive pooling"
             )
-        meshed = data_group is not None or model_group is not None
-        if int(pipeline_stages or 0) > 1 and meshed:
-            raise NotImplementedError(
-                f"pipeline_stages={pipeline_stages}: GPipe pipelining over the mesh "
-                "is not ported yet (ROADMAP.md Queue A item 9, the next "
-                "parallelism slice)"
-            )
+        self.pipeline_stages = int(pipeline_stages or 0)
+        self.pipeline_microbatches = int(pipeline_microbatches or 0)
+        # the stack pipelines only on a mesh with a pipe axis
+        self.pipe_group = (pipe_group if self.pipeline_stages > 1
+                           and coll.group_size(pipe_group) > 1 else None)
+        if self.pipe_group is not None and seq_shard:
+            raise ValueError("seq_shard and pipeline_stages (mesh_pipe > 1) are "
+                             "mutually exclusive")
         # the residual stream is sharded over model only where the
         # attention is (a mesh of one model rank runs the plain stack)
         self.seq_group = model_group if seq_shard and coll.group_size(model_group) > 1 else None
@@ -214,15 +224,20 @@ class MCA(nn.Module):
         padding = torch.cat(pad_masks, dim=1)
 
         attn_mask = self.mask_set.attn_mask
-        if self.seq_group is not None:
-            x = coll.split_seq(x, self.seq_group)
-        for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, attn_mask, padding, use_reentrant=False)
-            else:
-                x = layer(x, attn_mask, padding)
-        if self.seq_group is not None:
-            x = coll.gather_seq_out(x, self.seq_group)
+        if self.pipe_group is not None:
+            x = pipeline_layers(self.layers, x.float(), padding, attn_mask, self.pipe_group,
+                                self.pipeline_stages, self.pipeline_microbatches,
+                                remat=self.remat)
+        else:
+            if self.seq_group is not None:
+                x = coll.split_seq(x, self.seq_group)
+            for layer in self.layers:
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, attn_mask, padding, use_reentrant=False)
+                else:
+                    x = layer(x, attn_mask, padding)
+            if self.seq_group is not None:
+                x = coll.gather_seq_out(x, self.seq_group)
         x = self.norm(x.float())
 
         if self.mean_pool:

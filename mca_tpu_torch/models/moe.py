@@ -39,6 +39,23 @@ the last bits of a bf16 output may vary from run to run.  Both are plain PyTorch
 operations: the JAX package computes them in XLA, outside any Pallas
 kernel.
 
+Expert parallelism (``model_group`` of ``m`` ranks with ``E % m == 0``,
+the JAX rule that shards the stacked expert matrices' expert dim over
+``model``; :mod:`mca_tpu_torch.parallel.sharding`): the rank holds
+experts ``[r * E / m, (r + 1) * E / m)`` (:meth:`MoEFeedForward.local_experts`).
+Every rank routes the whole sample with the replicated router, gathers
+and computes its own experts' tokens and ``index_add``s their weighted
+outputs; one ``reduce_from_model`` sums the ranks' partial combines in
+fp32, rounded once to the compute dtype (one process's ``index_add``
+rounds a token's sum there too), and the input passes ``copy_to_model``, whose backward sums the
+ranks' partial input gradients (through their experts and through the
+router's scores of their experts).  Under ``seq_shard`` the block sees a
+token shard, and expert choice needs the whole sequence, so it gathers
+the sequence first (``gather_seq``) and reduce-scatters its partials
+back to shards.  Where ``E`` does not divide by ``m`` the experts stay
+replicated: every rank computes the whole block (under ``seq_shard``
+between ``gather_seq_out`` and ``split_seq``).
+
 Parameters keep the JAX package's layout under its extension names
 (``mca_tpu/interop.py``): ``router.weight`` ``[dim, E]`` (stored
 un-transposed), ``experts.w_in`` and ``experts.w_out``.
@@ -52,11 +69,14 @@ except while that tool runs, when each call appends its detached
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mca_tpu_torch.parallel import collectives as coll
+from mca_tpu_torch.parallel.sharding import expert_parallel
 
 
 def expert_capacity(seq_len: int, num_experts: int, capacity_factor: float) -> int:
@@ -87,6 +107,8 @@ class MoEFeedForward(nn.Module):
         mult: float = 4,
         capacity_factor: float = 2.0,
         dtype: torch.dtype = torch.float32,
+        model_group=None,
+        seq_shard: bool = False,
     ):
         super().__init__()
         if num_experts < 1:
@@ -95,20 +117,55 @@ class MoEFeedForward(nn.Module):
         self.num_experts = int(num_experts)
         self.capacity_factor = float(capacity_factor)
         self.dtype = dtype
+        m = coll.group_size(model_group)
+        self.model_group = model_group if m > 1 else None
+        self.seq_shard = bool(seq_shard) and self.model_group is not None
+        self.expert_parallel = expert_parallel(self.num_experts, m)
+        n_local = self.num_experts // m if self.expert_parallel else self.num_experts
         self.router = nn.ParameterDict(
             {"weight": nn.Parameter(torch.zeros(dim, num_experts))}
         )
         self.experts = nn.ParameterDict(
             {
-                "w_in": nn.Parameter(torch.zeros(num_experts, dim, 2 * inner)),
-                "w_out": nn.Parameter(torch.zeros(num_experts, inner, dim)),
+                "w_in": nn.Parameter(torch.zeros(n_local, dim, 2 * inner)),
+                "w_out": nn.Parameter(torch.zeros(n_local, inner, dim)),
             }
         )
         self.record: Optional[List[dict]] = None
 
+    def local_experts(self) -> Tuple[int, int]:
+        """The experts ``[lo, hi)`` this rank holds and computes."""
+        if not self.expert_parallel:
+            return 0, self.num_experts
+        n = self.experts["w_in"].shape[0]
+        r = coll.group_rank(self.model_group)
+        return r * n, (r + 1) * n
+
     def forward(
         self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        group = self.model_group
+        if group is None:
+            return self._combine(x, padding_mask)
+        if self.expert_parallel:
+            x = coll.gather_seq(x, group) if self.seq_shard else coll.copy_to_model(x, group)
+            out = self._combine(x, padding_mask).float()
+            if self.seq_shard:
+                out = coll.reduce_scatter_seq(out, group)
+            else:
+                out = coll.reduce_from_model(out, group)
+            # rounded once to the compute dtype, as one process's combine
+            return out.to(self.dtype)
+        if self.seq_shard:
+            return coll.split_seq(self._combine(coll.gather_seq_out(x, group), padding_mask),
+                                  group)
+        return self._combine(x, padding_mask)
+
+    def _combine(
+        self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Route the whole of each sample; this rank's experts' weighted
+        outputs, summed per token: ``[B, T, D]`` in the compute dtype."""
         B, T, D = x.shape
         E = self.num_experts
         C = expert_capacity(T, E, self.capacity_factor)
@@ -125,6 +182,8 @@ class MoEFeedForward(nn.Module):
                 }
             )
 
+        lo, hi = self.local_experts()
+        gates, token_idx = gates[:, lo:hi], token_idx[:, lo:hi]
         compute = self.dtype
         b_idx = torch.arange(B, device=x.device)[:, None, None]
         xe = x.to(compute)[b_idx, token_idx]  # [B, E, C, D]

@@ -18,10 +18,23 @@ None is an axis of one rank, where each function is the identity.
   :func:`reduce_from_model`: all-reduce forward, identity backward), and
   the sequence-parallel forms along a token axis (:func:`gather_seq`,
   :func:`reduce_scatter_seq`, :func:`split_seq`, :func:`gather_seq_out`).
+- GPipe's pair over ``pipe`` (:mod:`mca_tpu_torch.parallel.pipeline`):
+  :func:`ring_shift` (rank ``i`` receives rank ``i - 1``'s tensor, the
+  JAX package's ``ppermute`` over ``[(i, i + 1 mod S)]``; backward: the
+  reverse shift) and :func:`last_to_all` (the last stage's tensor on
+  every stage, JAX's ``psum(where(s == S - 1, buf, 0))``; backward: the
+  last stage's own gradient, since every stage computes the same loss
+  from it), and :func:`tie`, which orders a tensor after another in the
+  backward graph without touching its value.
 
-The collectives are ``all_gather_into_tensor``, ``reduce_scatter_tensor``
-and ``all_reduce`` on both backends: gloo takes all three on CPU and on
-CUDA tensors (``chip_smoke.py``'s phase 14 (b) probes it), NCCL on CUDA.
+The collectives are ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_reduce`` and ``broadcast`` on both backends: gloo takes all four on
+CPU and on CUDA tensors (``chip_smoke.py``'s phase 14 (b) probes it),
+NCCL on CUDA.  The ring shift is chosen by backend: point to point
+(``batch_isend_irecv``) on NCCL and on gloo's CPU tensors, and on gloo's
+CUDA tensors, where gloo documents ``send`` / ``recv`` for CPU tensors
+only, an ``all_gather`` over ``pipe`` from which each rank takes its
+neighbour's block (S times the bytes; phase 15 probes both).
 """
 
 from __future__ import annotations
@@ -221,3 +234,76 @@ def gather_seq_out(x: torch.Tensor, group: Group, dim: int = 1) -> torch.Tensor:
     """Shards -> the whole sequence, ahead of replicated layers (backward:
     this rank's shard of the gradient, which every rank computes whole)."""
     return x if group is None else _GatherSplit.apply(x, group, dim)
+
+
+def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
+    """Rank ``i`` of ``group`` gets rank ``i - step``'s ``t`` (module
+    docstring for the route each backend takes)."""
+    n, r = group_size(group), group_rank(group)
+    x = t.contiguous()
+    if dist.get_backend(group) == "gloo" and x.is_cuda:
+        return all_gather(x[None], group)[(r - step) % n].clone()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + step) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - step) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1), None
+
+
+class _LastToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n = group_size(group)
+        ctx.last = group_rank(group) == n - 1
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, dist.get_global_rank(group, n - 1), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else torch.zeros_like(g)), None
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, after):
+        ctx.after = (after.shape, after.dtype)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype = ctx.after
+        return g, g.new_zeros(shape, dtype=dtype)
+
+
+def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Rank ``i`` of ``group`` gets rank ``i - 1``'s ``x`` (mod the size);
+    the gradient goes the other way round."""
+    return x if group is None else _RingShift.apply(x, group)
+
+
+def last_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The last rank's ``x`` on every rank of ``group``.  The gradient
+    reaches the last rank's ``x`` from its own output alone, and the other
+    ranks' ``x`` a zero one: every rank must compute the same function of
+    the output (the pool and loss, replicated over ``pipe``)."""
+    return x if group is None else _LastToAll.apply(x, group)
+
+
+def tie(x: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, made to depend on ``after`` in the backward graph (a
+    zero gradient goes to ``after``), so that ``after``'s backward runs
+    after ``x``'s on every rank."""
+    return _Tie.apply(x, after)

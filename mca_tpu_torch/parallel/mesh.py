@@ -1,22 +1,26 @@
-"""The ``('data', 'model')`` rank mesh, ported from ``mca_tpu/parallel/mesh.py``.
+"""The ``('data', 'model', 'pipe')`` rank mesh, ported from ``mca_tpu/parallel/mesh.py``.
 
 The JAX package lays its devices out as a ``data x model`` grid,
-data-major; here the ranks of the process group take the same places
-(rank ``r`` sits at ``(r // model, r % model)``) and
+data-major, and appends a ``pipe`` axis when ``mesh_pipe > 1``
+(``reshape(data, model, pipe)``, row-major); here the ranks of the
+process group take the same places: rank ``r`` sits at ``(r // (model
+* pipe), (r // pipe) % model, r % pipe)``.
 ``torch.distributed.device_mesh.init_device_mesh`` makes one process
-group per row (``model``: the ranks that share a batch block and split
-the attention heads) and per column (``data``: the ranks that split the
-batch).  ``data: 0`` takes every rank the model axis leaves, clamped to
-a divisor of the batch, with the JAX package's warnings; a mesh larger
-than the world raises, as the JAX ``assert`` does.  ``mesh_pipe > 1``
-(GPipe over the layer stack) is not ported yet and raises.
+group per axis: ``model`` (the ranks that share a batch block and
+pipeline stage and split the attention heads or the experts), ``data``
+(the ranks that split the batch) and ``pipe`` (the GPipe stages of one
+batch block, :mod:`mca_tpu_torch.parallel.pipeline`).  ``data: 0``
+takes every rank the other axes leave, clamped to a divisor of the
+batch, with the JAX package's warnings; a mesh larger than the world
+raises ``ValueError``, as the JAX ``assert`` does.  With ``pipe == 1``
+the ``data`` and ``model`` groups are those of the two-axis grid.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch.distributed as dist
 
@@ -36,13 +40,51 @@ class Mesh:
     model_rank: int = 0
     data_group: Optional[dist.ProcessGroup] = None
     model_group: Optional[dist.ProcessGroup] = None
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: Optional[dist.ProcessGroup] = None
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.model * self.pipe
 
 
 SINGLE = Mesh()
+
+
+def coordinates(rank: int, model: int, pipe: int) -> Tuple[int, int, int]:
+    """``(data, model, pipe)`` coordinates of ``rank`` in the row-major
+    ``data x model x pipe`` grid."""
+    return rank // (model * pipe), (rank // pipe) % model, rank % pipe
+
+
+def mesh_shape(data: int, model: int, pipe: int, batch_size: Optional[int],
+               world: int) -> Tuple[int, int, int]:
+    """The axis sizes ``make_mesh`` lays over ``world`` ranks (the JAX
+    package's ``make_mesh`` rules): ``data`` 0 takes what the other axes
+    leave, clamped to a divisor of ``batch_size``; raises ``ValueError``
+    where the mesh needs more ranks than the world has."""
+    data, model, pipe = int(data or 0), max(int(model or 1), 1), max(int(pipe or 1), 1)
+    if data == 0:
+        full_data = max(world // (model * pipe), 1)
+        data = full_data
+        if batch_size is not None:
+            while int(batch_size) % data:
+                data -= 1
+        if data * model * pipe < world:
+            reason = (
+                f"batch {batch_size} not divisible by the full data axis {full_data}"
+                if data < full_data
+                else f"{world} ranks not divisible by the model x pipe axes {model * pipe}"
+            )
+            logger.warning("auto mesh clamped to %dx%dx%d on %d ranks (%s) — %d ranks idle",
+                           data, model, pipe, world, reason, world - data * model * pipe)
+    if data * model * pipe > world:
+        axes = f"mesh_data={data} x mesh_model={model}"
+        if pipe > 1:
+            axes += f" x mesh_pipe={pipe}"
+        raise ValueError(f"{axes} needs {data * model * pipe} ranks; the world has {world}")
+    return data, model, pipe
 
 
 def make_mesh(
@@ -52,50 +94,28 @@ def make_mesh(
     pipe: int = 1,
     device: str = "cpu",
 ) -> Mesh:
-    """``data x model`` over the process group's ranks (module docstring);
-    :data:`SINGLE` on one process.  ``device`` is the ranks' device type
-    (``cpu`` or ``cuda``), for the device mesh."""
-    pipe = max(int(pipe or 1), 1)
-    if pipe > 1:
-        raise NotImplementedError(
-            f"mesh_pipe={pipe}: GPipe pipelining over the layer stack "
-            "(mca_tpu/parallel/pipeline.py) is not ported yet (ROADMAP.md "
-            "Queue A item 9, the next parallelism slice)"
-        )
+    """``data x model [x pipe]`` over the process group's ranks (module
+    docstring); :data:`SINGLE` on one process.  ``device`` is the ranks'
+    device type (``cpu`` or ``cuda``), for the device mesh."""
     world = process_count()
-    data, model = int(data or 0), max(int(model or 1), 1)
-    if data == 0:
-        full_data = max(world // model, 1)
-        data = full_data
-        if batch_size is not None:
-            while int(batch_size) % data:
-                data -= 1
-        if data * model < world:
-            reason = (
-                f"batch {batch_size} not divisible by the full data axis {full_data}"
-                if data < full_data
-                else f"{world} ranks not divisible by the model axis {model}"
-            )
-            logger.warning("auto mesh clamped to %dx%d on %d ranks (%s) — %d ranks idle",
-                           data, model, world, reason, world - data * model)
-    if data * model > world:
-        raise ValueError(
-            f"mesh_data={data} x mesh_model={model} needs {data * model} ranks; "
-            f"the world has {world}"
-        )
+    data, model, pipe = mesh_shape(data, model, pipe, batch_size, world)
     if world == 1:
         return SINGLE
-    if data * model != world:
+    if data * model * pipe != world:
         raise ValueError(
-            f"multi-process mesh {data}x{model} leaves {world - data * model} of "
-            f"{world} ranks idle; pick mesh_data x mesh_model = {world}"
+            f"multi-process mesh {data}x{model}x{pipe} leaves "
+            f"{world - data * model * pipe} of {world} ranks idle; pick mesh_data x "
+            f"mesh_model x mesh_pipe = {world}"
         )
     from torch.distributed.device_mesh import init_device_mesh
 
-    dm = init_device_mesh(device, (data, model), mesh_dim_names=("data", "model"))
-    d_rank, m_rank = dm.get_coordinate()
+    dm = init_device_mesh(device, (data, model, pipe), mesh_dim_names=("data", "model", "pipe"))
+    d_rank, m_rank, p_rank = dm.get_coordinate()
+    assert (d_rank, m_rank, p_rank) == coordinates(dist.get_rank(), model, pipe)
     return Mesh(
         data=data, model=model, data_rank=int(d_rank), model_rank=int(m_rank),
         data_group=dm.get_group("data") if data > 1 else None,
         model_group=dm.get_group("model") if model > 1 else None,
+        pipe=pipe, pipe_rank=int(p_rank),
+        pipe_group=dm.get_group("pipe") if pipe > 1 else None,
     )

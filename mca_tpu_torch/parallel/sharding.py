@@ -14,10 +14,30 @@ rules shard ``w_in`` on its 2730 columns because XLA keeps global
 semantics over any split; that is not a layout a rank can compute on.)
 The attentive pool, encoders, norms and tokens are replicated.
 
+**Expert parallelism over ``model``** (the JAX rules' ``P("model")`` on
+the stacked expert matrices): a MoE block's ``experts.w_in`` ``[E, D, 2
+* inner]`` and ``experts.w_out`` ``[E, inner, D]`` split their expert
+dim, rank ``r`` holding experts ``[r * E / m, (r + 1) * E / m)``, where
+``E`` divides by ``m`` (:func:`expert_parallel`); otherwise they stay
+replicated, as the JAX divisibility rule leaves them, and the block is a
+plain MoE under TP.  The router stays replicated; every rank routes the
+whole sample (:mod:`mca_tpu_torch.models.moe`), so the router's gradient
+reaches a rank only through its own experts' gates: a partial sum over
+``model`` (:data:`ROUTER`).
+
 **``seq_shard``** keeps the residual stream ``[B, T / model, D]`` per
 rank between blocks; the norms and the feed-forward then see a shard of
 the tokens, so their gradients are partial sums that are added over
-``model`` (:data:`SEQ_PARTIAL`).
+``model`` (:data:`SEQ_PARTIAL`).  A MoE block gathers the whole sequence
+first (expert choice needs it), so its leaves are not among those.
+
+**GPipe over ``pipe``** (:mod:`mca_tpu_torch.parallel.pipeline`): the
+parameters stay whole on every stage.  A block's leaves get their
+gradient on their own stage only and the encoders and packing tokens on
+stage 0 only (:data:`PIPE_PARTIAL`), so those are summed over ``pipe``;
+the final norm, the pool and the logit scales get the same gradient on
+every stage (each computes the same loss) and are left as they are: a
+sum would scale them by the stage count.
 
 **FSDP over ``data``** (ZeRO's optimizer-state sharding,
 :class:`ShardedOptimizer`): every leaf of at least :data:`FSDP_MIN_SIZE`
@@ -49,14 +69,28 @@ from mca_tpu_torch.parallel.mesh import Mesh
 #: leaves smaller than this stay replicated under fsdp
 FSDP_MIN_SIZE = 2 ** 14
 
-#: tensor-parallel leaves: name pattern -> layout of the rank's shard
+#: tensor- and expert-parallel leaves: name pattern -> layout of the
+#: rank's shard
 TP_RULES = [
     (re.compile(r"^layers\.\d+\.attn\.to_q\.weight$"), "rows"),
     (re.compile(r"^layers\.\d+\.attn\.to_kv\.weight$"), "kv_rows"),
     (re.compile(r"^layers\.\d+\.attn\.to_out\.weight$"), "cols"),
+    (re.compile(r"^layers\.\d+\.ff\.experts\.(w_in|w_out)$"), "experts"),
 ]
-#: leaves that act on a sequence shard under seq_shard
-SEQ_PARTIAL = re.compile(r"^layers\.\d+\.(norm\.|ff\.)")
+#: leaves that act on a sequence shard under seq_shard (a dense
+#: feed-forward's; a MoE block's see the whole sequence)
+SEQ_PARTIAL = re.compile(r"^layers\.\d+\.(norm\.|ff\.feedforward\.)")
+#: a MoE block's router
+ROUTER = re.compile(r"^(layers\.\d+\.ff)\.router\.weight$")
+#: leaves upstream of (or inside) a pipelined stack: their gradient lies
+#: on one stage
+PIPE_PARTIAL = re.compile(r"^(layers\.|encoders\.|fusion_tokens$)")
+
+
+def expert_parallel(n_experts: int, m: int) -> bool:
+    """Whether ``n_experts`` experts split over ``m`` model ranks (the JAX
+    rule: shard where the axis divides the dim)."""
+    return m > 1 and n_experts % m == 0
 
 
 def tp_layout(name: str) -> Optional[str]:
@@ -76,17 +110,21 @@ def tp_shard(name: str, full: torch.Tensor, m: int, r: int) -> torch.Tensor:
         return full.reshape(2, m, -1, full.shape[1])[:, r].reshape(-1, full.shape[1]).clone()
     if layout == "cols":
         return full.reshape(full.shape[0], m, -1)[:, r].clone()
+    if layout == "experts" and expert_parallel(full.shape[0], m):
+        return full.reshape(m, -1, *full.shape[1:])[r].clone()
     return full
 
 
-def tp_unshard(name: str, local: torch.Tensor, group) -> torch.Tensor:
-    """The whole leaf from every model rank's ``local`` (a collective on
-    ``group`` for a tensor-parallel leaf; ``local`` itself otherwise)."""
+def tp_unshard(layout: Optional[str], local: torch.Tensor, group) -> torch.Tensor:
+    """The whole leaf from every model rank's ``local`` shard of
+    ``layout`` (a collective on ``group``); ``local`` itself where the
+    layout is None or the axis has one rank."""
     m = coll.group_size(group)
-    layout = tp_layout(name) if m > 1 else None
-    if layout is None:
+    if layout is None or m == 1:
         return local
     parts = coll.all_gather(local.contiguous()[None], group)  # [m, *local]
+    if layout == "experts":
+        return parts.reshape(-1, *local.shape[1:])
     if layout == "rows":
         return parts.reshape(-1, local.shape[1])
     if layout == "kv_rows":
@@ -100,16 +138,25 @@ def shard_state_dict(full: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, 
             for k, v in full.items()}
 
 
+def _expert_parallel_block(model: nn.Module, block: str) -> bool:
+    """Whether the MoE block at ``block`` (a module path) splits its
+    experts over ``model``."""
+    return bool(getattr(model.get_submodule(block), "expert_parallel", False))
+
+
 class ShardedOptimizer:
-    """The optimizer side of a multi-rank step: gradient reduction over
-    ``data`` (and, for :data:`SEQ_PARTIAL` leaves, over ``model``), the
+    """The optimizer side of a multi-rank step: gradient reduction (over
+    ``model`` for :data:`SEQ_PARTIAL` leaves under ``seq_shard`` and for an
+    expert-parallel block's router, over ``pipe`` for :data:`PIPE_PARTIAL`
+    leaves of a pipelined stack, then the average over ``data``), the
     global norm over the whole gradient, the AdamW step on each rank's
     part, and whole-state views for checkpoints.  ``make(params)`` builds
     the torch optimizer over the leaves this rank updates: the model's
     own parameters where a leaf is replicated over ``data``, the rank's
     slice of the flat leaf (a view) where it is FSDP-sharded, in the
     model's parameter order, so that its state dict has the
-    single-process indices."""
+    single-process indices.  The model pipelines its stack where it holds
+    a ``pipe_group`` (MCA; EAO runs whole on every stage)."""
 
     def __init__(self, model: nn.Module, mesh: Mesh, make, fsdp: bool = False,
                  seq_shard: bool = False, fsdp_min_size: int = FSDP_MIN_SIZE):
@@ -118,15 +165,31 @@ class ShardedOptimizer:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         d, m = mesh.data, mesh.model
-        self.tp = [tp_layout(n) is not None and m > 1 for n in self.names]
-        self.seq_partial = [bool(seq_shard and m > 1 and SEQ_PARTIAL.match(n))
-                            for n in self.names]
+
+        def layout(n: str) -> Optional[str]:
+            lay = tp_layout(n) if m > 1 else None
+            if lay == "experts" and not _expert_parallel_block(model, n.rsplit(".experts.", 1)[0]):
+                return None
+            return lay
+
+        def model_partial(n: str) -> bool:
+            router = ROUTER.match(n)
+            if router:
+                return _expert_parallel_block(model, router.group(1))
+            return bool(seq_shard and m > 1 and SEQ_PARTIAL.match(n))
+
+        self.layouts = {n: layout(n) for n in self.names}
+        self.tp = [self.layouts[n] is not None for n in self.names]
+        self.model_partial = [model_partial(n) for n in self.names]
+        pipelined = getattr(model, "pipe_group", None) is not None
+        self.pipe_partial = [bool(pipelined and PIPE_PARTIAL.match(n)) for n in self.names]
         self.sharded = [bool(fsdp and d > 1 and p.numel() * (m if tp else 1) >= fsdp_min_size)
                         for p, tp in zip(self.params, self.tp)]
         # this rank counts a leaf's entries towards a global norm where no
-        # other rank holds the same entries
+        # other rank holds the same entries (every leaf is whole on every
+        # pipe stage)
         self.owned = [(sh or mesh.data_rank == 0) and (tp or mesh.model_rank == 0)
-                      for sh, tp in zip(self.sharded, self.tp)]
+                      and mesh.pipe_rank == 0 for sh, tp in zip(self.sharded, self.tp)]
         # a sharded leaf's flat entries [a, b) are this rank's: blocks of
         # ``chunk`` in rank order, the last ones shorter (padded in flight)
         self.chunk = [-(-p.numel() // d) for p in self.params]
@@ -156,13 +219,17 @@ class ShardedOptimizer:
 
     # -- the step -------------------------------------------------------
     def reduce_gradients(self) -> None:
-        """Sum :data:`SEQ_PARTIAL` gradients over ``model``; average every
-        gradient over ``data``: an all-reduce for replicated leaves, a
-        reduce-scatter into the slice's ``.grad`` for sharded ones."""
+        """Sum the partial gradients over ``model`` and over ``pipe``
+        (class docstring); average every gradient over ``data``: an
+        all-reduce for replicated leaves, a reduce-scatter into the
+        slice's ``.grad`` for sharded ones."""
         d = self.mesh.data
-        seq = [p.grad for p, s in zip(self.params, self.seq_partial) if s]
-        if seq:
-            self._all_reduce_flat(seq, self.mesh.model_group)
+        partial = [p.grad for p, s in zip(self.params, self.model_partial) if s]
+        if partial:
+            self._all_reduce_flat(partial, self.mesh.model_group)
+        staged = [p.grad for p, s in zip(self.params, self.pipe_partial) if s]
+        if staged:
+            self._all_reduce_flat(staged, self.mesh.pipe_group)
         if d == 1:
             return
         repl = [p.grad for p, sh in zip(self.params, self.sharded) if not sh]
@@ -217,7 +284,7 @@ class ShardedOptimizer:
     def model_state_dict(self) -> Dict[str, torch.Tensor]:
         """The whole model's state dict (tensor-parallel leaves gathered
         over ``model``), on every rank."""
-        return {k: tp_unshard(k, v, self.mesh.model_group)
+        return {k: tp_unshard(self.layouts.get(k), v, self.mesh.model_group)
                 for k, v in self.model.state_dict().items()}
 
     def load_model_state_dict(self, full: Mapping[str, torch.Tensor]) -> None:
@@ -235,7 +302,7 @@ class ShardedOptimizer:
                 if torch.is_tensor(v) and v.dim() > 0:
                     if self.sharded[i]:
                         v = self._whole(v, i)
-                    st[k] = tp_unshard(self.names[i], v, self.mesh.model_group)
+                    st[k] = tp_unshard(self.layouts[self.names[i]], v, self.mesh.model_group)
             state[i] = st
         return {"state": state, "param_groups": sd["param_groups"]}
 

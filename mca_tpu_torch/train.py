@@ -45,27 +45,34 @@ at the next step boundary (the CLI exits 75).
 Several ranks (:mod:`mca_tpu_torch.parallel`; the CLI joins them with
 ``init_multihost``, from ``MCA_COORDINATOR`` / ``MCA_NUM_PROCESSES`` /
 ``MCA_PROCESS_ID`` or ``torchrun``'s ``MCA_MULTIHOST=auto``) train on a
-``mesh_data x mesh_model`` mesh as the JAX package trains on its device
-mesh: every rank runs the same loader and keeps its block of each
-global batch; the contrastive loss is computed on the global batch
+``mesh_data x mesh_model x mesh_pipe`` mesh as the JAX package trains on
+its device mesh: every rank runs the same loader and keeps its block of
+each global batch; the contrastive loss is computed on the global batch
 (gathered over ``data``); the gradient is averaged over ``data``; the
 attention is tensor-parallel by heads over ``model``, with the residual
-stream sharded over ``model`` under ``seq_shard``; ``fsdp`` shards the
-master parameters and AdamW moments of the large leaves over ``data``
+stream sharded over ``model`` under ``seq_shard``, and a MoE block's
+experts are split over ``model`` where they divide by it; ``mesh_pipe >
+1`` runs the MCA block stack as a GPipe pipeline of
+``pipeline_microbatches`` over ``pipe`` (EAO ignores it, as in the JAX
+package, and runs whole on every stage); ``fsdp`` shards the AdamW
+moments of the large leaves over ``data``
 (:class:`~mca_tpu_torch.parallel.sharding.ShardedOptimizer`).  The
 global norms, clipping and the logit-scale clamp see the whole set, so
 a step is the single-process step up to summation order.  Rank 0 writes
 the log and whole-state checkpoints (in the single-process format, so a
-run restarts at any world size); ``halt_on_nan`` and preemption stop
-every rank together.  Encoder dropout draws per data rank.
+run restarts at any world size and layout); ``halt_on_nan`` and
+preemption stop every rank together.  Encoder dropout draws per data
+rank.
 
 ``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
 the JAX package dispatches XLA, not what is trained; they have no
-counterpart here and are ignored.  A ``trace_dir``, ``mesh_pipe > 1``
-(GPipe) and ``moe_experts`` with ``mesh_model > 1`` (expert parallelism)
-raise ``NotImplementedError``; a mesh larger than the world raises
-``ValueError``.  The entry point runs on ``cuda`` and raises without
-one; pass ``--device cpu`` for the plain versions of the kernels.
+counterpart here and are ignored.  A ``trace_dir`` raises
+``NotImplementedError``; a mesh larger than the world, a depth that
+does not divide by ``mesh_pipe``, a batch that does not divide by the
+microbatches and ``seq_shard`` with ``mesh_pipe > 1`` raise
+``ValueError``, as the JAX package's asserts refuse them.  The entry
+point runs on ``cuda`` and raises without one; pass ``--device cpu`` for
+the plain versions of the kernels.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
                                               require_output_dir)
+from mca_tpu_torch.parallel.pipeline import check_pipeline
 from mca_tpu_torch.parallel.sharding import ShardedOptimizer, shard_state_dict
 from mca_tpu_torch.utils.logging import JSONLLogger, NullLogger, ThroughputMeter
 
@@ -135,43 +143,45 @@ _DEFAULT_PAD_TOKEN = -10000.0
 
 
 def check_mesh_keys(config) -> None:
-    """Refuse the mesh options that are not ported yet, before anything
-    is read: ``mesh_pipe > 1`` (GPipe over the layer stack) and
-    ``moe_experts`` with ``mesh_model > 1`` (expert parallelism) raise
-    ``NotImplementedError``.  The mesh itself is :func:`training_mesh`."""
+    """Refuse, before anything is read, what the JAX package's pipeline
+    asserts refuse where ``mesh_pipe > 1`` pipelines an MCA stack
+    (:func:`mca_tpu_torch.parallel.pipeline.check_pipeline`): ``layers``
+    not divisible by ``mesh_pipe``, ``batch_size`` (over ``grad_accum``,
+    which :func:`check_training_keys` has seen divide it) not divisible by
+    ``pipeline_microbatches`` (0 = one a stage), and ``seq_shard`` beside
+    it, each a ``ValueError``.  :func:`training_mesh` runs it after the
+    mesh, in the JAX package's order."""
     pipe = int(config.get("mesh_pipe", 1) or 1)
-    if pipe > 1:
-        raise NotImplementedError(
-            f"mesh_pipe={pipe}: GPipe pipelining over the layer stack "
-            "(mca_tpu/parallel/pipeline.py) is not ported yet (ROADMAP.md "
-            "Queue A item 9, the next parallelism slice)"
-        )
-    if int(config.get("moe_experts", 0) or 0) > 0 and int(config.get("mesh_model", 1) or 1) > 1:
-        raise NotImplementedError(
-            "moe_experts with mesh_model > 1: expert parallelism is not ported "
-            "yet (ROADMAP.md Queue A item 9, the next parallelism slice)"
-        )
+    if pipe > 1 and not config.get("eao", False):
+        if config.get("seq_shard", False):
+            raise ValueError("seq_shard and mesh_pipe > 1 (pipeline stages) are "
+                             "mutually exclusive")
+        bs, n_accum = int(config.batch_size), int(config.get("grad_accum", 1) or 1)
+        # the pipeline sees one accumulation microbatch at a time
+        check_pipeline(int(config.layers), bs // n_accum, pipe,
+                       int(config.get("pipeline_microbatches", 0) or 0))
 
 
 def training_mesh(config, device) -> Mesh:
-    """The ``mesh_data x mesh_model`` mesh over the process group's ranks
-    (:func:`mca_tpu_torch.parallel.mesh.make_mesh`, ``mesh_data: 0`` =
-    every rank the model axis leaves); one process gets the single mesh.
-    A mesh larger than the world raises ``ValueError``."""
-    return make_mesh(config.get("mesh_data", 0), config.get("mesh_model", 1),
+    """The ``mesh_data x mesh_model x mesh_pipe`` mesh over the process
+    group's ranks (:func:`mca_tpu_torch.parallel.mesh.make_mesh`,
+    ``mesh_data: 0`` = every rank the other axes leave); one process gets
+    the single mesh.  A mesh larger than the world raises ``ValueError``,
+    then :func:`check_mesh_keys` refuses what the pipeline cannot run."""
+    mesh = make_mesh(config.get("mesh_data", 0), config.get("mesh_model", 1),
                      batch_size=int(config.batch_size), pipe=config.get("mesh_pipe", 1),
                      device=torch.device(device).type)
+    check_mesh_keys(config)
+    return mesh
 
 
 def check_training_keys(config) -> None:
     """Refuse what the port cannot train as asked, as the JAX package
     does: ``grad_accum`` that does not divide ``batch_size``, a
-    ``moment_dtype`` other than fp32 or bf16 and a ``stage_dtype`` other
+    ``moment_dtype`` other than fp32 or bf16, a ``stage_dtype`` other
     than fp32, fp16 or bf16 raise ``ValueError``; a ``trace_dir`` (a
-    profiler trace) and a mesh of more than one device
-    option that is not ported yet (:func:`check_mesh_keys`) raise
-    ``NotImplementedError``."""
-    check_mesh_keys(config)
+    profiler trace) raises ``NotImplementedError``.  The mesh and the
+    pipeline are checked next (:func:`training_mesh`)."""
     n_accum = int(config.get("grad_accum", 1) or 1)
     if n_accum < 1 or int(config.batch_size) % n_accum:
         raise ValueError(
@@ -575,9 +585,10 @@ def build_trainer(
     names).  Refuses the keys :func:`check_training_keys` names.
 
     On a mesh of several ranks (``mesh``, else :func:`training_mesh`)
-    the model is this rank's part (tensor-parallel attention, the loss
-    gathered over ``data``, ``seq_shard`` where the model axis is above
-    1), loaded with its shards of the same whole weights, and the
+    the model is this rank's part (tensor-parallel attention and its
+    experts, the loss gathered over ``data``, ``seq_shard`` where the
+    model axis is above 1, the pipelined stack over ``pipe``), loaded
+    with its shards of the same whole weights, and the
     optimizer a :class:`ShardedOptimizer` (``fsdp`` on a data axis above
     1 shards its leaves); ``schedule`` steps the optimizer it wraps."""
     check_training_keys(config)
@@ -605,7 +616,8 @@ def build_trainer(
     whole = model.state_dict()
     seq_shard = bool(mc.get("seq_shard")) and mesh.model > 1
     model = build_model(dict(mc, data_group=mesh.data_group, model_group=mesh.model_group,
-                             seq_shard=seq_shard), fused_ff=False)
+                             pipe_group=mesh.pipe_group, seq_shard=seq_shard),
+                        fused_ff=False)
     model.load_state_dict(shard_state_dict(whole, mesh), strict=True)
     model.to(dev).train()
     optimizer = ShardedOptimizer(model, mesh, lambda ps: make_adamw(ps, config),

@@ -79,10 +79,9 @@ def test_halt_on_nan_disabled_runs_to_completion(tmp_path):
         ("stage_dtype", "fp8", ValueError),  # fp16 / bf16 staging is ported
         ("trace_dir", "traces", NotImplementedError),
         ("moment_dtype", "fp16", ValueError),
-        # GPipe over the layer stack is not ported yet
-        ("mesh_pipe", 2, NotImplementedError),
-        ("mesh_pipe", 5, NotImplementedError),
-        # a mesh larger than the world of one process
+        # a mesh larger than the world of one process (GPipe's pipe axis too)
+        ("mesh_pipe", 2, ValueError),
+        ("mesh_pipe", 5, ValueError),
         ("mesh_model", 2, ValueError),
         ("mesh_data", 2, ValueError),
         ("mesh_data", 4, ValueError),
@@ -116,10 +115,11 @@ def test_infer_refuses_a_mesh_before_reading_anything(key, tmp_path):
 
 @pytest.mark.parametrize("entry", ["build_trainer", "train"])
 def test_expert_parallelism_is_refused(entry, tmp_path):
-    """``moe_experts`` with ``mesh_model > 1`` needs expert parallelism,
-    not ported yet: refused before the mesh is built."""
+    """``moe_experts`` with ``mesh_model > 1`` trains (expert parallelism);
+    on one process the mesh is larger than the world, and that is what
+    refuses it, before anything is read."""
     cfg = _cfg(tmp_path, moe_experts=2, mesh_model=2)
-    with pytest.raises(NotImplementedError, match="moe_experts.*ROADMAP.md Queue A item 9"):
+    with pytest.raises(ValueError, match="mesh_model=2 needs 2 ranks; the world has 1"):
         if entry == "train":
             port_train.train(cfg, device="cpu", rows=_rows())
         else:

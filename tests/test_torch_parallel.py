@@ -231,9 +231,10 @@ def _jax_gather(x, w, n):
     return out
 
 
-def _launch(tmp: pathlib.Path, world: int, jobs: list) -> None:
-    script = tmp / "rank.py"
-    script.write_text(RANK_SCRIPT)
+def _launch(tmp: pathlib.Path, world: int, jobs: list, rank_script: str = RANK_SCRIPT) -> None:
+    """``rank_script``'s jobs on ``world`` ranks (one launch, a hard timeout)."""
+    script = tmp / f"rank{world}.py"
+    script.write_text(rank_script)
     spec = tmp / f"jobs{world}.json"
     spec.write_text(json.dumps(jobs))
     launch_lib.launch([sys.executable, str(script), str(spec)], world,
@@ -402,7 +403,8 @@ def test_mesh_of_one_process_and_its_refusals():
         mesh_lib.make_mesh(2, 1)
     with pytest.raises(ValueError, match="mesh_model=2"):
         mesh_lib.make_mesh(0, 2)
-    with pytest.raises(NotImplementedError, match="mesh_pipe=2.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="mesh_data=1 x mesh_model=1 x mesh_pipe=2 needs 2 "
+                                         "ranks; the world has 1"):
         mesh_lib.make_mesh(1, 1, pipe=2)
     assert not multihost.init_multihost(device="cpu")  # no environment: a no-op
     assert multihost.process_count() == 1 and multihost.is_primary()
