@@ -251,12 +251,40 @@ Phases (each asserted; any failure exits non-zero):
    gloo takes on CUDA tensors, and ``send`` / ``recv`` and
    ``batch_isend_irecv`` on CUDA tensors, each in two processes of its
    own (a reading, not a gate).
-16. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+16. ZeRO-3 and the memory tools at TCGA_config1 width and depth (bf16,
+   batch 8). (a) Two ranks on the one card over gloo as in phase 14 (b),
+   3 steps (warm-up 2) from the seed-0 weights: ``mesh_data: 2, fsdp:
+   true`` (ZeRO-3), the same with ``grad_accum: 2``, and PR 14's
+   optimizer-state-only layout rebuilt on ``mesh_data: 2``
+   (``moments_only``), each held to the unsharded steps with phase 14's
+   gates; K1 and K2 5 a step (a microbatch) on each rank; after the steps
+   each ZeRO-3 rank's resident bytes (what deleting its trainer frees)
+   equal ``plan_parallel``'s state bytes for the layout but for the
+   allocator's rounding, and its peak below ``moments_only``'s; planted
+   faults past their gates: the slices gathered in reverse rank order
+   (update), every gathered group's weights kept (resident bytes), the
+   gradient reduce-scattered without the 1 / data (grad_norm). Every
+   layout of phases 14, 15 and ``--parallel-cards`` takes the resident
+   gate too. (b) ``tools.memory_report.step_memory`` on one process:
+   ``grad_accum: 4``'s temp below 0.6 x the base's with equal
+   ``argument_size_in_bytes``, ``remat``'s temp below the base's; every
+   field printed, and from ``PROFILED_STEPS`` steps plain and under
+   ``remat`` (``profiled_steps``) the remat step's device and wall time
+   over the plain step's and the plain step's model FLOPs utilisation:
+   ``plan_parallel``'s two measured figures. (c) ``tools.plan_parallel`` for 2
+   cards with ``--exact`` (its activation model from (b)'s batch-8 steps
+   and two at batch 2): each top plan without a pipe measured on its own
+   ranks, each rank's resident bytes equal to the plan's state bytes as
+   in (a); predicted and measured peaks printed. (d) ``trace_dir``: a
+   3-step ``train`` writes the second step's ``torch.profiler`` trace, in
+   which K1's and K2's kernels each run 5 times.
+17. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
    training and infer, phase 11's training, phase 12's serving,
    training and ``moe_stats``, phase 13's serving and loaded programs,
-   phase 14's steps, serving and infer ranks and phase 15's ranks, each
-   counted from 0), then the last line ``{"ok": true, "device": {...}}``.
+   phase 14's steps, serving and infer ranks, phase 15's ranks and phase
+   16's ranks, ``memory_report`` step and traced run, each counted from
+   0), then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -312,6 +340,7 @@ from mca_tpu_torch.ops import quant
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel import launch as launch_lib
 from mca_tpu_torch.parallel import pipeline
+from mca_tpu_torch.parallel.sharding import FSDP_MIN_SIZE
 from mca_tpu_torch.parallel.multihost import init_multihost, make_stager
 from mca_tpu_torch.serve import EmbeddingService, make_server
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
@@ -320,6 +349,8 @@ from mca_tpu_torch.tools import probe_overlap as overlap_tool
 from mca_tpu_torch.tools import roofline as roofline_tool
 from mca_tpu_torch.tools import export_aot
 from mca_tpu_torch.tools import sass_counts
+from mca_tpu_torch.tools import memory_report
+from mca_tpu_torch.tools import plan_parallel as plan_tool
 from mca_tpu_torch.tools.moe_stats import extract_moe_stats
 from mca_tpu_torch.train import (
     PreemptedError,
@@ -495,7 +526,9 @@ PAR_UPDATE_REL_L2 = 0.15
 PAR_LEAF_UPDATE_REL_L2 = 0.15
 PAR_BOUNDS = {"loss": PAR_LOSS_RTOL, "grad_norm": PAR_NORM_RTOL, "param_norm": PAR_NORM_RTOL,
               "update": PAR_UPDATE_REL_L2, "experts": PAR_LEAF_UPDATE_REL_L2,
-              "router": PAR_LEAF_UPDATE_REL_L2}
+              "router": PAR_LEAF_UPDATE_REL_L2,
+              # bytes a rank holds beyond the plan's state and the allocator's rounding
+              "resident": 0}
 # the gate each planted fault must fail: a gradient summed, not averaged,
 # over data scales every gradient alike, which AdamW's update and the
 # clipped step do not see, so only grad_norm shows it
@@ -506,7 +539,12 @@ FAULT_GATES = {"none_gather": ("update",), "skip_out_reduce": ("update",),
                # AdamW does not see); every rank computing model rank 0's experts;
                # the router's gradient left partial over model
                "late_stage": ("loss", "update"), "summed_replicated": ("grad_norm",),
-               "first_experts": ("update", "experts"), "router_not_summed": ("router",)}
+               "first_experts": ("update", "experts"), "router_not_summed": ("router",),
+               # phase 16: the gathered slices in reverse rank order; every
+               # gathered group's whole weights kept after its backward; the
+               # whole gradient reduce-scattered without the 1 / data
+               "reversed_gather": ("update",), "kept_wholes": ("resident",),
+               "unscaled_scatter": ("grad_norm",)}
 # phase 15: GPipe over two stages (TCGA_config1 cut to depth 4: 5 does not
 # divide by 2) and expert parallelism over two model ranks (phase 12's MoE,
 # full depth), two ranks on the one card over gloo
@@ -518,8 +556,36 @@ PIPE_EP_LAYOUTS = {
 }
 PIPE_EP_FAULTS = {"pipe": ["late_stage", "summed_replicated"],
                   "ep": ["first_experts", "router_not_summed"], "ep_seq": []}
-# the keys of a layout that change the model (and so its reference steps)
-MODEL_KEYS = ("layers", "moe_experts", "moe_capacity_factor")
+# the keys of a layout that change the model or its step (and so its
+# reference steps)
+MODEL_KEYS = ("layers", "moe_experts", "moe_capacity_factor", "grad_accum")
+# each rank's resident bytes (what deleting its trainer frees, counted in
+# the bytes its tensors asked the caching allocator for) against
+# plan_parallel's state bytes for the layout: at most ALLOC_ROUND bytes a
+# tensor apart (the allocator's small-block rounding; the bytes asked for
+# carry none), and nothing else.  memory_allocated itself may add up to
+# 1 MiB a large tensor, where a tensor takes a cached block whole.
+ALLOC_ROUND = 512
+# phase 16: ZeRO-3 (fsdp) at TCGA_config1, two ranks on the one card over
+# gloo, held to the unsharded steps with phase 14's gates; the optimizer-
+# state-only layout of PR 14 (moments_only) runs beside it for its peak
+ZERO3_LAYOUTS = {"zero3": {"mesh_data": 2, "fsdp": True},
+                 "zero3_accum": {"mesh_data": 2, "fsdp": True, "grad_accum": 2},
+                 "moments_only": {"mesh_data": 2}}
+ZERO3_FAULTS = {"zero3": ["reversed_gather", "kept_wholes", "unscaled_scatter"],
+                "zero3_accum": [], "moments_only": []}
+# a layout run with a plant of its own (not a fault): held to the unsharded
+# steps, not to the plan's resident bytes
+ZERO3_PLANTS = {"moments_only": "moments_only"}
+# memory_report's grad_accum claim (the JAX package's tests/test_memory_report.py)
+MEMREPORT_ACCUM = 4
+ACCUM_TEMP_SHARE = 0.6
+# plan_parallel --devices 2 --exact: the top plans measured
+PLAN_DEVICES = 2
+PLAN_TOPK = 1
+# trace_dir: a run of this many steps traces its second
+TRACE_STEPS = 3
+TRACE_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "flash_bwd_kv_kernel<true>"}
 PAR_INFER_ROWS = 40
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
@@ -3152,7 +3218,11 @@ def par_steps(cfg, device, params, batch, stage=lambda b: b, plant=None) -> dict
     and ``cfg`` give) from ``params`` on the collated ``batch`` (this
     rank's rows of it, through ``stage``): per-step metrics, wall ms and
     launches, the whole final parameters on the host, and this process's
-    peak device memory and optimizer state in MiB."""
+    peak device memory and optimizer state in MiB; then, on CUDA, the
+    trainer's resident bytes (what deleting it frees, its gradients
+    dropped first, in the bytes its tensors asked the allocator for),
+    ``memory_allocated`` less the batch beside them, and the count of its
+    state's tensors."""
     gc.collect()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -3161,19 +3231,43 @@ def par_steps(cfg, device, params, batch, stage=lambda b: b, plant=None) -> dict
     if plant is not None:
         plant(model, opt)
     local = to_device(stage(batch), device)
+    n_accum = int(cfg.get("grad_accum", 1) or 1)
     hist, wall, per_step = [], [], []
     for _ in range(PAR_STEPS):
         before = launches_now()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hist.append(train_step(model, opt, sched, local, clip=float(cfg.clip)))
+        hist.append(train_step(model, opt, sched, local, clip=float(cfg.clip), n_accum=n_accum))
         wall.append(1e3 * (time.perf_counter() - t0))  # train_step ends in a sync
         per_step.append({k: v - before[k] for k, v in launches_now().items()})
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else None
     whole = opt.model_state_dict() if hasattr(opt, "model_state_dict") else model.state_dict()
-    return {"metrics": hist, "wall_ms": wall, "launches": per_step,
-            "params": {k: v.detach().cpu() for k, v in whole.items()},
-            "peak_mib": peak, "opt_mib": optimizer_state_bytes(getattr(opt, "inner", opt)) / 2**20}
+    out = {"metrics": hist, "wall_ms": wall, "launches": per_step,
+           # copies, which do not keep the trainer's leaves alive on the CPU either
+           "params": {k: v.detach().to("cpu", copy=True) for k, v in whole.items()},
+           "peak_mib": peak, "opt_mib": optimizer_state_bytes(getattr(opt, "inner", opt)) / 2**20,
+           "n_tensors": len(memory_report.state_tensors(model, opt)),
+           "resident": None, "raw": None, "allocated_drop": None}
+    del whole
+    if allocated(device) is not None:
+        for p in memory_report.state_tensors(model, opt):
+            p.grad = None
+        gc.collect()
+        held = allocated(device)
+        out["raw"] = torch.cuda.memory_allocated(device) - memory_report.tensor_bytes(
+            t for f in local.values() for t in f.values())
+        whole_drop = torch.cuda.memory_allocated(device)
+        del model, opt, sched
+        gc.collect()
+        out["resident"] = held - allocated(device)
+        out["allocated_drop"] = whole_drop - torch.cuda.memory_allocated(device)
+    return out
+
+
+def allocated(device):
+    """The bytes the live tensors on ``device`` asked the caching allocator
+    for (None off CUDA)."""
+    return memory_report.requested_bytes(device) if device.type == "cuda" else None
 
 
 def skip_out_reduce(model, opt) -> None:
@@ -3233,7 +3327,7 @@ def summed_replicated(model, opt) -> None:
 
     def faulty():
         real()
-        opt._all_reduce_flat([p.grad for p, s in zip(opt.params, opt.pipe_partial) if not s],
+        opt._all_reduce_flat([g for g, s in zip(opt.gradients(), opt.pipe_partial) if not s],
                              opt.mesh.pipe_group)
 
     opt.reduce_gradients = faulty
@@ -3255,10 +3349,72 @@ def router_not_summed(model, opt) -> None:
                          for n, s in zip(opt.names, opt.model_partial)]
 
 
+def reversed_gather(model, opt) -> None:
+    """Phase 16 (a)'s planted fault: every group's slices gathered in
+    reverse rank order (forward and backward alike)."""
+    real = opt._gather_rows
+    opt._gather_rows = lambda mine: real(mine).flip(0)
+
+
+def kept_wholes(model, opt) -> None:
+    """Phase 16 (a)'s planted fault: every gathered group's whole weights
+    kept (by the optimizer) after its forward and its backward.  Detached:
+    a kept graph output would tie its autograd node, which holds the
+    optimizer, to the optimizer, and the cycle would outlive the run."""
+    real, kept = opt._gather, []
+
+    def gather(bucket):
+        wholes = real(bucket)
+        kept.append([w.detach() for w in wholes])
+        return wholes
+
+    opt._gather = gather
+
+
+def unscaled_scatter(model, opt) -> None:
+    """Phase 16 (a)'s planted fault: the groups' whole gradients
+    reduce-scattered into the slices without the 1 / data."""
+    real = opt._scatter_grads
+    opt._scatter_grads = lambda bucket, grads: [g * opt.mesh.data for g in real(bucket, grads)]
+
+
+def moments_only(model, opt) -> None:
+    """PR 14's ``fsdp``, rebuilt on a ``mesh_data`` trainer for phase 16
+    (a)'s peak: the parameters and the gradient whole on every rank (the
+    data-parallel all-reduce), AdamW's moments and update on the rank's
+    ``1 / data`` slice (a view) of each leaf of at least FSDP_MIN_SIZE
+    elements, the updated slices all-gathered into every rank's leaves."""
+    d, r = opt.mesh.data, opt.mesh.data_rank
+    big = [i for i, p in enumerate(opt.opt_params) if p.numel() >= FSDP_MIN_SIZE]
+    chunk = {i: -(-opt.opt_params[i].numel() // d) for i in big}
+    span = {i: slice(min(r * chunk[i], opt.opt_params[i].numel()),
+                     min((r + 1) * chunk[i], opt.opt_params[i].numel())) for i in big}
+    views = {i: opt.opt_params[i].detach().view(-1)[span[i]] for i in big}
+    # the schedule steps this group's lr: keep the group, swap its leaves
+    opt.inner.param_groups[0]["params"] = [views.get(i, p) for i, p in enumerate(opt.opt_params)]
+
+    def step():
+        for i in big:
+            views[i].grad = opt.opt_params[i].grad.view(-1)[span[i]]
+        opt.inner.step()
+        with torch.no_grad():
+            mine = torch.cat([opt._padded(views[i], chunk[i]) for i in big])
+            rows = coll.all_gather(mine, opt.mesh.data_group).reshape(d, -1)
+            for i, cols in zip(big, rows.split([chunk[i] for i in big], dim=1)):
+                p = opt.opt_params[i]
+                p.copy_(cols.reshape(-1)[: p.numel()].view_as(p))
+        for p in [*opt.opt_params, *views.values()]:
+            p.grad = None
+
+    opt.step = step
+
+
 PLANTS = {"none_gather": lambda m, o: setattr(m.loss, "backprop", coll.BackpropType.NONE),
           "skip_out_reduce": skip_out_reduce, "unscaled_grads": unscaled_grads,
           "late_stage": late_stage, "summed_replicated": summed_replicated,
-          "first_experts": first_experts, "router_not_summed": router_not_summed, None: None}
+          "first_experts": first_experts, "router_not_summed": router_not_summed,
+          "reversed_gather": reversed_gather, "kept_wholes": kept_wholes,
+          "unscaled_scatter": unscaled_scatter, "moments_only": moments_only, None: None}
 
 
 def probe_collectives(device) -> dict:
@@ -3358,12 +3514,12 @@ def model_key(mesh: dict) -> str:
 
 
 def layout_launches(cfg, mesh: dict) -> int:
-    """K1 (and K2) launches a step on each rank of a layout: once a block,
-    or, under ``mesh_pipe``, once a block of the rank's stage and
-    microbatch: ``(L / S) * M``."""
+    """K1 (and K2) launches a step on each rank of a layout: once a block
+    and ``grad_accum`` microbatch, or, under ``mesh_pipe``, once a block of
+    the rank's stage and microbatch: ``(L / S) * M``."""
     depth, stages = int(cfg.layers), int(mesh.get("mesh_pipe", 1))
     if stages == 1:
-        return depth
+        return depth * int(mesh.get("grad_accum", 1))
     rows = int(cfg.batch_size) // int(mesh.get("mesh_data", 1))
     micro = int(mesh.get("pipeline_microbatches", 0) or stages)
     return depth // stages * pipeline.local_microbatches(rows, micro)
@@ -3405,14 +3561,17 @@ def parallel_rank(job_path: str) -> None:
         mesh = training_mesh(cfg, device)
         heads["fwd"].clear(), heads["bwd"].clear()
         res = par_steps(cfg, device, inputs["params"][model_key(run["mesh"])], inputs["batch"],
-                        make_stager(mesh, int(cfg.batch_size)), PLANTS[run.get("fault")])
+                        make_stager(mesh, int(cfg.batch_size)),
+                        PLANTS[run.get("fault") or run.get("plant")])
         pipeline.stage_input = real_stage_input
         res["heads"] = {k: sorted(set(v)) for k, v in heads.items()}
         res["leaves"] = moe_leaves(res["params"])
         res["params"] = flat_params(res["params"])
         all_res = [None] * dist.get_world_size()
         dist.all_gather_object(all_res, {k: res[k] for k in ("launches", "heads", "wall_ms",
-                                                             "peak_mib", "opt_mib")})
+                                                             "peak_mib", "opt_mib", "resident",
+                                                             "raw", "allocated_drop",
+                                                             "n_tensors")})
         res["ranks"] = all_res
         out[run["name"]] = res
     if job.get("probe"):  # after the runs, which it cannot then disturb
@@ -3453,7 +3612,7 @@ def free_port() -> int:
 
 
 def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backend: str,
-                  layouts: dict, faults: dict, label: str) -> dict:
+                  layouts: dict, faults: dict, label: str, plants: dict = None) -> tuple:
     """``world`` ranks over ``backend`` (started by :func:`launch_ranks`),
     each layout of ``layouts`` (mesh keys, and the MODEL_KEYS that change
     ``config``'s model) and, for each, its planted faults of ``faults``,
@@ -3462,11 +3621,16 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
     :func:`layout_launches` times a step on every rank, at the heads the
     model axis leaves; per-step total_loss, grad_norm and param_norm, the
     final parameters' update and, for a MoE model, each expert leaf's and
-    each router leaf's update, within PAR_BOUNDS, and each fault past the
-    bound of each of its gates (FAULT_GATES).  Prints each rank's wall ms
-    a step, peak device memory and optimizer state, and over gloo which
-    collectives it accepts.  Returns the launches of the layouts' runs,
-    summed over the ranks."""
+    each router leaf's update, within PAR_BOUNDS, on CUDA each rank's
+    resident bytes equal to plan_parallel's state bytes for the layout but
+    for the allocator's rounding (ALLOC_ROUND a tensor), and each fault
+    past the bound of each of its gates (FAULT_GATES).  ``plants`` names a
+    plant a layout runs with (not gated on resident bytes).  Prints each
+    rank's wall ms a step, peak device memory, optimizer state and
+    resident bytes, and over gloo which collectives it accepts.  Returns
+    the launches of the layouts' runs, summed over the ranks, and each
+    run's results by name."""
+    plants = plants or {}
     refs = {}
     for mesh in layouts.values():
         key = model_key(mesh)
@@ -3480,7 +3644,17 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
                                          for k, v in moe_leaves(ref["params"]).items()}}
     torch.save({"params": {k: r["params"] for k, r in refs.items()}, "batch": batch},
                tmp / "par_inputs.pt")
-    runs = [{"name": name if fault is None else f"{name}+{fault}", "mesh": mesh, "fault": fault}
+    # a rank's state on each layout, as plan_parallel predicts it
+    metas = {key: plan_tool._meta_model(r["cfg"]) for key, r in refs.items()}
+    predicted = {name: plan_tool._sharded_bytes(refs[model_key(mesh)]["cfg"],
+                                                int(mesh.get("mesh_data", 1)),
+                                                int(mesh.get("mesh_model", 1)),
+                                                bool(mesh.get("fsdp", False)),
+                                                model=metas[model_key(mesh)])
+                 + plan_tool._buffer_bytes(metas[model_key(mesh)])
+                 for name, mesh in layouts.items() if name not in plants}
+    runs = [{"name": name if fault is None else f"{name}+{fault}", "mesh": mesh, "fault": fault,
+             "plant": plants.get(name) if fault is None else None}
             for name, mesh in layouts.items() for fault in [None, *faults[name]]]
     job = {"config": str(CONFIG), "device": device.type, "inputs": str(tmp / "par_inputs.pt"),
            "out": str(tmp / "par_out.pt"), "runs": runs, "probe": backend == "gloo"}
@@ -3491,7 +3665,7 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
     launch_s = time.perf_counter() - t0
     out = torch.load(tmp / "par_out.pt", weights_only=False)
 
-    def gaps(res, r) -> dict:
+    def gaps(res, r, name) -> dict:
         ref = r["ref"]
         per_step = {k: max(abs(m[k] - w[k]) / abs(w[k])
                            for m, w in zip(res["metrics"], ref["metrics"]))
@@ -3504,6 +3678,9 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
         for gate, part in (("experts", ".ff.experts."), ("router", ".ff.router.")):
             if any(part in k for k in leaf):
                 g[gate] = max(v for k, v in leaf.items() if part in k)
+        if name in predicted and res["ranks"][0]["resident"] is not None:
+            g["resident"] = max(abs(rank["resident"] - predicted[name])
+                                - ALLOC_ROUND * rank["n_tensors"] for rank in res["ranks"])
         return g
 
     def show(g: dict) -> str:
@@ -3525,12 +3702,17 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
                 (name, rank_i, rank["heads"])
             for k in counts:
                 counts[k] += sum(c[k] for c in rank["launches"])
-        held = gaps(res, r)
-        planted = {f: gaps(out[f"{name}+{f}"], r) for f in faults[name]}
+        held = gaps(res, r, name)
+        planted = {f: gaps(out[f"{name}+{f}"], r, name) for f in faults[name]}
         walls = "; ".join(f"rank {i} " + ", ".join(f"{x:.3f}" for x in rank["wall_ms"])
                           for i, rank in enumerate(res["ranks"]))
-        memory = "; ".join(f"rank {i} peak {mib(rank['peak_mib'])}, optimizer state "
-                           f"{rank['opt_mib']:.1f}" for i, rank in enumerate(res["ranks"]))
+        memory = "; ".join(
+            f"rank {i} peak {mib(rank['peak_mib'])}, optimizer state {rank['opt_mib']:.1f}, "
+            f"resident {rank['resident']} B ({rank['n_tensors']} tensors; memory_allocated "
+            f"less the batch {rank['raw']} B, its drop {rank['allocated_drop']} B)"
+            for i, rank in enumerate(res["ranks"]))
+        if name in predicted:
+            memory += f"; predicted state {predicted[name]} B (plan_parallel)"
         print(
             f"{label} {name} ({mesh}): {world} ranks over {backend} against the unsharded steps "
             f"(fused backward): largest per-step gap {show(held)} (bounds "
@@ -3551,7 +3733,7 @@ def check_layouts(config, device, card: str, batch, tmp: Path, world: int, backe
     if "probe" in out:
         print(f"{label}: {backend} on {device.type} tensors, two ranks: {out['probe']}", flush=True)
     print(f"{label}: the launch took {launch_s:.1f} s; {host_description()}; {card}", flush=True)
-    return counts
+    return counts, out
 
 
 def par_inputs(config) -> tuple:
@@ -3602,8 +3784,8 @@ def parallel_cards(world: int) -> int:
     config = training_config(str(CONFIG))
     _, _, batch = par_inputs(config)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as tmp:
-        counts = check_layouts(config, torch.device("cuda"), card[0], batch, Path(tmp), world,
-                               "nccl", card_layouts(world), CARD_FAULTS, f"{world} cards")
+        counts, _ = check_layouts(config, torch.device("cuda"), card[0], batch, Path(tmp), world,
+                                  "nccl", card_layouts(world), CARD_FAULTS, f"{world} cards")
         print(f"{world} cards: nccl point to point on cuda tensors, two ranks: "
               f"{probe_p2p('nccl', Path(tmp))}", flush=True)
     print(json.dumps({"launches": counts}), flush=True)
@@ -3679,7 +3861,7 @@ def check_parallel(device, card: str, tmp: Path) -> dict:
 
     # (b) two ranks on the one card over gloo, against the unsharded steps
     add(check_layouts(config, device, card, batch, tmp, 2, "gloo", PAR_LAYOUTS,
-                      PAR_FAULTS, "phase 14 (b)"))
+                      PAR_FAULTS, "phase 14 (b)")[0])
 
     # (c) infer at 2 ranks against 1, from (a)'s checkpoint
     base = load_yaml(str(CONFIG))
@@ -3729,12 +3911,119 @@ def check_pipe_ep(device, card: str, tmp: Path) -> dict:
     the launches of its main paths."""
     config = training_config(str(CONFIG))
     _, _, batch = par_inputs(config)
-    counts = check_layouts(config, device, card, batch, tmp, 2, "gloo", PIPE_EP_LAYOUTS,
-                           PIPE_EP_FAULTS, "phase 15")
+    counts, _ = check_layouts(config, device, card, batch, tmp, 2, "gloo", PIPE_EP_LAYOUTS,
+                              PIPE_EP_FAULTS, "phase 15")
     print(f"phase 15: gloo point to point on {device.type} tensors, two ranks: "
           f"{probe_p2p('gloo', tmp)}; the ring shift takes "
           f"{'an all_gather over pipe' if device.type == 'cuda' else 'batch_isend_irecv'} "
           f"on gloo {device.type} tensors", flush=True)
+    return counts
+
+
+def exact_resident_gap(reports: list, predicted: int) -> int:
+    """The largest gap between a rank's resident bytes and ``predicted``,
+    beyond the allocator's rounding of the rank's state tensors."""
+    return max(abs(r["resident_bytes"] - predicted) - ALLOC_ROUND * r["state_tensors"]
+               for r in reports)
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    """How often each of TRACE_KERNELS' kernels runs in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(fn in n for n in names) for k, fn in TRACE_KERNELS.items()}
+
+
+def check_zero3(device, card: str, tmp: Path) -> dict:
+    """Phase 16, ZeRO-3, ``memory_report``, ``plan_parallel`` and
+    ``trace_dir`` (module docstring); returns the launches of its main
+    paths."""
+    config = training_config(str(CONFIG))
+    _, _, batch = par_inputs(config)
+    mib = 2.0**-20
+
+    # (a) ZeRO-3 at two ranks against the unsharded steps; PR 14's layout beside it
+    counts, out = check_layouts(config, device, card, batch, tmp, 2, "gloo", ZERO3_LAYOUTS,
+                                ZERO3_FAULTS, "phase 16 (a)", plants=ZERO3_PLANTS)
+    peaks = [(z["peak_mib"], m["peak_mib"])
+             for z, m in zip(out["zero3"]["ranks"], out["moments_only"]["ranks"])]
+    print("phase 16 (a): peak MiB a rank, ZeRO-3 against PR 14's optimizer-state-only "
+          "layout: " + "; ".join(f"rank {i} {z:.1f} against {m:.1f}"
+                                 for i, (z, m) in enumerate(peaks)) + f"; {card}", flush=True)
+    for z, m in peaks:
+        assert z < m, peaks
+
+    # (b) memory_report on one process: grad_accum and remat against the base
+    reset_launches()
+    base = memory_report.step_memory(config, device=device.type)
+    for k, v in launches_now().items():
+        counts[k] += v
+    accum = memory_report.step_memory(config, grad_accum=MEMREPORT_ACCUM, device=device.type)
+    remat = memory_report.step_memory(config, remat=True, device=device.type)
+    for name, rep in (("base", base), (f"grad_accum {MEMREPORT_ACCUM}", accum), ("remat", remat)):
+        print(f"phase 16 (b): memory_report TCGA_config1 {name}: "
+              + ", ".join(f"{k} {v}" for k, v in rep.items()), flush=True)
+    # plan_parallel's two measured figures: a step's wall and device time,
+    # plain and under remat (PROFILED_STEPS steps each after a warm-up)
+    params = seed_model(config).state_dict()
+    rows = synthetic_rows(config, int(config.batch_size))
+    plain_t = profiled_steps(config, device, params, rows)
+    remat_t = profiled_steps(run_config(config, tmp / "remat_t", remat=True), device, params, rows)
+    mfu = plan_tool.flops_per_step(config) / (1e-3 * plain_t["wall_ms"] * plan_tool.H100.peak_flops)
+    print(f"phase 16 (b): a step (mean of {PROFILED_STEPS}) {plain_t['wall_ms']:.3f} ms wall, "
+          f"{plain_t['device_ms']:.3f} ms device busy; under remat {remat_t['wall_ms']:.3f} / "
+          f"{remat_t['device_ms']:.3f}: remat cost {remat_t['device_ms'] / plain_t['device_ms']:.4f} "
+          f"on the device, {remat_t['wall_ms'] / plain_t['wall_ms']:.4f} on the wall; model FLOPs "
+          f"utilisation {mfu:.5f} ({plan_tool.flops_per_step(config):.4e} FLOPs a step over its "
+          f"wall at 989 TFLOP/s); plan_parallel's H100 model: mfu {plan_tool.H100.mfu}, "
+          f"remat_cost {plan_tool.H100.remat_cost}; {host_description()}; {card}", flush=True)
+    assert accum["temp_size_in_bytes"] < ACCUM_TEMP_SHARE * base["temp_size_in_bytes"], (accum,
+                                                                                         base)
+    assert accum["argument_size_in_bytes"] == base["argument_size_in_bytes"], (accum, base)
+    assert remat["temp_size_in_bytes"] < base["temp_size_in_bytes"], (remat, base)
+
+    # (c) plan_parallel --devices 2 --exact, its activation model from (b)'s
+    # batch-8 steps and two at batch 2
+    small = type(config)(config)
+    small.batch_size = 2
+    act = {r: plan_tool.activation_model({
+        int(config.batch_size): (remat if r else base)["temp_size_in_bytes"],
+        2: memory_report.step_memory(small, remat=r, device=device.type)["temp_size_in_bytes"]})
+        for r in (False, True)}
+    t0 = time.perf_counter()
+    plans = plan_tool.plan(config, PLAN_DEVICES, topk=PLAN_TOPK, exact=True, act_models=act,
+                           device=device.type)
+    exact_s = time.perf_counter() - t0
+    measured = [p for p in plans[:PLAN_TOPK] if p.pp == 1]
+    assert measured and all(p.exact for p in measured), plans[:PLAN_TOPK]
+    for p in measured:
+        gap = exact_resident_gap(p.exact, p.state_bytes)
+        print(f"phase 16 (c): plan {p.config_stanza()}: state predicted {p.state_bytes} B, "
+              f"resident a rank {[r['resident_bytes'] for r in p.exact]} B "
+              f"({[r['state_tensors'] for r in p.exact]} tensors, ranks over "
+              f"{p.exact[0]['dist_backend']}); peak predicted {p.peak_bytes * mib:.1f} MiB, "
+              f"measured {[round(r['peak_estimate_bytes'] * mib, 1) for r in p.exact]}; "
+              f"est {p.est_step_ms:.3f} ms a step", flush=True)
+        assert gap <= 0, (p, gap)
+    print(f"phase 16 (c): {len(plans)} plans for {PLAN_DEVICES} cards, activation model "
+          f"{act}; the exact ranks took {exact_s:.1f} s", flush=True)
+
+    # (d) trace_dir: a short run traces its second step
+    rows = synthetic_rows(config, TRACE_STEPS * int(config.batch_size) + 2, seed=0)
+    cfg = run_config(config, tmp / "trace_run", epochs=1, trace_dir=str(tmp / "trace"),
+                     split=2, run_eval_loop=False)  # 2 eval rows: TRACE_STEPS batches train
+    reset_launches()
+    train(cfg, device.type, rows=rows)
+    for k, v in launches_now().items():
+        counts[k] += v
+    traces = sorted((tmp / "trace").iterdir())
+    assert [t.name for t in traces] == ["step2.rank0.json"], traces
+    found = trace_kernel_counts(traces[0])
+    depth = int(config.layers)
+    print(f"phase 16 (d): trace_dir: {traces[0].name}, {traces[0].stat().st_size} bytes; "
+          f"kernels in the traced step {found} (a step launches {depth} of each)", flush=True)
+    assert found == dict.fromkeys(TRACE_KERNELS, depth), found
     return counts
 
 
@@ -3811,6 +4100,10 @@ def main() -> int:
         pipe_ep_counts = check_pipe_ep(device, card, Path(tmp))
     lap("15 pipe and ep")
     print(f"pipeline and expert parallelism: {seconds['15 pipe and ep']:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zero3_") as tmp:
+        zero3_counts = check_zero3(device, card, Path(tmp))
+    lap("16 zero3")
+    print(f"ZeRO-3 and the memory tools: {seconds['16 zero3']:.1f} s", flush=True)
     kernels += [check_counter(device), check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     lap("7 measurement")
@@ -3818,7 +4111,7 @@ def main() -> int:
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - start:.1f}", flush=True)
     for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts, par_counts,
-                  pipe_ep_counts):
+                  pipe_ep_counts, zero3_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:

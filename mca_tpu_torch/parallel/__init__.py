@@ -10,7 +10,9 @@ from ``mca_tpu/parallel``.
   GPipe's ring shift and last-stage broadcast);
 - :mod:`~mca_tpu_torch.parallel.sharding`: the tensor- and
   expert-parallel layout, the gradient sums each layout needs and the
-  FSDP optimizer (AdamW's moments sharded over ``data``);
+  ZeRO-3 optimizer (``fsdp``: parameters and AdamW's moments sharded
+  over ``data``, each module group gathered for its forward and
+  backward);
 - :mod:`~mca_tpu_torch.parallel.pipeline`: GPipe over the block stack
   (``mesh_pipe``, ``pipeline_microbatches``);
 - :mod:`~mca_tpu_torch.parallel.launch`: N ranks of one command on a host

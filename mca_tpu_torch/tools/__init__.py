@@ -1,6 +1,10 @@
-"""Measurement tools.  :func:`host_description` names the host beside
-every wall-clock figure they print: a step that waits on the host runs
-as fast as the host it lands on."""
+"""Measurement tools (``roofline``, ``probe_overlap``, ``profile_train``,
+``profile_serve``, ``sass_counts``), the memory and layout tools
+(``memory_report``: one training step's memory; ``plan_parallel``: the
+layouts ranked for N H100s) and the model tools (``export_aot``,
+``moe_stats``).  :func:`host_description` names the host beside every
+wall-clock figure they print: a step that waits on the host runs as fast
+as the host it lands on."""
 
 from __future__ import annotations
 

@@ -54,8 +54,10 @@ stream sharded over ``model`` under ``seq_shard``, and a MoE block's
 experts are split over ``model`` where they divide by it; ``mesh_pipe >
 1`` runs the MCA block stack as a GPipe pipeline of
 ``pipeline_microbatches`` over ``pipe`` (EAO ignores it, as in the JAX
-package, and runs whole on every stage); ``fsdp`` shards the AdamW
-moments of the large leaves over ``data``
+package, and runs whole on every stage); ``fsdp`` is ZeRO-3: the large
+leaves and their AdamW moments live on a rank only as its ``1 / data``
+slice, each module group gathers its weights for its forward and again
+for its backward, and reduce-scatters its gradient
 (:class:`~mca_tpu_torch.parallel.sharding.ShardedOptimizer`).  The
 global norms, clipping and the logit-scale clamp see the whole set, so
 a step is the single-process step up to summation order.  Rank 0 writes
@@ -66,8 +68,11 @@ rank.
 
 ``steps_per_call``, ``flat_state`` and ``fuse_optimizer`` choose how
 the JAX package dispatches XLA, not what is trained; they have no
-counterpart here and are ignored.  A ``trace_dir`` raises
-``NotImplementedError``; a mesh larger than the world, a depth that
+counterpart here and are ignored.  ``trace_dir`` wraps the second step
+of the run in a ``torch.profiler`` window, as the JAX package traces its
+second launch, and writes it there as a Chrome trace
+(``step<N>.rank<r>.json``, :func:`~mca_tpu_torch.utils.logging.trace_context`).
+A mesh larger than the world, a depth that
 does not divide by ``mesh_pipe``, a batch that does not divide by the
 microbatches and ``seq_shard`` with ``mesh_pipe > 1`` raise
 ``ValueError``, as the JAX package's asserts refuse them.  The entry
@@ -102,10 +107,11 @@ from mca_tpu_torch.models import MCA, build_model
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
-                                              require_output_dir)
+                                              process_index, require_output_dir)
 from mca_tpu_torch.parallel.pipeline import check_pipeline
 from mca_tpu_torch.parallel.sharding import ShardedOptimizer, shard_state_dict
-from mca_tpu_torch.utils.logging import JSONLLogger, NullLogger, ThroughputMeter
+from mca_tpu_torch.utils.logging import (JSONLLogger, NullLogger, ThroughputMeter,
+                                         trace_context)
 
 logger = logging.getLogger(__name__)
 
@@ -179,8 +185,7 @@ def check_training_keys(config) -> None:
     """Refuse what the port cannot train as asked, as the JAX package
     does: ``grad_accum`` that does not divide ``batch_size``, a
     ``moment_dtype`` other than fp32 or bf16, a ``stage_dtype`` other
-    than fp32, fp16 or bf16 raise ``ValueError``; a ``trace_dir`` (a
-    profiler trace) raises ``NotImplementedError``.  The mesh and the
+    than fp32, fp16 or bf16 raise ``ValueError``.  The mesh and the
     pipeline are checked next (:func:`training_mesh`)."""
     n_accum = int(config.get("grad_accum", 1) or 1)
     if n_accum < 1 or int(config.batch_size) % n_accum:
@@ -193,11 +198,6 @@ def check_training_keys(config) -> None:
     stage_dtype = config.get("stage_dtype", "fp32")
     if stage_dtype not in STAGE_DTYPES:
         raise ValueError(f"stage_dtype must be fp32, fp16 or bf16, got {stage_dtype!r}")
-    if config.get("trace_dir", ""):
-        raise NotImplementedError(
-            "trace_dir: the torch.profiler counterpart of the JAX trace is "
-            "not ported yet"
-        )
 
 
 def check_finite(metrics: Mapping[str, float], step: int) -> None:
@@ -475,10 +475,13 @@ def dropout_generator(seed: int, step: int, micro: Optional[int], device,
 
 
 def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
-                     step: int = 0, dropout_rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                     step: int = 0, dropout_rank: Optional[int] = None,
+                     leaves: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """The loss forward and its backward; returns the step's scalar
-    losses (:func:`scalar_losses`).  Every parameter ends with a
-    ``.grad`` (zeros where the loss does not reach it, so AdamW decays
+    losses (:func:`scalar_losses`).  Every leaf that takes a gradient
+    (``leaves``, default the model's parameters; a
+    :class:`ShardedOptimizer`'s ``opt_params``, slices included) ends with
+    a ``.grad`` (zeros where the loss does not reach it, so AdamW decays
     it as optax does).
 
     ``n_accum > 1`` (``mca_tpu.train._accum_grads``): microbatch ``i``
@@ -492,7 +495,8 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
     where none had it.  Each forward's encoder dropout draws from
     :func:`dropout_generator` of ``(dropout_seed, step[, microbatch])``."""
     device = next(model.parameters()).device
-    for p in model.parameters():
+    leaves = list(model.parameters()) if leaves is None else list(leaves)
+    for p in leaves:
         p.grad = None
     if n_accum == 1:
         out = model(batch, no_loss=False,
@@ -515,10 +519,10 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
             count = finite.float() if count is None else count + finite.float()
         mean = torch.where(count > 0, total / count, torch.full_like(total, math.nan))
         scal = dict(zip(names, mean.unbind()))
-        for p in model.parameters():
+        for p in leaves:
             if p.grad is not None:
                 p.grad.mul_(1.0 / n_accum)
-    for p in model.parameters():
+    for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     return scal
@@ -537,11 +541,13 @@ def train_step(
     step's metrics as floats.  The step's index for the dropout
     generator is the steps ``schedule`` has taken (restored with it).
     A :class:`ShardedOptimizer` (several ranks) reduces the gradients
-    over the mesh first and takes the norms over the whole set."""
+    over the mesh first, takes the norms over the whole set and drops
+    the gradients after its step."""
     lr = schedule.get_last_lr()[0]
     sharded = isinstance(optimizer, ShardedOptimizer)
     scal = forward_backward(model, batch, n_accum, dropout_seed, schedule.last_epoch,
-                            optimizer.mesh.data_rank if sharded else None)
+                            optimizer.mesh.data_rank if sharded else None,
+                            optimizer.opt_params if sharded else None)
     if sharded:
         optimizer.reduce_gradients()
         grads = optimizer.gradients()
@@ -590,7 +596,9 @@ def build_trainer(
     model axis is above 1, the pipelined stack over ``pipe``), loaded
     with its shards of the same whole weights, and the
     optimizer a :class:`ShardedOptimizer` (``fsdp`` on a data axis above
-    1 shards its leaves); ``schedule`` steps the optimizer it wraps."""
+    1: ZeRO-3, the large leaves leave the model for the rank's slices,
+    cut on the host before anything moves to ``device``); ``schedule``
+    steps the optimizer it wraps."""
     check_training_keys(config)
     dev = require_device(device)
     mesh = mesh if mesh is not None else training_mesh(config, dev)
@@ -619,9 +627,12 @@ def build_trainer(
                              pipe_group=mesh.pipe_group, seq_shard=seq_shard),
                         fused_ff=False)
     model.load_state_dict(shard_state_dict(whole, mesh), strict=True)
-    model.to(dev).train()
+    del whole
+    # sliced on the host, then moved: no whole large leaf reaches the card
     optimizer = ShardedOptimizer(model, mesh, lambda ps: make_adamw(ps, config),
-                                 fsdp=bool(config.get("fsdp", False)), seq_shard=seq_shard)
+                                 fsdp=bool(config.get("fsdp", False)), seq_shard=seq_shard,
+                                 device=dev)
+    model.train()
     return model, optimizer, make_schedule(optimizer.inner, config, num_training_steps)
 
 
@@ -860,6 +871,8 @@ def train(
     clip = float(config.clip or 0.0)
     stage_dtype = config.get("stage_dtype", "fp32")
     sentinels = staging_sentinels(config)
+    trace_dir = config.get("trace_dir", "") or ""
+    steps_run = 0  # this run's steps: the second is traced
     logger.info("Number of training samples: %d, batches per epoch: %d",
                 len(data["train"]), steps_per_epoch)
 
@@ -887,9 +900,12 @@ def train(
             try:
                 for batch in stream:
                     staged = narrow_for_staging(stage(batch), stage_dtype, sentinels)
-                    metrics = train_step(model, optimizer, schedule, to_device(staged, dev),
-                                         clip=clip, n_accum=n_accum,
-                                         dropout_seed=int(config.seed))
+                    steps_run += 1
+                    with trace_context(trace_dir if steps_run == 2 else None,
+                                       f"step{step + 1}.rank{process_index()}"):
+                        metrics = train_step(model, optimizer, schedule, to_device(staged, dev),
+                                             clip=clip, n_accum=n_accum,
+                                             dropout_seed=int(config.seed))
                     step += 1
                     meter.step()
                     if step % log_every == 0:

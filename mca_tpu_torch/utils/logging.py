@@ -7,9 +7,9 @@
 - :class:`NullLogger`: the stand-in that logs nothing.
 - :class:`ThroughputMeter`: tokens/s and ms per step over a sliding
   window of step stamps.
-
-The JAX package's ``trace_context`` (``jax.profiler``) has no
-counterpart yet: the training run refuses a ``trace_dir``.
+- :func:`trace_context`: a ``torch.profiler`` window over a block (the
+  JAX package's ``jax.profiler`` trace of the second launch), written
+  as a Chrome trace into ``trace_dir``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import logging
 import os
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 _log = logging.getLogger(__name__)
@@ -131,3 +132,28 @@ class ThroughputMeter:
             return 0.0
         n, dt = self._window()
         return dt / max(n, 1) * 1000.0
+
+
+@contextmanager
+def trace_context(trace_dir: Optional[str], name: str = "trace"):
+    """A ``torch.profiler`` window over the block when ``trace_dir`` is
+    set (the host's ops, and the device's kernels where CUDA is there),
+    written to ``trace_dir/<name>.json`` as a Chrome trace when the block
+    ends; nothing otherwise."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(trace_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    _log.info("profiler trace written to %s", path)

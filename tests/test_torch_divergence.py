@@ -77,7 +77,6 @@ def test_halt_on_nan_disabled_runs_to_completion(tmp_path):
     [
         ("grad_accum", 3, ValueError),  # does not divide batch_size 8
         ("stage_dtype", "fp8", ValueError),  # fp16 / bf16 staging is ported
-        ("trace_dir", "traces", NotImplementedError),
         ("moment_dtype", "fp16", ValueError),
         # a mesh larger than the world of one process (GPipe's pipe axis too)
         ("mesh_pipe", 2, ValueError),

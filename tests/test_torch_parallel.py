@@ -603,31 +603,43 @@ def test_fsdp_shards_the_large_leaves():
 
 @pytest.mark.parametrize("rank", [0, 1])
 def test_fsdp_steps_the_model_leaves_in_place(rank):
-    """Under fsdp the optimizer holds no copy of a sharded leaf: it steps
-    a view of the rank's slice of the model's own leaf, and the two
-    ranks' slices tile the leaf."""
+    """Under fsdp (ZeRO-3) the optimizer steps the rank's resident slice of
+    each sharded leaf, ``ceil(n / 2)`` entries that the two ranks' slices
+    tile (the last one zero-padded); the leaf itself has left the model,
+    and the moments are the slice's only."""
     cfg = training_config_from_dict(_cfg())
-    model = port_train.build_trainer(cfg, "cpu")[0]
-    mesh = mesh_lib.Mesh(data=2, data_rank=rank)
-    opt = sharding.ShardedOptimizer(model, mesh, lambda ps: port_train.make_adamw(ps, cfg),
-                                    fsdp=True)
+
+    def sliced(r):
+        model = port_train.build_trainer(cfg, "cpu")[0]
+        whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = sharding.ShardedOptimizer(model, mesh_lib.Mesh(data=2, data_rank=r),
+                                        lambda ps: port_train.make_adamw(ps, cfg), fsdp=True)
+        return model, opt, whole
+
+    model, opt, whole = sliced(rank)
+    other = sliced(1 - rank)[1]
     sharded = [i for i, sh in enumerate(opt.sharded) if sh]
     assert sharded
-    before = [p.detach().clone() for p in opt.params]
+    names = {n for n, _ in model.named_parameters()}
+    before = [p.detach().clone() for p in opt.opt_params]
     for i in sharded:
-        p, view, (a, b) = opt.params[i], opt.opt_params[i], opt.span[i]
-        c = -(-p.numel() // 2)
-        assert (a, b) == (rank * c, min((rank + 1) * c, p.numel()))
-        assert view.untyped_storage().data_ptr() == p.untyped_storage().data_ptr()
-        assert torch.equal(view, p.detach().reshape(-1)[a:b])
-        view.grad = torch.ones_like(view)
+        name, mine, c = opt.names[i], opt.opt_params[i], opt.chunk[i]
+        n = whole[name].numel()
+        assert c == -(-n // 2) and mine.numel() == c and name not in names
+        pair = (mine, other.opt_params[i]) if rank == 0 else (other.opt_params[i], mine)
+        tiled = torch.cat([t.detach() for t in pair])
+        assert torch.equal(tiled[:n], whole[name].reshape(-1))  # the ranks tile the leaf
+        assert not tiled[n:].any()  # the padding
+        mine.grad = torch.ones_like(mine)
+    for i in range(len(opt.opt_params)):
+        if not opt.sharded[i]:
+            assert opt.opt_params[i] is dict(model.named_parameters())[opt.names[i]]
+            opt.opt_params[i].grad = torch.zeros_like(opt.opt_params[i])
     opt.inner.step()
     for i in sharded:
-        (a, b), flat, old = opt.span[i], opt.params[i].detach().reshape(-1), before[i].reshape(-1)
-        assert not torch.equal(flat[a:b], old[a:b])  # stepped where the slice lies
-        assert torch.equal(torch.cat([flat[:a], flat[b:]]), torch.cat([old[:a], old[b:]]))
+        assert not torch.equal(opt.opt_params[i].detach(), before[i])  # stepped in place
         st = opt.inner.state[opt.opt_params[i]]
-        assert st["exp_avg"].numel() == b - a  # the moments are the slice's only
+        assert st["exp_avg"].numel() == opt.chunk[i]  # the moments are the slice's only
 
 
 def test_tp_matches_jax(runs):

@@ -137,7 +137,7 @@ def summed_replicated(model, opt):
 
     def faulty():
         real()
-        opt._all_reduce_flat([p.grad for p, s in zip(opt.params, opt.pipe_partial) if not s],
+        opt._all_reduce_flat([g for g, s in zip(opt.gradients(), opt.pipe_partial) if not s],
                              opt.mesh.pipe_group)
 
     opt.reduce_gradients = faulty
