@@ -64,7 +64,8 @@ Phases (each asserted; any failure exits non-zero):
    and the first step's loss, whole gradient and attention-projection
    gradients agree with fp32 on the CPU.  Prints the host, the ms of
    each step and training tokens/s.
-7. the measurement slice: K6 (roofline counter), K7 (overlap probe, on
+7. the measurement slice: K6 (roofline counter, read twice and both
+   readings printed; the first goes to the kernels line), K7 (overlap probe, on
    wgmma, its exp steps between the issues of its products) and K8 (its
    control) against their plain versions, mode by mode, every
    block's output after a few iterations from seeded inputs under which
@@ -142,8 +143,9 @@ Phases (each asserted; any failure exits non-zero):
    second kv tile of a pair item, a zeroed W2 chunk). (b) Serving, as
    phase 5, on 20 CMU rows: ``embed`` / ``submit`` / HTTP agree, K1 and
    K5 5 a forward, bf16 GPU vs fp32 CPU. (c) Training, as phase 6 (its
-   gates and exact launches), and one step staged at bf16 beside one at
-   fp32 (``total_loss`` and bytes copied). (d) ``infer`` over 40 rows
+   gates and exact launches) at depth 2 (since PR 16, for the script's
+   time), and one step staged at bf16 beside one at fp32 (``total_loss``
+   and bytes copied). (d) ``infer`` over 40 rows
    from the seed-0 weights: 4 train and 1 eval batch, K1 and K5 25 each,
    no backward; six files, 16 keys, the 7 float labels, the eval split
    against fp32 on the CPU. (e) Prints host ms to collate a batch,
@@ -161,9 +163,11 @@ Phases (each asserted; any failure exits non-zero):
    length) and a sample without the modality; planted faults: a dropped
    tile, a pair item's second kv tile and, at an odd tile count, a tile of
    the lone last kv pair and of the lone last q pair; K3a's dq bitwise
-   equal over two runs at T 1600. (b) Phase 6 on the EAO model: 6 steps
-   on each backward, K1 50 and K2 50 (or K3a 50 + K3b 50) a step, the
-   first-step gates against fp32 on the CPU, fused against split.
+   equal over two runs at T 1600. (b) Phase 6 on the EAO model at depth
+   2 (since PR 16, for the script's time): 6 steps on each backward, K1
+   20 and K2 20 (or K3a 20 + K3b 20) a step, the first-step gates
+   against fp32 on the CPU, fused against split; a full-depth step's
+   wall and device ms.
 12. the MoE family: TCGA_config1 at full width and depth with
    ``moe_experts: 2``, ``moe_capacity_factor: 2.0`` (C = T = 2548) set in
    code. (a) Serving, as phase 5: ``embed`` / ``submit`` / HTTP agree, K1
@@ -202,9 +206,11 @@ Phases (each asserted; any failure exits non-zero):
    forward of the loaded program; a fresh process that imports only the
    service serves a row from the fp artifact (K1 and K5 5 each, no
    model, config, encoder or mask module imported); the artifacts' and
-   the int8 projections' bytes. (c) ms per batch-8 forward (CUDA events)
-   for eager fp, eager int8, loaded fp and loaded int8, beside the
-   card's name and power limit.
+   the int8 projections' bytes; phase 12's MoE model exported on the card
+   and served through ``serve --aot`` (the CLI's service from its
+   artifact), against its eager service, K1 5 and K5 0 a forward. (c)
+   ms per batch-8 forward (CUDA events) for eager fp, eager int8, loaded
+   fp and loaded int8, beside the card's name and power limit.
 14. data and tensor parallelism (``mca_tpu_torch.parallel``) at
    TCGA_config1 width and depth, 3 steps (warm-up 2) on a batch of 8
    from the seed-0 weights. (a) Through ``init_multihost`` with a
@@ -271,20 +277,48 @@ Phases (each asserted; any failure exits non-zero):
    field printed, and from ``PROFILED_STEPS`` steps plain and under
    ``remat`` (``profiled_steps``) the remat step's device and wall time
    over the plain step's and the plain step's model FLOPs utilisation:
-   ``plan_parallel``'s two measured figures. (c) ``tools.plan_parallel`` for 2
-   cards with ``--exact`` (its activation model from (b)'s batch-8 steps
-   and two at batch 2): each top plan without a pipe measured on its own
-   ranks, each rank's resident bytes equal to the plan's state bytes as
-   in (a); predicted and measured peaks printed. (d) ``trace_dir``: a
-   3-step ``train`` writes the second step's ``torch.profiler`` trace, in
-   which K1's and K2's kernels each run 5 times.
-17. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
+   ``plan_parallel``'s two measured figures. (c) ``python -m
+   mca_tpu_torch.tools.plan_parallel --devices 2 --exact --json`` in a
+   process of its own, as a user runs it (its activation model read
+   there at the fewest rows a plan gives a microbatch, 1, and at (b)'s
+   batch of 8, with what ``grad_accum: 2`` over one row adds): each top
+   plan without a pipe
+   measured on its own ranks, each rank's resident bytes equal to the
+   plan's state bytes as in (a), and its measured peak at most the
+   predicted one, which is at most 1.25 x the measured; the accumulation
+   reading printed fresh and in this process. (d) ``trace_dir``:
+   a 3-step ``train`` writes the second step's ``torch.profiler`` trace,
+   in which K1's and K2's kernels each run 5 times.
+17. ``attention_impl: segmented`` and the last tools, at full width. (a)
+   The segmented serving forward at TCGA_config1 (batch 8, seed-0
+   weights): K1 once a segment a block (4 x 5 = 20) and K5 5, the
+   embeddings against the monolithic K1 forward on the same weights and
+   against fp32 on the CPU; ms a forward, segmented and monolithic. (b)
+   The segmented training step, 3 steps on each backward: K1 and K2 20
+   a step (or K3a 20 + K3b 20); the first step's loss, gradient and
+   attention leaves against the monolithic step from the same weights
+   with phase 6's bounds, split against fused; wall and device ms a
+   step, segmented and monolithic. (c) K1, K2, K3a and K3b against their
+   plain versions unmasked at CMU_config1's segment lengths (1500, 450
+   and 50, the last under one tile), each with its planted faults; the
+   segmented CMU_config1 forward against the monolithic one. (d)
+   ``tools.attention_maps`` on two rows: every row sums to 1, blocked
+   entries of rows with a live key exactly 0, layer 0 against fp32 on
+   the CPU. (e) ``tools.import_checkpoint --with-optimizer`` from an
+   Accelerate directory written from a trainer's state after 2 steps:
+   one step restarted from the import equals one step continued, bit
+   for bit, on the split backward with deterministic algorithms. (f) One
+   ``tools.sweep`` cell at TCGA_config1 scale and a small
+   ``tools.reproduce`` pipeline, each on rows held in memory: finite
+   probe metrics and every file each stage writes.
+18. one ``{"kernels": [...]}`` line (eight kernels; launches from phases
    2-7, phase 9's MCA, MMA and EAO infer runs, phase 10's serving,
    training and infer, phase 11's training, phase 12's serving,
    training and ``moe_stats``, phase 13's serving and loaded programs,
-   phase 14's steps, serving and infer ranks, phase 15's ranks and phase
-   16's ranks, ``memory_report`` step and traced run, each counted from
-   0), then the last line ``{"ok": true, "device": {...}}``.
+   phase 14's steps, serving and infer ranks, phase 15's ranks, phase
+   16's ranks, ``memory_report`` step and traced run, and phase 17's
+   segmented forwards and steps and restarted step, each counted from 0),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published peaks (989 TFLOP/s dense bf16,
 67 TFLOP/s fp32, i.e. 33.5 T fp32 instructions/s, 16 MUFU operations a
@@ -301,7 +335,6 @@ import math
 import os
 import shutil
 import signal
-import struct
 import subprocess
 import sys
 import tempfile
@@ -322,7 +355,8 @@ from mca_tpu_torch import _build
 from mca_tpu_torch import infer as infer_lib
 from mca_tpu_torch import native
 from mca_tpu_torch import probe as probe_lib
-from mca_tpu_torch.checkpoint import Checkpointer, load_params, load_state, save_params
+from mca_tpu_torch.checkpoint import (Checkpointer, load_params, load_state, read_safetensors,
+                                      save_params)
 from mca_tpu_torch.config import (embedding_eval_config, get_model_config, load_yaml,
                                    training_config)
 from mca_tpu_torch.data.collators import MultimodalCollator
@@ -342,7 +376,7 @@ from mca_tpu_torch.parallel import launch as launch_lib
 from mca_tpu_torch.parallel import pipeline
 from mca_tpu_torch.parallel.sharding import FSDP_MIN_SIZE
 from mca_tpu_torch.parallel.multihost import init_multihost, make_stager
-from mca_tpu_torch.serve import EmbeddingService, make_server
+from mca_tpu_torch.serve import EmbeddingService, make_server, parse_args, service_from_args
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
                                  median_host_ms, request_rows, sample_tokens)
 from mca_tpu_torch.tools import probe_overlap as overlap_tool
@@ -352,10 +386,17 @@ from mca_tpu_torch.tools import sass_counts
 from mca_tpu_torch.tools import memory_report
 from mca_tpu_torch.tools import plan_parallel as plan_tool
 from mca_tpu_torch.tools.moe_stats import extract_moe_stats
+from mca_tpu_torch.tools import attention_maps
+from mca_tpu_torch.tools import import_checkpoint as import_tool
+from mca_tpu_torch.tools import reproduce as reproduce_tool
+from mca_tpu_torch.tools import sweep as sweep_tool
+from mca_tpu_torch import interop
+from mca_tpu_torch.ops import segmented_attention as segmented
 from mca_tpu_torch.train import (
     PreemptedError,
     build_trainer,
     forward_backward,
+    load_train_state,
     narrow_for_staging,
     run_eval_epoch,
     staging_sentinels,
@@ -470,6 +511,9 @@ EVAL_CONFIGS = {"mma": ROOT / "configs" / "tcga_mma_d40.yaml",
 # phases 10 and 11: CMU_config1 (serving, training, infer) and EAO training
 CMU_CONFIG = ROOT / "configs" / "cmu_mca.yaml"
 EAO_CONFIG = ROOT / "configs" / "tcga_eao.yaml"
+# phases 10 (c) and 11 (b): the training check's depth (the fp32 CPU step
+# costs most of their time; the serving, infer and profiled steps keep 5)
+CHECK_DEPTH = 2
 PROFILED_STEPS = 3
 TOP_KERNELS = 6
 # phase 12: TCGA_config1 with the MoE feed-forward at the JAX package's
@@ -583,10 +627,35 @@ ACCUM_TEMP_SHARE = 0.6
 # plan_parallel --devices 2 --exact: the top plans measured
 PLAN_DEVICES = 2
 PLAN_TOPK = 1
+PLAN_TIMEOUT = 600  # seconds for the tool's process, its ranks included
+PLAN_READING_JOBS = 6  # its six readings at once, each in a process of its own
 # trace_dir: a run of this many steps traces its second
 TRACE_STEPS = 3
 TRACE_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "flash_bwd_kv_kernel<true>"}
+# phase 16 (c): every plan measured lies under its predicted peak, and
+# the prediction within this factor of the measurement
+PLAN_PEAK_OVER = 1.25
 PAR_INFER_ROWS = 40
+# phase 17: attention_impl segmented; CMU_config1's segment lengths at
+# which K1 and K2 run unmasked (glove's 50 under one tile)
+SEG_LENGTHS = (1500, 450, 50)
+SEG_STEPS = 3
+# attention_maps at full width on two rows of a split of four
+MAPS_ROWS, MAPS_SPLIT, MAPS_BATCH = 4, 0.5, 2
+MAPS_SUM_ATOL = 1e-5
+# layer 0's probabilities, bf16 on the card against fp32 on the CPU
+# (relative L2): q and k round to bf16 before the scores, which moves a
+# score by ~2^-9 of its terms and its softmax entry by about as much
+MAPS_REL_L2 = 2e-2
+# import_checkpoint --with-optimizer: a trainer's state after this many
+# steps, of a run this long, written as an Accelerate directory
+IMPORT_STEPS, IMPORT_HORIZON = 2, 10
+# one sweep cell at TCGA_config1 (the grid's canonical scale; head dim
+# 64, which the kernels take), on rows held in memory: 79 train rows
+# (9 steps of 8) and 9 test rows (one batch) at the grid's split of 0.1
+SWEEP_ROWS, SWEEP_CELL, SWEEP_PROBE_EPOCHS = 88, "mca_d00", 20
+# a small reproduce pipeline: 16 train and 8 test rows, one epoch
+REPRO_ROWS, REPRO_SPLIT, REPRO_PROBE_EPOCHS = 24, 1 / 3, 20
 # the probe's host and device loops on one full batch: order cannot
 # matter, so they differ only in the order of their fp32 sums (the JAX
 # package's pin for its scanned loop, tests/test_e2e.py): losses, norms
@@ -828,14 +897,15 @@ def planted_tile(mask: np.ndarray, pad: torch.Tensor, partial: bool = True):
     entries over the batch: of the tiles that the static mask leaves
     partly blocked (any tile, without ``partial``) off the ragged edge
     and the padding leaves some entry live, the one with the median
-    count of live entries."""
+    count of live entries; a pass of one tile drops that tile."""
     row_ptr, col_idx, full = flash.tile_schedule(mask)
     nt = len(row_ptr) - 1
+    edge = max(nt - 1, 1)
     tiles = []
-    for i in range(nt - 1):
+    for i in range(edge):
         for n in range(row_ptr[i], row_ptr[i + 1]):
             j = int(col_idx[n])
-            if (not full[n] or not partial) and j < nt - 1:
+            if (not full[n] or not partial) and j < edge:
                 cnt = tile_live(mask, pad, i, j)
                 if cnt:
                     tiles.append((cnt, i, j))
@@ -885,11 +955,14 @@ def planted_lone_half(mask: np.ndarray, pad: torch.Tensor, kv: bool = True):
 def planted_bwd_faults(mask: np.ndarray, pad: torch.Tensor, partial: bool = True) -> dict:
     """The backward's planted faults, each a tile the plain backward
     drops: a tile of the q-major walk (partly masked where ``partial``),
-    the second kv tile of a pair item and, where the tile count is odd,
-    a tile on the lone half of the last kv pair and of the last q pair."""
-    faults = {"tile": planted_tile(mask, pad, partial=partial),
-              "pair half": planted_pair_half(mask, pad, partial=partial)}
-    if -(-mask.shape[0] // flash.BLOCK) % 2:
+    the second kv tile of a pair item (past two tiles) and, where the
+    tile count is odd, a tile on the lone half of the last kv pair and of
+    the last q pair."""
+    nt = -(-mask.shape[0] // flash.BLOCK)
+    faults = {"tile": planted_tile(mask, pad, partial=partial)}
+    if nt > 2:  # a second kv tile off the ragged edge
+        faults["pair half"] = planted_pair_half(mask, pad, partial=partial)
+    if nt % 2:
         faults["lone kv half"] = planted_lone_half(mask, pad, kv=True)
         faults["lone q half"] = planted_lone_half(mask, pad, kv=False)
     return faults
@@ -1560,22 +1633,6 @@ def check_train(config, device, cpu_device="cpu", steps=TRAIN_STEPS, label="trai
 
 class StopRun(Exception):
     """Raised from a run's ``log`` callback to end the run there."""
-
-
-def read_safetensors(path) -> dict:
-    """A safetensors file's tensors (the card has no ``safetensors``
-    package): the 8-byte header length, the JSON header, the raw bytes."""
-    with open(path, "rb") as f:
-        n = struct.unpack("<Q", f.read(8))[0]
-        header = json.loads(f.read(n))
-        data = f.read()
-    header.pop("__metadata__", None)
-    dtypes = {"F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16}
-    return {
-        k: torch.frombuffer(bytearray(data[h["data_offsets"][0]:h["data_offsets"][1]]),
-                            dtype=dtypes[h["dtype"]]).reshape(h["shape"])
-        for k, h in header.items()
-    }
 
 
 def run_config(config, out_dir, **overrides):
@@ -2257,33 +2314,39 @@ def staged_step_losses(config, device, params, rows) -> dict:
     return out
 
 
-def profiled_steps(config, device, params, rows, steps=PROFILED_STEPS) -> dict:
-    """Wall ms a fused-backward step (host clock, synchronised, after a
-    warm-up step) and the device's busy ms a step under torch.profiler
-    (another window of ``steps``): the device's share of the wall; and
-    the ``TOP_KERNELS`` kernels that took the most device ms a step."""
-    model, opt, sched = build_trainer(config, device.type, num_training_steps=3 * steps,
-                                      params=params)
-    batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), device)
-    clip = float(config.clip)
-    train_step(model, opt, sched, batch, clip=clip)
+def device_busy_ms(fn, iters: int = PROFILED_STEPS) -> dict:
+    """Wall ms a call of ``fn`` (host clock, synchronised, after a warm-up
+    call) and the device's busy ms a call under torch.profiler (another
+    window of ``iters``): the device's share of the wall; and the
+    ``TOP_KERNELS`` kernels that took the most device ms a call."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        train_step(model, opt, sched, batch, clip=clip)  # ends in a sync
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / iters
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            train_step(model, opt, sched, batch, clip=clip)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.events():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", "#" in ev.name)):
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total / 1e3 / steps
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total / 1e3 / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return {"wall_ms": wall_ms, "device_ms": sum(by_name.values()), "top": top}
+
+
+def profiled_steps(config, device, params, rows, steps=PROFILED_STEPS) -> dict:
+    """:func:`device_busy_ms` of a fused-backward training step."""
+    model, opt, sched = build_trainer(config, device.type, num_training_steps=3 * steps,
+                                      params=params)
+    batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), device)
+    return device_busy_ms(lambda: train_step(model, opt, sched, batch, clip=float(config.clip)),
+                          steps)
 
 
 def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
@@ -2299,7 +2362,8 @@ def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
     served = check_slice(cfg, device, label="cmu (b) serve")  # counts from 0
     print(f"cmu (b): {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
-    trained, params = check_train(cfg, device, label="cmu (c) train")
+    trained, _ = check_train(shallow(cfg), device, label="cmu (c) train")
+    params = seed_model(cfg).state_dict()
     rows = synthetic_rows(cfg, RUN_ROWS, seed=0)
     staged = staged_step_losses(cfg, device, params, rows[:bs])
     (loss32, bytes32), (loss16, bytes16) = staged["fp32"], staged["bf16"]
@@ -2352,6 +2416,15 @@ def check_cmu(device, tmp: Path, cpu_device="cpu") -> dict:
             "geglu_ff": served["geglu_ff"] + inferred["geglu_ff"], **trained}
 
 
+def shallow(config):
+    """``config`` at ``CHECK_DEPTH`` blocks: phases 10 (c) and 11 (b)
+    hold their steps to fp32 on the CPU, which at full depth took 124 and
+    89 s of the script's 1200 (PR 16)."""
+    cfg = type(config)(config)
+    cfg.layers = CHECK_DEPTH
+    return cfg
+
+
 def check_eao_train(device, cpu_device="cpu") -> dict:
     """Phase 11, the EAO training step (module docstring); returns its
     main path's backward launches."""
@@ -2359,8 +2432,9 @@ def check_eao_train(device, cpu_device="cpu") -> dict:
     t0 = time.perf_counter()
     check_eao_bwd_kernels(cfg, device)  # (a)
     print(f"eao (a): {time.perf_counter() - t0:.1f} s", flush=True)
-    trained, params = check_train(cfg, device, cpu_device, label="eao (b) train")
-    prof = profiled_steps(cfg, device, params, synthetic_rows(cfg, int(cfg.batch_size)))
+    trained, _ = check_train(shallow(cfg), device, cpu_device, label="eao (b) train")
+    prof = profiled_steps(cfg, device, seed_model(cfg).state_dict(),
+                          synthetic_rows(cfg, int(cfg.batch_size)))
     print(f"eao (b): training step (fused) {prof['wall_ms']:.3f} ms wall, "
           f"{prof['device_ms']:.3f} ms device busy under torch.profiler (busy share "
           f"{prof['device_ms'] / prof['wall_ms']:.3f})", flush=True)
@@ -2799,6 +2873,36 @@ def check_quant_aot(config, device, card: str, tmp: Path, cpu_device="cpu") -> d
           f"in {fresh['seconds']:.1f} s, K1 {fresh['launches']['flash_fwd']} and K5 "
           f"{fresh['launches']['geglu_ff']} launches, max abs gap {fresh_gap!r} to this "
           f"process's", flush=True)
+
+    # (b) a MoE model (phase 12's) exported on the card and served through
+    # serve --aot (the CLI's service from its artifact) against the eager service
+    moe_cfg = moe_config()
+    moe_svc = EmbeddingService(moe_cfg, params=seed_model(moe_cfg).state_dict(),
+                               device=device, max_batch=8)
+    blob, ek, mk = export_aot.export_packed_forward(moe_cfg, None, moe_svc._pad(rows[:8]),
+                                                    model=moe_svc.model, device=device.type)
+    moe_path = tmp / "moe.aot"
+    export_aot.save_aot(str(moe_path), blob, ek, mk,
+                        modality_config=moe_cfg.modality_config.to_plain(), batch=8,
+                        device=device.type, quantize="none")
+    moe_aot = service_from_args(parse_args(["--aot", str(moe_path)]))
+    want = moe_svc.embed(rows[:8])
+    reset_launches()
+    got = moe_aot.embed(rows[:8])  # the main path: one forward of the loaded program
+    launched = launches_now()
+    assert launched == {"flash_fwd": depth, "geglu_ff": 0,
+                        **dict.fromkeys(flash.bwd_launches, 0)}, ("moe", launched)
+    counts["flash_fwd"] += launched["flash_fwd"]
+    gap = max(float(np.abs(got["embeddings"][k] - want["embeddings"][k]).max())
+              for k in moe_svc.emb_keys)
+    assert moe_aot.emb_keys == moe_svc.emb_keys and gap <= AOT_ATOL, gap
+    print(f"aot (b): the MoE model ({MOE_EXPERTS} experts, capacity factor {MOE_CF}) "
+          f"exported, {moe_path.stat().st_size} bytes, served through serve --aot: max abs "
+          f"gap {gap!r} to the eager service (bound {AOT_ATOL}); launches of one forward "
+          f"{launched}", flush=True)
+    moe_svc.stop()
+    moe_aot.stop()
+    del moe_svc, moe_aot
 
     # (c) ms per batch-8 forward on the staged batch, CUDA events
     with torch.inference_mode():
@@ -3935,13 +4039,66 @@ def trace_kernel_counts(path: Path) -> dict:
     return {k: sum(fn in n for n in names) for k, fn in TRACE_KERNELS.items()}
 
 
+def check_plan(config) -> None:
+    """Phase 16 (c): ``plan_parallel --devices 2 --exact --json`` as a
+    user runs it, in a process of its own: it reads its activation model
+    at the fewest rows a plan gives a microbatch and at the batch of 8,
+    with its accumulation term at ``grad_accum: 2`` over the fewest rows,
+    and measures the top plans' ranks; each rank's resident bytes equal
+    the plan's state bytes, and measured peak <= predicted <= 1.25 x
+    measured."""
+    mib = 2.0**-20
+    lo, hi = plan_tool.probe_rows(config, plan_tool.enumerate_plans(config, PLAN_DEVICES))
+    assert hi == int(config.batch_size), (lo, hi)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mca_tpu_torch.tools.plan_parallel", str(CONFIG), "--devices",
+         str(PLAN_DEVICES), "--topk", str(PLAN_TOPK), "--exact", "--json", "--reading-jobs",
+         str(PLAN_READING_JOBS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=PLAN_TIMEOUT,
+        env={**os.environ,
+             "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")})
+    tool_s = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-4000:]
+    plans = json.loads([ln for ln in res.stdout.splitlines() if ln.startswith("[")][-1])
+    measured = [p for p in plans if p["pp"] == 1]
+    assert measured and all(p["exact"] for p in measured), plans
+    for p in measured:
+        gap = exact_resident_gap(p["exact"], p["state_bytes"])
+        peaks = [r["peak_estimate_bytes"] for r in p["exact"]]
+        pred = p["peak_bytes"]
+        print(f"phase 16 (c): plan {p['config_stanza']}: state predicted {p['state_bytes']} B, "
+              f"resident a rank {[r['resident_bytes'] for r in p['exact']]} B "
+              f"({[r['state_tensors'] for r in p['exact']]} tensors, ranks over "
+              f"{p['exact'][0]['dist_backend']}); peak predicted {pred * mib:.1f} MiB "
+              f"(activations {p['act_bytes'] * mib:.1f}, read by the tool's own process), "
+              f"measured {[round(x * mib, 1) for x in peaks]} (predicted / measured "
+              f"{', '.join(f'{pred / x:.4f}' for x in peaks)}, bounds 1 and "
+              f"{PLAN_PEAK_OVER}); est {p['est_step_ms']:.3f} ms a step", flush=True)
+        assert gap <= 0, (p, gap)
+        for x in peaks:
+            assert x <= pred <= PLAN_PEAK_OVER * x, (p["config_stanza"], pred, x)
+    print(f"phase 16 (c): plan_parallel --devices {PLAN_DEVICES} --topk {PLAN_TOPK} --exact "
+          f"--json --reading-jobs {PLAN_READING_JOBS}, its activation model read at {lo} and "
+          f"{hi} rows: {tool_s:.1f} s", flush=True)
+    # the reading the accumulation term rests on, in a process of its own
+    # (the tool's) and in this one, after the earlier phases
+    cfg = type(config)(config)
+    cfg.batch_size = 2 * lo
+    fresh = plan_tool.fresh_step_memory(cfg, grad_accum=2)
+    here = memory_report.step_memory(cfg, grad_accum=2)
+    print(f"phase 16 (c): {lo} row a microbatch, grad_accum 2: peak "
+          f"{fresh['peak_estimate_bytes']} B, reading {plan_tool.step_reading(fresh)} B in a "
+          f"fresh process; {here['peak_estimate_bytes']} B, "
+          f"{plan_tool.step_reading(here)} B in this one", flush=True)
+
+
 def check_zero3(device, card: str, tmp: Path) -> dict:
     """Phase 16, ZeRO-3, ``memory_report``, ``plan_parallel`` and
     ``trace_dir`` (module docstring); returns the launches of its main
     paths."""
     config = training_config(str(CONFIG))
     _, _, batch = par_inputs(config)
-    mib = 2.0**-20
 
     # (a) ZeRO-3 at two ranks against the unsharded steps; PR 14's layout beside it
     counts, out = check_layouts(config, device, card, batch, tmp, 2, "gloo", ZERO3_LAYOUTS,
@@ -3983,31 +4140,7 @@ def check_zero3(device, card: str, tmp: Path) -> dict:
     assert accum["argument_size_in_bytes"] == base["argument_size_in_bytes"], (accum, base)
     assert remat["temp_size_in_bytes"] < base["temp_size_in_bytes"], (remat, base)
 
-    # (c) plan_parallel --devices 2 --exact, its activation model from (b)'s
-    # batch-8 steps and two at batch 2
-    small = type(config)(config)
-    small.batch_size = 2
-    act = {r: plan_tool.activation_model({
-        int(config.batch_size): (remat if r else base)["temp_size_in_bytes"],
-        2: memory_report.step_memory(small, remat=r, device=device.type)["temp_size_in_bytes"]})
-        for r in (False, True)}
-    t0 = time.perf_counter()
-    plans = plan_tool.plan(config, PLAN_DEVICES, topk=PLAN_TOPK, exact=True, act_models=act,
-                           device=device.type)
-    exact_s = time.perf_counter() - t0
-    measured = [p for p in plans[:PLAN_TOPK] if p.pp == 1]
-    assert measured and all(p.exact for p in measured), plans[:PLAN_TOPK]
-    for p in measured:
-        gap = exact_resident_gap(p.exact, p.state_bytes)
-        print(f"phase 16 (c): plan {p.config_stanza()}: state predicted {p.state_bytes} B, "
-              f"resident a rank {[r['resident_bytes'] for r in p.exact]} B "
-              f"({[r['state_tensors'] for r in p.exact]} tensors, ranks over "
-              f"{p.exact[0]['dist_backend']}); peak predicted {p.peak_bytes * mib:.1f} MiB, "
-              f"measured {[round(r['peak_estimate_bytes'] * mib, 1) for r in p.exact]}; "
-              f"est {p.est_step_ms:.3f} ms a step", flush=True)
-        assert gap <= 0, (p, gap)
-    print(f"phase 16 (c): {len(plans)} plans for {PLAN_DEVICES} cards, activation model "
-          f"{act}; the exact ranks took {exact_s:.1f} s", flush=True)
+    check_plan(config)
 
     # (d) trace_dir: a short run traces its second step
     rows = synthetic_rows(config, TRACE_STEPS * int(config.batch_size) + 2, seed=0)
@@ -4024,6 +4157,369 @@ def check_zero3(device, card: str, tmp: Path) -> dict:
     print(f"phase 16 (d): trace_dir: {traces[0].name}, {traces[0].stat().st_size} bytes; "
           f"kernels in the traced step {found} (a step launches {depth} of each)", flush=True)
     assert found == dict.fromkeys(TRACE_KERNELS, depth), found
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 17: attention_impl segmented, attention_maps, import_checkpoint,
+# one sweep cell and a reproduce pipeline
+# ---------------------------------------------------------------------------
+
+
+def with_impl(config, impl: str):
+    """``config`` with ``attention_impl: impl``."""
+    cfg = type(config)(config)
+    cfg.attention_impl = impl
+    return cfg
+
+
+def segments_of(config) -> int:
+    """The self-attention segments of ``config``'s mask (K1 / K2 launches
+    a block on the segmented path)."""
+    mods = config.modality_config.to_plain()
+    ms = build_masks([int(mods[m]["pad_len"]) for m in config.encoder_configs],
+                     int(config.num_fusion_tokens), list(config.fusion_combos),
+                     zorro=bool(config.zorro), fcl=bool(config.fcl))
+    return len(segmented.analyze_mask(ms.attn_mask)[0])
+
+
+def embed_forward(config, params, device, batch) -> dict:
+    """The serving forward (fused feed-forward) of ``config``'s model on
+    ``params``: the embeddings as fp32 CPU tensors, and the model."""
+    model = build_model(get_model_config(config), fused_ff=True)
+    model.load_state_dict(params, strict=True)
+    model.to(device).eval()
+    with torch.inference_mode():
+        out = model(to_device(batch, device), no_loss=True)
+        emb = {k: out[k].float().cpu() for k in model.loss.output_keys()}
+    return emb, model
+
+
+def check_segmented_forward(config, device, label: str, cpu_device="cpu") -> dict:
+    """Phase 17 (a) (and (c)'s CMU forward without ``cpu_device``): the
+    segmented serving forward at the config's full width and depth, batch
+    of 8, against the monolithic K1 forward on the same weights and
+    against fp32 on the CPU, per key; K1 a segment a block, K5 a block.
+    Returns its launches."""
+    seg, mono = with_impl(config, "segmented"), with_impl(config, "pallas")
+    depth, n_seg = int(config.layers), segments_of(config)
+    params = seed_model(config).state_dict()
+    batch = MultimodalCollator(config.modality_config.to_plain())(
+        synthetic_rows(config, int(config.batch_size)))
+    reset_launches()
+    got, seg_model = embed_forward(seg, params, device, batch)  # the main path
+    launched = launches_now()
+    assert launched == {"flash_fwd": n_seg * depth, "geglu_ff": depth,
+                        **dict.fromkeys(flash.bwd_launches, 0)}, (label, launched)
+    want, mono_model = embed_forward(mono, params, device, batch)
+    keys = sorted(got)
+    rel = {k: rel_l2(got[k], want[k]) for k in keys}
+    gates = {"monolithic": max(rel.values())}
+    if cpu_device is not None:
+        cpu32 = type(seg)(seg)
+        cpu32.precision = "fp32"
+        ref, _ = embed_forward(cpu32, params, cpu_device, batch)
+        gates["fp32 CPU"] = max(rel_l2(got[k], ref[k]) for k in keys)
+    staged = to_device(batch, device)
+    with torch.inference_mode():
+        times = {name: device_busy_ms(lambda m=m: m(staged, no_loss=True))
+                 for name, m in (("segmented", seg_model), ("monolithic", mono_model))}
+    print(f"{label}: segmented forward, {n_seg} segments a block: launches {launched}; "
+          f"embeddings against the monolithic K1 forward, relative L2 per key at most "
+          f"{gates['monolithic']:.3e}"
+          + (f", against fp32 on the CPU {gates['fp32 CPU']:.3e}" if cpu_device else "")
+          + f" (bound {SLICE_REL_L2}); ms a batch-8 forward (wall / device busy): "
+          + "; ".join(f"{n} {t['wall_ms']:.3f} / {t['device_ms']:.3f}"
+                      for n, t in times.items()), flush=True)
+    for name, g in gates.items():
+        assert g <= SLICE_REL_L2, (label, name, g)
+    del seg_model, mono_model
+    return {"flash_fwd": launched["flash_fwd"], "geglu_ff": launched["geglu_ff"]}
+
+
+def check_segmented_step(config, device) -> dict:
+    """Phase 17 (b): the segmented training step at TCGA_config1, through
+    the fused backward (K2 a segment a block) and the split one (K3a +
+    K3b), ``SEG_STEPS`` steps each with finite metrics; the first step's
+    loss, flat gradient and attention leaves against the monolithic K1 /
+    K2 step from the same weights, with phase 6's bounds; the two routes'
+    q / kv leaves against each other.  Returns the launches."""
+    seg, mono = with_impl(config, "segmented"), with_impl(config, "pallas")
+    for cfg in (seg, mono):
+        cfg.num_warmup_steps = TRAIN_WARMUP
+    depth, n_seg = int(config.layers), segments_of(config)
+    params = seed_model(config).state_dict()
+    rows = synthetic_rows(config, int(config.batch_size))
+    batch = to_device(MultimodalCollator(config.modality_config.to_plain())(rows), device)
+    counts = {}
+    for impl in ("fused", "split"):
+        flash.default_bwd_impl = impl
+        try:
+            model, opt, sched = build_trainer(seg, device.type, num_training_steps=SEG_STEPS,
+                                              params=params)
+            reset_launches()
+            history = [train_step(model, opt, sched, batch, clip=float(seg.clip))
+                       for _ in range(SEG_STEPS)]  # the main path
+            counts[impl] = launches_now()
+        finally:
+            flash.default_bwd_impl = "fused"
+        n = n_seg * depth * SEG_STEPS
+        want = {"flash_fwd": n, "geglu_ff": 0, "flash_bwd": n if impl == "fused" else 0,
+                "flash_bwd_dq": n if impl == "split" else 0,
+                "flash_bwd_dkv": n if impl == "split" else 0}
+        assert counts[impl] == want, (impl, counts[impl])
+        for m in history:
+            assert all(math.isfinite(m[k]) for k in ("total_loss", "grad_norm", "param_norm")), m
+        del model, opt, sched
+
+    def first_step(cfg, impl="fused"):
+        flash.default_bwd_impl = impl
+        try:
+            model = build_trainer(cfg, device.type, params=params)[0]
+            loss = float(forward_backward(model, batch)["total_loss"])
+        finally:
+            flash.default_bwd_impl = "fused"
+        return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+    seg_loss, seg_g = first_step(seg)
+    _, split_g = first_step(seg, "split")
+    mono_loss, mono_g = first_step(mono)
+    loss_rel = abs(seg_loss - mono_loss) / abs(mono_loss)
+    grad_rel = rel_l2(torch.cat([g.reshape(-1) for g in seg_g.values()]),
+                      torch.cat([g.reshape(-1) for g in mono_g.values()]))
+    attn_rel = max(rel_l2(seg_g[n], mono_g[n]) for n in attention_leaves(seg_g))
+    route_rel = max(rel_l2(split_g[n], seg_g[n])
+                    for n in attention_leaves(seg_g, ("to_q", "to_kv")))
+    times = {name: profiled_steps(cfg, device, params, rows)
+             for name, cfg in (("segmented", seg), ("monolithic", mono))}
+    print(f"seg (b): launches over {SEG_STEPS} steps, fused {counts['fused']}, split "
+          f"{counts['split']}; first step against the monolithic K1 / K2 step: loss "
+          f"{seg_loss:.6f} vs {mono_loss:.6f} (relative {loss_rel:.3e}, bound "
+          f"{TRAIN_LOSS_RTOL}), gradient relative L2 {grad_rel:.3e} (bound "
+          f"{TRAIN_GRAD_REL_L2}), attention projections at most {attn_rel:.3e} (bound "
+          f"{TRAIN_ATTN_GRAD_REL_L2}); split vs fused q / kv at most {route_rel:.3e} (bound "
+          f"{TRAIN_ROUTE_GRAD_REL_L2}); ms a step (wall / device busy): "
+          + "; ".join(f"{n} {t['wall_ms']:.3f} / {t['device_ms']:.3f}" for n, t in times.items())
+          + "; segmented top kernels "
+          + ", ".join(f"{k[:40]} {v:.3f}" for k, v in times["segmented"]["top"]), flush=True)
+    assert loss_rel <= TRAIN_LOSS_RTOL, (seg_loss, mono_loss)
+    assert grad_rel <= TRAIN_GRAD_REL_L2, grad_rel
+    assert attn_rel <= TRAIN_ATTN_GRAD_REL_L2, attn_rel
+    assert route_rel <= TRAIN_ROUTE_GRAD_REL_L2, route_rel
+    return {k: counts["fused"][k] + counts["split"][k] for k in counts["fused"]}
+
+
+def check_segment_kernels(device) -> None:
+    """Phase 17 (c): K1 and K2 / K3a / K3b against their plain versions,
+    unmasked, at CMU_config1's segment lengths, batch 8 x 8 heads, ragged
+    key padding (sample 0 at full length) and a sample without the
+    modality; each with its planted faults (at one tile, the tile itself)."""
+    for t in SEG_LENGTHS:
+        _, q, k, v, pad = flash_inputs(device, dims=(t,), masked=False, full_rows=(0,))
+        held = hold_flash(None, q, k, v, pad)
+        qi, kj, n_live, flagged = held["planted"]
+        g = torch.Generator(device=device).manual_seed(t)
+        do = torch.randn(q.shape, generator=g, device=device).to(torch.bfloat16)
+        bwd = hold_flash_bwd(None, q, k, v, pad, do, f"seg (c) T {t}")
+        print(f"seg (c): T {t} ({-(-t // flash.BLOCK)} tiles), unmasked: K1 max_abs_err "
+              f"{held['err']:.3e} (lse {held['lse_err']:.3e}), planted fault (tile q{qi} x "
+              f"kv{kj}, {n_live} live entries, dropped) puts {flagged} entries outside "
+              f"tolerance; backward relative L2 at most {max(bwd['rels'].values()):.3e}, "
+              f"fused vs split {bwd['route_rel']:.3e}; planted faults "
+              + ", ".join(f"{name} (q{f[0]} x kv{f[1]}) {min(f[3]):.3e}"
+                          for name, f in bwd["planted"].items()), flush=True)
+        del held, bwd, q, k, v, do, pad
+
+
+def check_attention_maps(config, device, cpu_device="cpu") -> None:
+    """Phase 17 (d): ``tools.attention_maps`` at full width on two rows
+    (seed-0 weights): every row of every map sums to 1, blocked entries
+    of a row with a live key are exactly 0 (a row with none is uniform,
+    the dense path's semantics); layer 0 against fp32 on the CPU."""
+    cfg = type(config)(config)
+    cfg.split, cfg.batch_size = MAPS_SPLIT, MAPS_BATCH
+    rows = synthetic_rows(cfg, MAPS_ROWS)
+    t0 = time.perf_counter()
+    maps = attention_maps.extract_attention_maps(cfg, rows=rows, device=device.type)
+    gpu_s = time.perf_counter() - t0
+    layers, pool = (torch.from_numpy(maps[k]) for k in ("layers", "pool"))
+    depth, b, h, t, _ = layers.shape
+    assert (depth, h, t) == (int(cfg.layers), int(cfg.heads), len(maps["token_types"])), \
+        layers.shape
+    assert pool.shape[:2] == (b, h) and pool.shape[-1] == t, pool.shape
+    # the maps' own batch (the first of the train split) and its padding
+    data = setup_data(rows, split=cfg.split, ds_frac=cfg.ds_frac, ds_seed=cfg.ds_seed)
+    batch = to_device(BatchedLoader(data["train"], MultimodalCollator(
+        cfg.modality_config.to_plain()), b).first_batch(), cpu_device)
+    # layer 0 in fp32 on the CPU: a one-block model on the same weights
+    cpu_cfg = type(cfg)(cfg)
+    cpu_cfg.precision, cpu_cfg.layers = "fp32", 1
+    cpu_model = build_model(get_model_config(cpu_cfg), fused_ff=False)
+    full = seed_model(cfg).state_dict()
+    cpu_model.load_state_dict({k: v for k, v in full.items() if k in cpu_model.state_dict()},
+                              strict=True)
+    with torch.inference_mode():
+        pad = cpu_model.pack_sequence(batch)[1]
+        ref0 = cpu_model.attention_maps(batch)["layers"][0]
+    blocked = torch.from_numpy(cpu_model.mask_set.attn_mask)[None] | pad[:, None, :]  # [B, T, T]
+    live = ~blocked.all(dim=2)
+    sums = (layers.sum(-1) - 1).abs().max().item()
+    pool_sums = (pool.sum(-1) - 1).abs().max().item()
+    leak = float(layers.masked_select((blocked & live[..., None])[None, :, None]
+                                      .expand_as(layers)).abs().max())
+    rel0 = rel_l2(layers[0], ref0)
+    print(f"maps (d): layers {tuple(layers.shape)} and pool {tuple(pool.shape)} in "
+          f"{gpu_s:.1f} s, {maps['layers'].nbytes} bytes; rows sum to 1 within {sums:.2e} "
+          f"(pool {pool_sums:.2e}, bound {MAPS_SUM_ATOL}); blocked entries of live rows at "
+          f"most {leak!r}; {int((~live).sum())} rows with no live key; layer 0 against fp32 "
+          f"on the CPU relative L2 {rel0:.3e} (bound {MAPS_REL_L2})", flush=True)
+    assert max(sums, pool_sums) <= MAPS_SUM_ATOL, (sums, pool_sums)
+    assert leak == 0.0, leak
+    assert rel0 <= MAPS_REL_L2, rel0
+
+
+def accelerate_dir(path: Path, model, opt, sched, modalities) -> None:
+    """A trainer's state as an Accelerate ``save_state`` directory: the
+    weights, the AdamW state dict keyed by the reference's parameter
+    order and the scheduler's step."""
+    path.mkdir(parents=True)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               path / "pytorch_model.bin")
+    names = [n for n, _ in model.named_parameters()]
+    ref = interop.ref_param_names(names, modalities)
+    sd = opt.state_dict()
+    index = {n: i for i, n in enumerate(names)}
+    state = {j: {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in sd["state"][index[n]].items()} for j, n in enumerate(ref)}
+    torch.save({"state": state, "param_groups": [{**sd["param_groups"][0],
+                                                  "params": list(range(len(ref)))}]},
+               path / "optimizer.bin")
+    torch.save({"last_epoch": sched.last_epoch}, path / "scheduler.bin")
+
+
+def check_import_restart(config, device, tmp: Path) -> dict:
+    """Phase 17 (e): ``tools.import_checkpoint --with-optimizer`` from an
+    Accelerate directory written from a trainer after ``IMPORT_STEPS``
+    steps (fp32 moments); one step restarted from the imported state (as
+    ``restart:`` loads it) equals one step continued from the trainer, bit
+    for bit, on the split backward with deterministic algorithms.
+    Returns the restarted step's launches."""
+    cfg = type(config)(config)
+    cfg.num_warmup_steps = TRAIN_WARMUP
+    path = tmp / "import.yaml"
+    path.write_text(yaml.safe_dump(cfg.to_plain(), sort_keys=False))
+    cfg = training_config(str(path))  # the modalities in the file's order
+    batch = to_device(MultimodalCollator(cfg.modality_config.to_plain())(
+        synthetic_rows(cfg, int(cfg.batch_size))), device)
+    old_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    flash.default_bwd_impl = "split"
+    try:
+        model, opt, sched = build_trainer(cfg, device.type, num_training_steps=IMPORT_HORIZON,
+                                          params=seed_model(cfg).state_dict())
+        for _ in range(IMPORT_STEPS):
+            train_step(model, opt, sched, batch, clip=float(cfg.clip))
+        accelerate_dir(tmp / "accelerate", model, opt, sched, list(cfg.encoder_configs))
+        t0 = time.perf_counter()
+        assert import_tool.main([str(path), str(tmp / "accelerate"), str(tmp / "imported"),
+                                 "--with-optimizer"]) == 0
+        import_s = time.perf_counter() - t0
+        saved = load_state(str(tmp / "imported"))
+        assert saved["step"] == IMPORT_STEPS, saved["step"]
+        model2, opt2, sched2 = build_trainer(cfg, device.type,
+                                             num_training_steps=IMPORT_HORIZON)
+        load_train_state(saved, model2, opt2, sched2)
+        reset_launches()
+        restarted = train_step(model2, opt2, sched2, batch, clip=float(cfg.clip))  # main path
+        launched = launches_now()
+        continued = train_step(model, opt, sched, batch, clip=float(cfg.clip))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        flash.default_bwd_impl = "fused"
+        if old_cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cublas
+    depth = int(cfg.layers)
+    assert launched == {"flash_fwd": depth, "geglu_ff": 0, "flash_bwd": 0,
+                        "flash_bwd_dq": depth, "flash_bwd_dkv": depth}, launched
+    a, b = dict(model.named_parameters()), dict(model2.named_parameters())
+    unequal = [n for n in a if not torch.equal(a[n], b[n])]
+    print(f"import (e): Accelerate directory from step {IMPORT_STEPS} imported in "
+          f"{import_s:.1f} s (step {saved['step']}, lr {restarted['lr']:.6e} against "
+          f"{continued['lr']:.6e}); the restarted step's total_loss "
+          f"{restarted['total_loss']!r} against {continued['total_loss']!r} continued; "
+          f"parameters after it unequal on {len(unequal)} of {len(a)} leaves", flush=True)
+    assert restarted == continued, (restarted, continued)
+    assert not unequal, unequal[:4]
+    del model, opt, sched, model2, opt2, sched2
+    return {k: v for k, v in launched.items() if v}
+
+
+def check_sweep_reproduce(config, device, tmp: Path) -> None:
+    """Phase 17 (f): one sweep cell (``SWEEP_CELL`` at the grid's canonical
+    scale, one epoch) and a small reproduce pipeline (TCGA_config1, one
+    epoch), each on rows held in memory: finite probe metrics, and the
+    files each stage writes."""
+    t0 = time.perf_counter()
+    widths = {m: int(c["pad_len"]) for m, c in config.modality_config.items()}
+    rows = sweep_tool.sweep_rows(n_samples=SWEEP_ROWS, widths=widths, seed=7)
+    out = tmp / "sweep"
+    args = sweep_tool.parse_args(["--out", str(out), "--scale", "canonical", "--cells",
+                                  SWEEP_CELL, "--epochs", "1", "--probe-epochs",
+                                  str(SWEEP_PROBE_EPOCHS), "--n-samples", str(SWEEP_ROWS)])
+    (row,) = sweep_tool.run_sweep(args, device.type, rows=rows)
+    sweep_s = time.perf_counter() - t0
+    assert row["cell"] == SWEEP_CELL and row["device"] == torch.cuda.get_device_name(device)
+    assert math.isfinite(row["final_train_loss"]), row
+    assert row["probe"] and all(math.isfinite(v) for v in row["probe"].values()), row
+    for rel in row["configs"].values():
+        assert (out / rel).exists(), rel
+    runs = out / "runs"
+    assert (runs / SWEEP_CELL / "0" / "state" / "state.pt").exists()
+    assert all(os.path.exists(p) for p in infer_lib.output_files(str(runs / f"{SWEEP_CELL}_infer")))
+    assert (runs / f"{SWEEP_CELL}_probe" / "probe_result.json").exists()
+    assert json.loads((out / "sweep_grid.jsonl").read_text())["cell"] == SWEEP_CELL
+
+    t1 = time.perf_counter()
+    train_cfg = dict(config.to_plain(), epochs=1, split=REPRO_SPLIT,
+                     num_warmup_steps=TRAIN_WARMUP, output_dir=str(tmp / "reproduce"))
+    pipeline = {"train": train_cfg, "infer_epoch": -1,
+                "probe": {"task": -1, "loss_type": "BCE", "epochs": REPRO_PROBE_EPOCHS,
+                          "batch_size": 16, "rank_metrics": True}}
+    summary = reproduce_tool.reproduce(pipeline, device.type,
+                                       rows=synthetic_rows(config, REPRO_ROWS))
+    repro_s = time.perf_counter() - t1
+    assert list(summary) == ["dataset", "train_output", "inference", "probe"], summary
+    assert (Path(summary["train_output"]) / "0" / "state" / "state.pt").exists()
+    assert all(os.path.exists(p) for p in infer_lib.output_files(summary["inference"]))
+    assert summary["probe"] and all(math.isfinite(v) for v in summary["probe"].values())
+    print(f"sweep (f): cell {SWEEP_CELL} at TCGA_config1 scale on {SWEEP_ROWS} rows in "
+          f"memory, one epoch, in {sweep_s:.1f} s: final train loss "
+          f"{row['final_train_loss']:.5f}, eval_auroc {row['probe'].get('eval_auroc')}, "
+          f"eval_f1 {row['probe'].get('eval_f1')}; reproduce on {REPRO_ROWS} rows in "
+          f"{repro_s:.1f} s: probe eval_auroc {summary['probe'].get('eval_auroc')}, "
+          f"eval_loss {summary['probe'].get('eval_loss')}", flush=True)
+
+
+def check_segmented(device, tmp: Path) -> dict:
+    """Phase 17 (module docstring); returns the launches of its main paths."""
+    config = training_config(str(CONFIG))
+    counts = dict.fromkeys(launches_now(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    add(check_segmented_forward(config, device, "seg (a) TCGA_config1"))
+    add(check_segmented_step(config, device))
+    check_segment_kernels(device)
+    add(check_segmented_forward(training_config(str(CMU_CONFIG)), device,
+                                "seg (c) CMU_config1", cpu_device=None))
+    check_attention_maps(config, device)
+    add(check_import_restart(config, device, tmp))
+    check_sweep_reproduce(config, device, tmp)
     return counts
 
 
@@ -4104,14 +4600,26 @@ def main() -> int:
         zero3_counts = check_zero3(device, card, Path(tmp))
     lap("16 zero3")
     print(f"ZeRO-3 and the memory tools: {seconds['16 zero3']:.1f} s", flush=True)
-    kernels += [check_counter(device), check_probe(device), check_ctl(device)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_segmented_") as tmp:
+        seg_counts = check_segmented(device, Path(tmp))
+    lap("17 segmented and tools")
+    print(f"segmented attention and the tools: {seconds['17 segmented and tools']:.1f} s",
+          flush=True)
+    # K6 read twice: its big mode once read 1.263 ms against 0.785-0.798
+    # in the calls beside it, with no code changed (PR 15)
+    counter = [check_counter(device) for _ in range(2)]
+    print("K6 read twice in this process: "
+          + "; ".join(f"{c['ms']:.4f} ms (" + ", ".join(f"{m} {v:.4f}" for m, v in
+                                                        c["modes_ms"].items()) + ")"
+                      for c in counter) + f"; {card}", flush=True)
+    kernels += [counter[0], check_probe(device), check_ctl(device)]
     counts.update(check_tools(device))
     lap("7 measurement")
     print(f"measurement slice: {seconds['7 measurement']:.1f} s", flush=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total {time.perf_counter() - start:.1f}", flush=True)
     for extra in (eval_counts, cmu_counts, eao_counts, moe_counts, quant_counts, par_counts,
-                  pipe_ep_counts, zero3_counts):
+                  pipe_ep_counts, zero3_counts, seg_counts):
         for name, n in extra.items():
             counts[name] += n
     for entry in kernels:

@@ -10,8 +10,8 @@ orbax's:
   ``output_dir/diverged`` for the forensic save;
 - ``<dir>/model/model.pt``: the final parameters (a state dict);
 - ``model.safetensors``: the same parameters in the reference's
-  ``save_model`` format, written by :func:`export_safetensors` (no
-  ``safetensors`` package needed).
+  ``save_model`` format, written by :func:`export_safetensors` and read
+  by :func:`read_safetensors` (no ``safetensors`` package needed).
 
 State dicts carry the torch reference's key names, which are the
 port's module names.  Every file is written to a temporary name and
@@ -180,3 +180,23 @@ def export_safetensors(state_dict: Mapping[str, torch.Tensor], path: str) -> Non
         for data in blobs:
             f.write(data)
     os.replace(tmp, path)
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A safetensors file's tensors, on the CPU: the header's length (8
+    little-endian bytes), the JSON header, then the raw bytes each entry's
+    ``data_offsets`` name (what :func:`export_safetensors` writes, and the
+    reference's ``save_model``)."""
+    dtypes = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    with open(path, "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(n))
+        data = f.read()
+    header.pop("__metadata__", None)
+    out = {}
+    for key, h in header.items():
+        lo, hi = h["data_offsets"]
+        raw = bytearray(data[lo:hi])
+        t = torch.frombuffer(raw, dtype=torch.uint8) if raw else torch.empty(0, dtype=torch.uint8)
+        out[key] = t.view(dtypes[h["dtype"]]).reshape(h["shape"])
+    return out

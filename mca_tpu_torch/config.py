@@ -119,7 +119,7 @@ def get_cfg_defaults_train() -> Config:
             "return_logits": True,
             # --- extensions of the JAX package, kept so configs parse ---
             "precision": "bf16",         # compute dtype: "bf16" | "fp32"
-            "attention_impl": "auto",    # dense | pallas | auto
+            "attention_impl": "auto",    # dense | pallas | segmented | auto
             "mesh_data": 0,
             "mesh_model": 1,
             "mesh_pipe": 1,

@@ -6,11 +6,13 @@
   and CMU-MOSEI-shaped variable-length pre-embedded sequences, each with
   a shared planted latent, numpy-seeded in the same draw order, so the
   same seed gives the same rows as the JAX package's generators.
+- :func:`to_hf_dataset` — rows as an HF dataset, to ``save_to_disk``
+  for a config's ``dataset:``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -140,3 +142,23 @@ def make_cmu_like(
         sample["Labels"] = {"data": labels}
         samples.append(sample)
     return samples
+
+
+def to_hf_dataset(samples: Sequence[Dict[str, Any]]):
+    """The rows as an HF dataset in numpy format (what ``save_to_disk``
+    writes for ``dataset:``), as ``mca_tpu.data.synthetic.to_hf_dataset``;
+    ``datasets`` is imported here only (the card has none)."""
+    import datasets as hfds
+
+    def unwrap(v):
+        if isinstance(v, dict):
+            return {k: unwrap(x) for k, x in v.items()}
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        return v
+
+    columns: Dict[str, list] = {k: [] for k in samples[0].keys()}
+    for s in samples:
+        for k in columns:
+            columns[k].append(unwrap(s[k]))
+    return hfds.Dataset.from_dict(columns).with_format("numpy")

@@ -74,6 +74,13 @@ def combo_str_to_frozenset(key: str) -> frozenset:
     return frozenset(int(i) for i in key.split(":", 1)[1].split(","))
 
 
+def output_files(output_dir: str) -> List[str]:
+    """The six files :func:`infer` writes into ``output_dir``, in the
+    order it writes them (per split: masks, embeddings, labels)."""
+    return [os.path.join(output_dir, f"{split}_{kind}.pt") for split in ("train", "eval")
+            for kind in ("masks", "embeddings", "labels")]
+
+
 def _save(obj: Mapping[Any, np.ndarray], path_stem: str) -> None:
     """``torch.save`` of ``{key: tensor}`` to ``path_stem.pt``."""
     torch.save(

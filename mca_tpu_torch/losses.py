@@ -11,7 +11,10 @@
   pair loss under its presence mask, the fusion-channel (FCL) losses
   against the root combo with OR-of-members masks, and the NaN-safe
   aggregates ``fcl_loss``, ``no-fcl_loss`` and ``loss``.  One shared
-  temperature (``loss.loss_fn.logit_scale`` in the state dict).
+  temperature (``loss.loss_fn.logit_scale`` in the state dict), or with
+  ``separate_modal_loss_fns`` one per pair and per FCL combo, as in the
+  JAX package (``loss.logit_scale_{name}``, ``name`` the pair's log name
+  or ``fcl|{combo}``, the JAX tree's ``loss/logit_scale_{name}``).
 
 Over a ``data_group`` of several ranks (:meth:`MCAPretrainingLoss.gather`)
 the pooled tokens and the modality masks are all-gathered before the
@@ -103,18 +106,20 @@ class MCAPretrainingLoss(nn.Module):
         data_group=None,
     ):
         super().__init__()
-        if separate_modal_loss_fns:
-            raise NotImplementedError(
-                "separate_modal_loss_fns (one temperature per pair) is not "
-                "ported yet"
-            )
         self.modality_names = tuple(modality_names)
         self.do_fcl = do_fcl
         self.fusion_combos = tuple(fusion_combos)
         self.no_fusion = no_fusion
         self.bimodal_contrastive = bimodal_contrastive
         self.non_fusion_fcl = non_fusion_fcl
-        self.loss_fn = _LossFn()
+        self.separate = bool(separate_modal_loss_fns)
+        if self.separate:
+            # declared in the order the JAX package's loss first uses them
+            for name in self.scale_names():
+                self.register_parameter(f"logit_scale_{name}",
+                                        nn.Parameter(torch.tensor(LOGIT_SCALE_INIT)))
+        else:
+            self.loss_fn = _LossFn()
         self.data_group = data_group
         self.backprop = BackpropType.GLOBAL
 
@@ -135,6 +140,23 @@ class MCAPretrainingLoss(nn.Module):
         if not self.no_fusion:
             keys.add("fusion")
         return tuple(sorted(keys))
+
+    def scale_names(self) -> list:
+        """The temperatures' names under ``separate_modal_loss_fns``: each
+        pair's log name, then ``fcl|{combo}`` for each FCL combo but the
+        root that a loss reads."""
+        names = ["_".join(sorted(pair)) for pair in self._pair_list()]
+        if self.do_fcl and (not self.no_fusion or self.non_fusion_fcl):
+            names += [f"fcl|{combo_log_name(c, self.modality_names)}"
+                      for c in self.fusion_combos if c != self.fusion_combos[0]]
+        return names
+
+    def scale(self, name: str) -> torch.Tensor:
+        """The temperature of pair or combo ``name`` (the shared one
+        without ``separate_modal_loss_fns``)."""
+        if self.separate:
+            return getattr(self, f"logit_scale_{name}")
+        return self.loss_fn.logit_scale
 
     def _pair_list(self) -> list:
         if self.no_fusion:
@@ -171,11 +193,12 @@ class MCAPretrainingLoss(nn.Module):
                 return sample_mask[a].bool()
             return sample_mask[a].bool() & sample_mask[b].bool()
 
-        scale = self.loss_fn.logit_scale
+        scale = self.scale
         losses: Dict[str, torch.Tensor] = {}
         for a, b in self._pair_list():
-            losses["_".join(sorted((a, b)))] = clip_contrastive_loss(
-                outputs[a], outputs[b], scale, mask=pair_mask(a, b)
+            name = "_".join(sorted((a, b)))
+            losses[name] = clip_contrastive_loss(
+                outputs[a], outputs[b], scale(name), mask=pair_mask(a, b)
             )
         if self.do_fcl:
             root = self.fusion_combos[0]
@@ -188,13 +211,14 @@ class MCAPretrainingLoss(nn.Module):
                 ).any(dim=0)
                 if not self.no_fusion:
                     losses[f"fcl_fusion|{cname}"] = clip_contrastive_loss(
-                        outputs["fusion"], outputs[combo_key(combo)], scale,
-                        mask=or_mask,
+                        outputs["fusion"], outputs[combo_key(combo)],
+                        scale(f"fcl|{cname}"), mask=or_mask,
                     )
                 if self.non_fusion_fcl:
                     for mod in names:
                         losses[f"fcl_{mod}|{cname}"] = clip_contrastive_loss(
-                            outputs[mod], outputs[combo_key(combo)], scale,
+                            outputs[mod], outputs[combo_key(combo)],
+                            scale(f"fcl|{cname}"),
                             mask=sample_mask[mod].bool() & or_mask,
                         )
 

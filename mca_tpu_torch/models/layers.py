@@ -13,7 +13,8 @@
 - :class:`Attention` — MHA with a fused ``to_kv`` projection (k the
   first half), cross-attention through ``context`` (the attentive
   pool), and the static / dynamic mask pair; int8 projections with
-  ``quant="int8"``.  With a ``model_group`` of several ranks it is
+  ``quant="int8"``; ``return_attn=True`` (here and on
+  :class:`MCALayer`) also returns the post-softmax probabilities.  With a ``model_group`` of several ranks it is
   tensor-parallel by heads (:mod:`mca_tpu_torch.parallel.sharding`):
   the rank holds ``heads / model`` heads, its input passes Megatron's
   ``copy_to_model`` (or, under ``seq_shard``, the all-gather of the
@@ -36,13 +37,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mca_tpu_torch.encoders import LN_EPS
 from mca_tpu_torch.models.moe import MoEFeedForward
-from mca_tpu_torch.ops.attention import masked_attention
+from mca_tpu_torch.ops.attention import dense_masked_attention, masked_attention
 from mca_tpu_torch.ops.fused_ff import geglu_ff, prepare_geglu_weights
 from mca_tpu_torch.ops.quant import QUANT_MODES, QuantLinear
 from mca_tpu_torch.parallel import collectives as coll
@@ -202,7 +204,11 @@ class Attention(nn.Module):
         context: Optional[torch.Tensor] = None,
         attn_mask=None,
         key_padding_mask: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        return_attn: bool = False,
+    ):
+        """``return_attn=True`` also returns the fp32 post-softmax
+        probabilities ``[B, H, Tq, Tk]``, through the dense path whatever
+        ``impl`` is (the flash kernels never materialise them)."""
         if self.model_group is not None:
             x = (coll.gather_seq(x, self.model_group) if self.seq_shard
                  else coll.copy_to_model(x, self.model_group))
@@ -220,19 +226,29 @@ class Attention(nn.Module):
                 .contiguous()
             )
 
-        out = masked_attention(
-            split_heads(q),
-            split_heads(k),
-            split_heads(v),
-            scale=self.dim_head**-0.5,
-            attn_mask=attn_mask,
-            key_padding_mask=key_padding_mask,
-            impl=self.impl,
-        )
+        if return_attn:
+            if isinstance(attn_mask, np.ndarray):
+                attn_mask = torch.from_numpy(attn_mask).to(q.device)
+            out, attn = dense_masked_attention(
+                split_heads(q), split_heads(k), split_heads(v),
+                scale=self.dim_head**-0.5, attn_mask=attn_mask,
+                key_padding_mask=key_padding_mask, return_attn=True,
+            )
+        else:
+            out = masked_attention(
+                split_heads(q),
+                split_heads(k),
+                split_heads(v),
+                scale=self.dim_head**-0.5,
+                attn_mask=attn_mask,
+                key_padding_mask=key_padding_mask,
+                impl=self.impl,
+            )
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
         out = self._linear(out, self.to_out)
-        return out if self.model_group is None else self.reduce_out(out)
+        out = out if self.model_group is None else self.reduce_out(out)
+        return (out, attn) if return_attn else out
 
 
 class MCALayer(nn.Module):
@@ -281,13 +297,20 @@ class MCALayer(nn.Module):
         x: torch.Tensor,
         attn_mask=None,
         padding_mask: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        return_attn: bool = False,
+    ):
+        """``return_attn=True``: ``(x, the attention's probabilities)``."""
         x = self.norm(x)
-        x = self.attn(
-            x, attn_mask=attn_mask, key_padding_mask=padding_mask
-        ).to(x.dtype) + x
+        out = self.attn(
+            x, attn_mask=attn_mask, key_padding_mask=padding_mask,
+            return_attn=return_attn,
+        )
+        if return_attn:
+            out, attn = out
+        x = out.to(x.dtype) + x
         x = self.norm(x)
         # the router sees the padding, so experts spend their capacity
         # on real tokens
         ff_out = self.ff(x, padding_mask) if self.moe else self.ff(x)
-        return ff_out.to(x.dtype) + x
+        x = ff_out.to(x.dtype) + x
+        return (x, attn) if return_attn else x

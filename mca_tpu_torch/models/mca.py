@@ -194,12 +194,12 @@ class MCA(nn.Module):
             data_group=data_group,
         )
 
-    def forward(
-        self,
-        batch: Dict[str, Dict[str, torch.Tensor]],
-        no_loss: bool = False,
-        generator: Optional[torch.Generator] = None,
-    ) -> Dict[str, Any]:
+    def pack_sequence(self, batch: Dict[str, Dict[str, torch.Tensor]],
+                      generator: Optional[torch.Generator] = None):
+        """Encode and pack into one ``[B, T, D]`` sequence in the compute
+        dtype, the fusion tokens appended (never padded); returns ``(x,
+        padding, sample_mask)``.  Shared by :meth:`forward` and
+        :meth:`attention_maps`, so that the maps see the forward's input."""
         tokens, pad_masks, sample_mask = [], [], {}
         for m in self.modality_types:
             t, a = self.encoders[m](batch[m], generator)
@@ -221,8 +221,16 @@ class MCA(nn.Module):
                 )
             )
         x = torch.cat(tokens, dim=1).to(self.dtype)
-        padding = torch.cat(pad_masks, dim=1)
+        return x, torch.cat(pad_masks, dim=1), sample_mask
 
+    def forward(
+        self,
+        batch: Dict[str, Dict[str, torch.Tensor]],
+        no_loss: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
+        x, padding, sample_mask = self.pack_sequence(batch, generator)
+        bsz = x.shape[0]
         attn_mask = self.mask_set.attn_mask
         if self.pipe_group is not None:
             x = pipeline_layers(self.layers, x.float(), padding, attn_mask, self.pipe_group,
@@ -258,6 +266,27 @@ class MCA(nn.Module):
         outputs["modality_sample_mask"] = sample_mask
         return outputs
 
+    def attention_maps(self, batch: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        """The post-softmax attention probabilities (fp32), as the JAX
+        package's ``MCA.attention_maps``: ``{"layers": [depth, B, H, T,
+        T]}`` and, with the attentive pool, ``"pool": [B, H, R, T]``.
+        Every block takes the dense path here (the flash kernels never
+        materialise probabilities); the sequential stack, without groups."""
+        x, padding, _ = self.pack_sequence(batch)
+        bsz = x.shape[0]
+        attn_mask = self.mask_set.attn_mask
+        maps = []
+        for layer in self.layers:
+            x, attn = layer(x, attn_mask, padding, return_attn=True)
+            maps.append(attn)
+        out = {"layers": torch.stack(maps)}
+        if not self.mean_pool:
+            x = self.norm(x.float())
+            ret = self.return_tokens[None].expand(bsz, -1, -1)
+            _, out["pool"] = self.attn_pool(ret, context=x, attn_mask=self.pool_mask,
+                                            key_padding_mask=padding, return_attn=True)
+        return out
+
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """Random weights from ``generator`` (:func:`init_weights`)."""
         return init_weights(self, generator)
@@ -275,7 +304,7 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
         for name, p in model.named_parameters():
             if name.endswith("gamma") or (name.endswith("weight") and p.ndim == 1):
                 p.fill_(1.0)  # the norms' scales
-            elif name.endswith("logit_scale"):
+            elif name.split(".")[-1].startswith("logit_scale"):
                 p.fill_(LOGIT_SCALE_INIT)
             elif name.endswith("bias"):
                 p.zero_()

@@ -10,6 +10,9 @@ Two implementations of one contract (``mca_tpu/ops/attention.py``):
 - ``pallas`` (the configs' name for it): the block-sparse flash kernel
   of :mod:`mca_tpu_torch.ops.flash_attention`; fully masked rows give
   zeros.
+- ``segmented``: the mask's self-attention segments through the flash
+  kernels unmasked, its cross rows through ``dense``
+  (:mod:`mca_tpu_torch.ops.segmented_attention`); needs a static mask.
 
 ``impl="auto"`` takes the flash path when the mask is static (numpy):
 the Hopper kernel for CUDA tensors, its plain version for CPU tensors.
@@ -36,8 +39,12 @@ def dense_masked_attention(
     scale: float,
     attn_mask: Optional[torch.Tensor] = None,
     key_padding_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """``[B, H, Tq, Dh] x [B, H, Tk, Dh] -> [B, H, Tq, Dh]``."""
+    return_attn: bool = False,
+):
+    """``[B, H, Tq, Dh] x [B, H, Tk, Dh] -> [B, H, Tq, Dh]``;
+    ``return_attn=True`` also returns the fp32 post-softmax probabilities
+    ``[B, H, Tq, Tk]`` (the reference's introspection hook; only this
+    path materialises them)."""
     out_dtype = q.dtype
     sim = torch.einsum("bhid,bhjd->bhij", (q * scale).float(), k.float())
     if attn_mask is not None:
@@ -47,8 +54,8 @@ def dense_masked_attention(
     attn = torch.softmax(sim, dim=-1)
     out = torch.einsum(
         "bhij,bhjd->bhid", attn.to(out_dtype).float(), v.float()
-    )
-    return out.to(out_dtype)
+    ).to(out_dtype)
+    return (out, attn) if return_attn else out
 
 
 def masked_attention(
@@ -77,10 +84,24 @@ def masked_attention(
         return flash_attention(
             q, k, v, attn_mask, key_padding_mask, scale, bwd_impl
         )[0]
+    if impl == "segmented":
+        if attn_mask is not None and not isinstance(attn_mask, np.ndarray):
+            raise ValueError(
+                "attention_impl='segmented' needs a static numpy attn_mask "
+                "(the row decomposition is derived from it)"
+            )
+        from mca_tpu_torch.ops.segmented_attention import (
+            segmented_masked_attention,
+        )
+
+        return segmented_masked_attention(
+            q, k, v, scale=scale, attn_mask=attn_mask,
+            key_padding_mask=key_padding_mask, bwd_impl=bwd_impl,
+        )
     if impl != "dense":
         raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported; use dense, pallas "
-            "or auto"
+            f"attention_impl={impl!r} is not ported; use dense, pallas, "
+            "segmented or auto"
         )
     if isinstance(attn_mask, np.ndarray):
         attn_mask = torch.from_numpy(attn_mask).to(q.device)

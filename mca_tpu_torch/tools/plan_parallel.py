@@ -2,7 +2,7 @@
 
     python -m mca_tpu_torch.tools.plan_parallel cfg.yaml --devices 8
         [--hbm-gb 80] [--topk 5] [--exact] [--no-pp] [--max-grad-accum 16]
-        [--json] [--device cpu]
+        [--json] [--device cpu] [--reading-jobs N]
 
 It answers "how should this config be spread over N H100s?":
 
@@ -13,9 +13,14 @@ It answers "how should this config be spread over N H100s?":
    (:func:`enumerate_plans` names the ones it refuses);
 2. **screens**: a rank's state bytes are exact, counted on the port's
    own sharding rules (:func:`_sharded_bytes`) from the model built on
-   the ``meta`` device; activation bytes come from ``temp(rows) = c0 +
-   c1 * rows``, fitted to two :mod:`~mca_tpu_torch.tools.memory_report`
-   steps on the card (:func:`fit_activation_model`);
+   the ``meta`` device; what a step adds at its peak comes from ``c0 +
+   c1 * rows`` plus, under ``grad_accum`` > 1, the gradient an earlier
+   microbatch left, all three read from
+   :mod:`~mca_tpu_torch.tools.memory_report` steps on the card
+   (:func:`fit_activation_model`) at the fewest rows any plan gives a
+   microbatch and at the config's batch, so that no plan reads the line
+   below its readings, each step in a process of its own, as a plan's
+   ranks take theirs (:func:`fresh_step_memory`);
 3. **ranks** the plans that fit by an estimated step time, with the JAX
    tool's formulas over a :class:`Hardware` model, the H100's
    (:data:`H100`) by default;
@@ -29,8 +34,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -179,35 +186,115 @@ def flops_per_step(config) -> float:
 
 
 # ---------------------------------------------------------------------------
-# activation model: temp(rows) = c0 + c1 * rows, per remat mode
+# activation model, per remat mode: c0 + c1 * rows, and the gradient a
+# microbatch leaves for the next
 # ---------------------------------------------------------------------------
 
 
-def fit_activation_model(config, remat: bool, probe_batches: Optional[Tuple[int, int]] = None,
-                         device: str = "cuda") -> Tuple[float, float]:
-    """``temp(rows) = c0 + c1 * rows`` from two one-process
-    :func:`~mca_tpu_torch.tools.memory_report.step_memory` steps at two
-    batch sizes on ``device`` (the allocator's temp bytes; on the CPU
-    there are none, so this raises)."""
-    from mca_tpu_torch.tools.memory_report import step_memory
+def step_reading(report: Dict[str, Any]) -> float:
+    """What one :func:`~mca_tpu_torch.tools.memory_report.step_memory` step
+    adds to its state and batch at its peak: ``peak_estimate_bytes`` less
+    ``state_bytes`` and ``batch_bytes`` (activations and gradients, and
+    what else the allocator holds then: cuBLAS's workspace, the flash
+    schedules, its rounding of every block)."""
+    return report["peak_estimate_bytes"] - report["state_bytes"] - report["batch_bytes"]
 
+
+def probe_rows(config, plans: List[Plan]) -> Tuple[int, int]:
+    """The two microbatch sizes the activation line is read at: the fewest
+    rows any of ``plans`` gives a microbatch (``batch / (dp * grad_accum)``),
+    and the config's batch (twice the batch where the two meet)."""
+    b = int(config.batch_size)
+    lo = min((b // (p.dp * p.grad_accum) for p in plans), default=b)
+    return (lo, b) if lo < b else (b, 2 * b)
+
+
+def _config_file(config, tmp: str) -> str:
+    """``config`` written as YAML under ``tmp``, for a ``memory_report``
+    process to load."""
+    import yaml
+
+    path = os.path.join(tmp, "plan.yaml")
+    with open(path, "w") as f:  # unsorted: the modalities' order is the model's
+        yaml.safe_dump(config.to_plain(), f, sort_keys=False)
+    return path
+
+
+def _memory_report_cmd(path: str, device: str) -> List[str]:
+    return [sys.executable, "-m", "mca_tpu_torch.tools.memory_report", path, "--json",
+            "--device", device]
+
+
+def _report(out: str) -> Dict[str, Any]:
+    """The JSON report a ``memory_report --json`` process printed last."""
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+def fresh_step_memory(config, grad_accum: int = 1, remat: bool = False, device: str = "cuda",
+                      timeout: float = 600.0) -> Dict[str, Any]:
+    """:func:`~mca_tpu_torch.tools.memory_report.step_memory` of
+    ``config`` (``grad_accum``, ``remat``) in a process of its own, as
+    each of a plan's ranks takes its step (:func:`exact_plan_memory`).
+    The allocator's peak counts whole blocks, and a cached block may
+    serve a request larger than it asks; so a step read after other work
+    in one process reads what that work left cached, where a rank starts
+    with nothing cached."""
+    cfg = type(config)(config)
+    cfg.grad_accum = int(grad_accum)
+    cfg.remat = bool(remat)
+    env = {k: v for k, v in os.environ.items() if k not in ("MCA_COORDINATOR", "MCA_MULTIHOST")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory(prefix="plan_reading_") as tmp:
+        res = subprocess.run(_memory_report_cmd(_config_file(cfg, tmp), device),
+                             capture_output=True, text=True, timeout=timeout, env=env)
+    if res.returncode != 0:
+        raise RuntimeError(f"memory_report exited {res.returncode}: {res.stderr[-2000:]}")
+    return _report(res.stdout)
+
+
+def fit_activation_model(config, remat: bool, rows: Tuple[int, int],
+                         device: str = "cuda") -> Tuple[float, float, float]:
+    """``(c0, c1, accum)`` from one-process steps on ``device``, each in a
+    process of its own (:func:`fresh_step_memory`; the allocator's peak:
+    the CPU keeps none, so this raises): the line through
+    :func:`step_reading` at the two microbatch sizes ``rows``
+    (:func:`probe_rows`), and ``accum``, what ``grad_accum: 2`` over
+    microbatches of the fewer rows adds to one such microbatch's reading:
+    the gradient the first microbatch leaves while the second runs (a
+    rank's own buffer under ``grad_accum`` > 1)."""
+    return fit_activation_models(config, rows, device=device, remats=(remat,))[remat]
+
+
+def fit_activation_models(config, rows: Tuple[int, int], device: str = "cuda",
+                          remats: Tuple[bool, ...] = (False, True),
+                          jobs: int = 1) -> Dict[bool, Tuple[float, float, float]]:
+    """:func:`fit_activation_model` for each of ``remats``, its readings
+    run ``jobs`` processes at a time (each process holds its own step's
+    memory on the card; a process's peak is its own, so the readings do
+    not depend on ``jobs``)."""
     if torch.device(device).type != "cuda":
         raise RuntimeError("the activation model is measured on the card: pass "
                            "act_models to plan on the CPU")
-    b = int(config.batch_size)
-    if probe_batches is None:
-        lo = max(1, b // 4)
-        probe_batches = (lo, b) if lo < b else (b, 2 * b)
-    temps = {}
-    for rows in probe_batches:
+    lo = min(rows)
+    asks = [(r, int(n), 1) for r in remats for n in rows] + [(r, lo, 2) for r in remats]
+
+    def reading(ask) -> float:
+        remat, n, accum = ask
         cfg = type(config)(config)
-        cfg.batch_size = int(rows)
-        temps[int(rows)] = step_memory(cfg, remat=remat, device=device)["temp_size_in_bytes"]
-    return activation_model(temps)
+        cfg.batch_size = n * accum
+        return step_reading(fresh_step_memory(cfg, grad_accum=accum, remat=remat, device=device))
+
+    with ThreadPoolExecutor(max_workers=max(1, int(jobs))) as pool:
+        got = dict(zip(asks, pool.map(reading, asks)))
+    out = {}
+    for r in remats:
+        readings = {int(n): got[(r, int(n), 1)] for n in rows}
+        out[r] = (*activation_model(readings), max(got[(r, lo, 2)] - readings[lo], 0.0))
+    return out
 
 
 def activation_model(temps: Dict[int, float]) -> Tuple[float, float]:
-    """``(c0, c1)`` of the line through two ``{rows: temp bytes}`` readings."""
+    """``(c0, c1)`` of the line through two ``{rows: bytes}`` readings."""
     (b1, t1), (b2, t2) = sorted(temps.items())
     c1 = (t2 - t1) / float(b2 - b1)
     return max(t1 - c1 * b1, 0.0), max(c1, 0.0)
@@ -270,7 +357,7 @@ def score_plans(
     config,
     *,
     hbm_bytes: float,
-    act_models: Dict[bool, Tuple[float, float]],
+    act_models: Dict[bool, Tuple[float, ...]],
     batch_bytes_full: int,
     flops_per_step: float,
     hardware: Hardware = H100,
@@ -278,8 +365,11 @@ def score_plans(
 ) -> List[Plan]:
     """Fill memory and step-time estimates in place (the JAX tool's
     formulas over ``hardware``); return the plans best first (those that
-    fit first, then the fastest estimate).  ``param_bytes`` (the whole
-    parameters' bytes, which an fsdp step gathers) defaults to the
+    fit first, then the fastest estimate).  ``act_models``: ``{remat:
+    (c0, c1)}``, the JAX tool's activation line, or ``(c0, c1, accum)``
+    from :func:`fit_activation_model`, whose ``accum`` a plan with
+    ``grad_accum`` > 1 adds to its activations.  ``param_bytes`` (the
+    whole parameters' bytes, which an fsdp step gathers) defaults to the
     config's."""
     facts = _model_facts(config)
     tokens, layers = facts["tokens_per_sample"], facts["layers"]
@@ -293,7 +383,7 @@ def score_plans(
             state[key] = _sharded_bytes(config, p.dp, p.tp, p.fsdp, model=model) \
                 + _buffer_bytes(model)
         p.state_bytes = state[key]
-        c0, c1 = act_models[p.remat]
+        c0, c1, *accum = act_models[p.remat]
         rows = facts["batch"] // (p.dp * p.grad_accum)
         act = c0 + c1 * rows
         if p.pp > 1:
@@ -304,6 +394,8 @@ def score_plans(
             # sequence shards between blocks; the attention's workspace
             # does not shrink: halve the linear term's share
             act = c0 + (c1 * rows) * (0.5 + 0.5 / p.tp)
+        if accum and p.grad_accum > 1:
+            act += accum[0]
         p.act_bytes = int(act)
         p.batch_bytes = batch_bytes_full // p.dp
         p.peak_bytes = p.state_bytes + p.act_bytes + p.batch_bytes
@@ -346,8 +438,6 @@ def exact_plan_memory(config, plan: Plan, device: str = "cuda", timeout: float =
     rank, and over gloo on the cards there are otherwise (a rank on card
     ``rank`` modulo their count).  Plans with a pipe are not measured
     here, as in the JAX tool."""
-    import yaml
-
     from mca_tpu_torch.parallel import launch as launch_lib
 
     if plan.pp != 1:
@@ -355,21 +445,13 @@ def exact_plan_memory(config, plan: Plan, device: str = "cuda", timeout: float =
     n = plan.dp * plan.tp
     cuda = torch.device(device).type == "cuda"
     backend = "nccl" if cuda and torch.cuda.device_count() >= n else "gloo"
-    cfg = _plan_config(config, plan).to_plain()
     with tempfile.TemporaryDirectory(prefix="plan_exact_") as tmp:
-        path = os.path.join(tmp, "plan.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(cfg, f, sort_keys=False)  # the modalities' order is the model's
         outs = launch_lib.launch(
-            [sys.executable, "-m", "mca_tpu_torch.tools.memory_report", path, "--json",
-             "--device", device], n, timeout=timeout, log_dir=log_dir,
+            _memory_report_cmd(_config_file(_plan_config(config, plan), tmp), device), n,
+            timeout=timeout, log_dir=log_dir,
             env={"MCA_DIST_BACKEND": backend,
                  "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")})
-    reports = []
-    for out in outs:
-        line = [ln for ln in out.splitlines() if ln.startswith("{")][-1]
-        reports.append({**json.loads(line), "dist_backend": backend})
-    return reports
+    return [{**_report(out), "dist_backend": backend} for out in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -385,26 +467,29 @@ def plan(
     exact: bool = False,
     max_grad_accum: int = 16,
     allow_pp: bool = True,
-    act_models: Optional[Dict[bool, Tuple[float, float]]] = None,
+    act_models: Optional[Dict[bool, Tuple[float, ...]]] = None,
     device: str = "cuda",
     hardware: Hardware = H100,
+    reading_jobs: int = 1,
 ) -> List[Plan]:
     """Rank parallelism plans for ``config`` on ``n_devices`` cards with
-    ``hbm_gb`` each.  ``act_models`` (``{remat: (c0, c1)}``) defaults to
-    :func:`fit_activation_model` on ``device``, the card; ``exact``
-    measures the top plans without a pipe (:func:`exact_plan_memory`)."""
+    ``hbm_gb`` each.  ``act_models`` (``{remat: (c0, c1[, accum])}``)
+    defaults to :func:`fit_activation_models` on ``device``, the card, at
+    the plans' :func:`probe_rows`, ``reading_jobs`` readings at a time;
+    ``exact`` measures the top plans without a pipe
+    (:func:`exact_plan_memory`)."""
     from mca_tpu_torch.tools.memory_report import synthetic_batch
 
+    plans = enumerate_plans(config, n_devices, max_grad_accum=max_grad_accum,
+                            allow_pp=allow_pp)
     if act_models is None:
         if torch.device(device).type != "cuda":
             raise RuntimeError("plan_parallel measures its activation model on the card "
                                "(an H100); on the CPU pass act_models")
-        act_models = {r: fit_activation_model(config, remat=r, device=device)
-                      for r in (False, True)}
+        act_models = fit_activation_models(config, probe_rows(config, plans), device=device,
+                                           jobs=reading_jobs)
     batch = synthetic_batch(config)
     batch_bytes = sum(int(v.nbytes) for f in batch.values() for v in f.values())
-    plans = enumerate_plans(config, n_devices, max_grad_accum=max_grad_accum,
-                            allow_pp=allow_pp)
     plans = score_plans(plans, config, hbm_bytes=hbm_gb * 2**30, act_models=act_models,
                         batch_bytes_full=batch_bytes, flops_per_step=flops_per_step(config),
                         hardware=hardware)
@@ -436,6 +521,9 @@ def main(argv=None) -> None:
     p.add_argument("--max-grad-accum", type=int, default=16)
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--reading-jobs", type=int, default=1,
+                   help="memory_report processes the activation model runs at once (each "
+                        "holds its own step's memory on the card)")
     args = p.parse_args(argv)
 
     from mca_tpu_torch.config import training_config
@@ -443,7 +531,7 @@ def main(argv=None) -> None:
     config = training_config(args.config, make_output_dir=False)
     plans = plan(config, args.devices, hbm_gb=args.hbm_gb, topk=args.topk, exact=args.exact,
                  max_grad_accum=args.max_grad_accum, allow_pp=not args.no_pp,
-                 device=args.device)
+                 device=args.device, reading_jobs=args.reading_jobs)
     top = plans[: args.topk]
     if args.json:
         print(json.dumps([dict(asdict(t), config_stanza=t.config_stanza()) for t in top]))

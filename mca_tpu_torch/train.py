@@ -636,6 +636,26 @@ def build_trainer(
     return model, optimizer, make_schedule(optimizer.inner, config, num_training_steps)
 
 
+def load_train_state(saved: Mapping[str, Any], model: MCA, optimizer, schedule) -> None:
+    """A saved train state (:func:`mca_tpu_torch.checkpoint.load_state`)
+    into a trainer from :func:`build_trainer`, as ``restart:`` loads it.
+    The learning rate is this run's schedule at the restored step: a
+    state written under another horizon (``tools/import_checkpoint``'s)
+    takes this run's rate, as the JAX package computes it from the step;
+    for a state this run's schedule wrote, that is the saved rate."""
+    if isinstance(optimizer, ShardedOptimizer):
+        optimizer.load_model_state_dict(saved["model"])
+    else:
+        model.load_state_dict(saved["model"])
+    optimizer.load_state_dict(saved["optimizer"])
+    schedule.load_state_dict(saved["schedule"])
+    lrs = [base * fn(schedule.last_epoch)
+           for base, fn in zip(schedule.base_lrs, schedule.lr_lambdas)]
+    for group, lr in zip(schedule.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    schedule._last_lr = lrs
+
+
 def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
     """``n`` rows shaped as the config's modalities, with a quarter of the
     modalities missing (what ``bench.py`` trains on): CMU-MOSEI-shaped
@@ -831,12 +851,7 @@ def train(
     if config.restart:
         logger.info("Loading saved state from %s", config.restart)
         saved = checkpoint.load_state(config.restart)
-        if sharded:
-            optimizer.load_model_state_dict(saved["model"])
-        else:
-            model.load_state_dict(saved["model"])
-        optimizer.load_state_dict(saved["optimizer"])
-        schedule.load_state_dict(saved["schedule"])
+        load_train_state(saved, model, optimizer, schedule)
         step = int(saved["step"])
         full_epochs, into_epoch = divmod(step, steps_per_epoch) if steps_per_epoch else (0, 0)
         if start_epoch == 0 and full_epochs > 0:

@@ -144,6 +144,63 @@ def test_pretraining_loss_graph_matches_jax(empty_pair, kw):
     )
 
 
+def _separate_case():
+    """JAX's loss with one temperature per pair and combo, each set apart
+    from the others, and the port's module carrying them."""
+    from mca_tpu_torch.interop import state_dict_from_jax_params
+
+    pooled, present, combos = _case(2, False)
+    kw = dict(bimodal_contrastive=True, non_fusion_fcl=True, separate_modal_loss_fns=True)
+    mod = jax_losses.MCAPretrainingLoss(modality_names=NAMES, do_fcl=True,
+                                        fusion_combos=combos, **kw)
+    masks = {k: jnp.asarray(v) for k, v in present.items()}
+    params = mod.init(jax.random.key(0), jnp.asarray(pooled), masks)
+    names = list(params["params"])
+    params = {"params": {n: jnp.float32(1.0 + 0.25 * i) for i, n in enumerate(names)}}
+    jout = mod.apply(params, jnp.asarray(pooled), masks)
+    jgrads = jax.grad(lambda p: mod.apply(p, jnp.asarray(pooled), masks)["loss"])(params)
+    port = port_losses.MCAPretrainingLoss(NAMES, do_fcl=True, fusion_combos=combos, **kw)
+    sd = state_dict_from_jax_params({"params": {"loss": jax.tree.map(np.asarray,
+                                                                      params["params"])}})
+    port.load_state_dict({k[len("loss."):]: v for k, v in sd.items()}, strict=True)
+    return port, pooled, present, names, jout, jgrads
+
+
 def test_separate_modal_loss_fns_raises():
-    with pytest.raises(NotImplementedError, match="separate_modal_loss_fns"):
-        port_losses.MCAPretrainingLoss(NAMES, separate_modal_loss_fns=True)
+    """``separate_modal_loss_fns`` no longer raises: the port declares
+    JAX's temperatures (one per pair and per FCL combo, in JAX's order),
+    and with each set to its own value the losses and each temperature's
+    gradient equal JAX's."""
+    port, pooled, present, names, jout, jgrads = _separate_case()
+    assert [n for n, _ in port.named_parameters()] == names
+    assert all(n.startswith("logit_scale_") for n in names) and len(names) > 10
+    out = port(torch.from_numpy(pooled), {k: torch.from_numpy(v) for k, v in present.items()})
+    assert list(out["losses"]) == list(jout["losses"])
+    for k, v in jout["losses"].items():
+        np.testing.assert_allclose(float(out["losses"][k].detach()), float(v), rtol=RTOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(out["loss"].detach()), float(jout["loss"]), rtol=RTOL)
+    out["loss"].backward()
+    for n, p in port.named_parameters():
+        np.testing.assert_allclose(float(p.grad), float(jgrads["params"][n]),
+                                   rtol=GRAD_RTOL, atol=1e-9, err_msg=n)
+
+
+def test_separate_modal_loss_fns_carry_and_clamp():
+    """The JAX tree's ``loss/logit_scale_{name}`` carry to the port's
+    ``loss.logit_scale_{name}``; the training step's clamp and the
+    model's initialiser reach every one of them."""
+    from mca_tpu_torch.models.mca import init_weights
+    from mca_tpu_torch.train import clamp_logit_scale
+
+    port, *_ = _separate_case()
+    with torch.no_grad():
+        for i, p in enumerate(port.parameters()):
+            p.fill_(-1.0 if i % 2 else 9.0)
+    clamp_logit_scale(port)
+    for i, p in enumerate(port.parameters()):
+        want = port_losses.LOGIT_SCALE_MIN if i % 2 else port_losses.LOGIT_SCALE_MAX
+        assert float(p.detach()) == pytest.approx(want)
+    init_weights(port)
+    assert all(float(p.detach()) == pytest.approx(port_losses.LOGIT_SCALE_INIT)
+               for p in port.parameters())

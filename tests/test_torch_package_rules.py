@@ -45,7 +45,11 @@ def test_no_jax_or_jax_package_imports():
                    "tools/profile_train.py", "tools/profile_serve.py", "models/moe.py",
                    "tools/moe_stats.py", "native/__init__.py", "parallel/__init__.py",
                    "parallel/multihost.py", "parallel/mesh.py", "parallel/collectives.py",
-                   "parallel/sharding.py", "parallel/launch.py"):
+                   "parallel/sharding.py", "parallel/launch.py",
+                   "ops/segmented_attention.py", "tools/attention_maps.py",
+                   "tools/import_checkpoint.py", "data/preprocess_tcga.py",
+                   "data/preprocess_cmu.py", "tools/reproduce.py", "tools/gen_corpus.py",
+                   "tools/sweep.py"):
         assert f"mca_tpu_torch/{module}" in names, module
     bad = [
         (f.relative_to(ROOT).as_posix(), mod)
@@ -71,19 +75,25 @@ def _module_level_imports(tree):
 
 
 def test_hf_packages_are_imported_inside_functions_only():
-    """The card has neither ``datasets`` nor ``pyarrow``: the loader
-    imports them where it reads an HF dataset, so the port imports
-    without them."""
+    """The card has neither ``datasets`` nor ``pyarrow`` (nor
+    ``safetensors``, ``wandb``, ``pandas`` or ``h5py``): the loader and
+    the preprocessors import them where they read or write a dataset, so
+    the port imports without them."""
     files = sorted((ROOT / "mca_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     top = [
         (f.relative_to(ROOT).as_posix(), mod)
         for f in files
         for mod in _module_level_imports(ast.parse(f.read_text()))
-        if mod.split(".")[0] in ("datasets", "pyarrow", "safetensors", "wandb")
+        if mod.split(".")[0] in ("datasets", "pyarrow", "safetensors", "wandb", "pandas",
+                                 "h5py")
     ]
     assert top == []
     inside = {mod.split(".")[0] for mod in _imported_modules(ROOT / "mca_tpu_torch/data/dataset.py")}
     assert {"datasets", "pyarrow"} <= inside
+    for module, packages in (("preprocess_tcga", {"datasets", "pandas"}),
+                             ("preprocess_cmu", {"datasets", "h5py"})):
+        path = ROOT / f"mca_tpu_torch/data/{module}.py"
+        assert packages <= {mod.split(".")[0] for mod in _imported_modules(path)}, module
 
 
 def test_service_defaults_to_cuda_and_raises_without_it():

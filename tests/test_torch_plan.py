@@ -264,6 +264,108 @@ def test_plan_on_the_cpu_needs_an_activation_model():
         port_plan.exact_plan_memory(cfg, port_plan.Plan(dp=1, tp=1, pp=2), device="cpu")
 
 
+def test_activation_readings_cover_the_fewest_rows(monkeypatch):
+    """The activation line is read at the fewest rows any enumerated plan
+    gives a microbatch (here 1: data 2 x grad_accum 4 of a batch of 8)
+    and at the batch, so no plan reads it below its readings; the
+    accumulation term at grad_accum 2 over the fewest rows.  ``plan``
+    without act_models asks ``fresh_step_memory`` for exactly those steps
+    (faked here: the CPU keeps no allocator peak)."""
+    cfg = training_config_from_dict(_tcga())
+    plans = port_plan.enumerate_plans(cfg, 2)
+    lo, hi = port_plan.probe_rows(cfg, plans)
+    rows = [8 // (p.dp * p.grad_accum) for p in plans]
+    assert (lo, hi) == (min(rows), 8) == (1, 8)
+    assert min(rows) < 8 // 4  # the old readings (rows 2 and 8) lay above it
+    asked = []
+
+    def fake_step(config, grad_accum=1, remat=False, device="cuda"):
+        asked.append((int(config.batch_size), grad_accum, remat))
+        n = int(config.batch_size) // grad_accum
+        peak = 1000 + 300 * n + (70 if grad_accum > 1 else 0) + (0 if not remat else -5 * n)
+        return {"peak_estimate_bytes": peak + 40, "state_bytes": 30, "batch_bytes": 10}
+
+    monkeypatch.setattr(port_plan, "fresh_step_memory", fake_step)
+    c0, c1, accum = port_plan.fit_activation_model(cfg, False, (lo, hi), device="cuda")
+    assert asked == [(1, 1, False), (8, 1, False), (2, 2, False)]
+    assert (c0, c1, accum) == (1000.0, 300.0, 70.0)
+    asked.clear()
+    got = port_plan.plan(cfg, 2, device="cuda")
+    assert sorted(asked) == sorted([(1, 1, r) for r in (False, True)] + [(8, 1, r) for r in (
+        False, True)] + [(2, 2, r) for r in (False, True)])
+    for p in got:
+        r = 8 // (p.dp * p.grad_accum)
+        if not p.remat and p.pp == 1 and p.tp == 1:
+            assert p.act_bytes == 1000 + 300 * r + (70 if p.grad_accum > 1 else 0), p
+
+
+def test_fresh_step_memory_is_memory_report_in_its_own_process(monkeypatch):
+    """A reading is ``memory_report``'s step in a process of its own, on
+    the config's rows, ``grad_accum`` and ``remat``, out of any rank
+    environment the caller has (here a coordinator that is not there):
+    its state and batch bytes are those of ``step_memory`` in this
+    process (the CPU: no peak)."""
+    for key, value in (("MCA_COORDINATOR", "localhost:9"), ("MCA_NUM_PROCESSES", "2"),
+                       ("MCA_PROCESS_ID", "1")):
+        monkeypatch.setenv(key, value)
+    cfg = training_config_from_dict(_tcga())
+    cfg.batch_size = 4
+    got = port_plan.fresh_step_memory(cfg, grad_accum=2, remat=True, device="cpu",
+                                      timeout=300)
+    want = memory_report.step_memory(cfg, grad_accum=2, remat=True, device="cpu")
+    for key in ("state_bytes", "state_tensors", "batch_bytes", "argument_size_in_bytes"):
+        assert got[key] == want[key], key
+    assert (got["batch_size"], got["grad_accum"], got["peak_estimate_bytes"]) == (4, 2, None)
+
+
+def test_readings_run_jobs_at_a_time(monkeypatch):
+    """``fit_activation_models`` runs its six readings ``jobs`` processes
+    at a time, and the model does not depend on ``jobs``."""
+    import threading
+    import time
+
+    cfg = training_config_from_dict(_tcga())
+    lock, live, most = threading.Lock(), [0], [0]
+
+    def fake_step(config, grad_accum=1, remat=False, device="cuda"):
+        with lock:
+            live[0] += 1
+            most[0] = max(most[0], live[0])
+        time.sleep(0.3)
+        with lock:
+            live[0] -= 1
+        n = int(config.batch_size) // grad_accum
+        peak = 1000 + 300 * n + (70 if grad_accum > 1 else 0) - (5 * n if remat else 0)
+        return {"peak_estimate_bytes": peak + 40, "state_bytes": 30, "batch_bytes": 10}
+
+    monkeypatch.setattr(port_plan, "fresh_step_memory", fake_step)
+    models = {}
+    for jobs in (1, 3, 6):
+        most[0] = 0
+        models[jobs] = port_plan.fit_activation_models(cfg, (1, 8), jobs=jobs)
+        assert most[0] == jobs
+    assert models[1] == models[3] == models[6] == {False: (1000.0, 300.0, 70.0),
+                                                   True: (1000.0, 295.0, 70.0)}
+
+
+def test_accumulation_term_only_under_grad_accum():
+    """``(c0, c1, accum)`` adds ``accum`` to the activations of a plan
+    with grad_accum > 1 and to no other; the step-time estimates do not
+    move."""
+    cfg = training_config_from_dict(_tcga())
+    kw = dict(hbm_bytes=64 * 2**30, batch_bytes_full=4096, flops_per_step=1e12)
+    base = port_plan.score_plans(port_plan.enumerate_plans(cfg, 4), cfg,
+                                 act_models=ACT_MODELS, **kw)
+    extra = {r: (*m, 5.0e5) for r, m in ACT_MODELS.items()}
+    got = port_plan.score_plans(port_plan.enumerate_plans(cfg, 4), cfg, act_models=extra, **kw)
+    want = {_key(p): p for p in base}
+    assert any(p.grad_accum > 1 for p in got) and any(p.grad_accum == 1 for p in got)
+    for p in got:
+        w = want[_key(p)]
+        assert p.act_bytes - w.act_bytes == (int(5.0e5) if p.grad_accum > 1 else 0), _key(p)
+        assert p.est_step_ms == w.est_step_ms
+
+
 def test_h100_hardware_model():
     """The default figures are the H100's, none the v5e's."""
     hw = port_plan.H100
