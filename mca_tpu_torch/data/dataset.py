@@ -29,6 +29,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
+from mca_tpu_torch.utils import trace
+
 
 class BatchDropout:
     """In-batch whole-modality dropout: overwrites the given fields of a
@@ -350,6 +352,8 @@ class BatchedLoader:
     ``preload`` decodes every row once up front; otherwise each batch's
     rows are decoded from the arrow buffers when it is drawn.
     ``prefetch > 0`` collates that many batches ahead on a thread.
+    Each batch's collation is recorded as ``data.collate``
+    (:mod:`mca_tpu_torch.utils.trace`), on the thread that collates it.
     """
 
     def __init__(
@@ -405,7 +409,9 @@ class BatchedLoader:
         first = self._skip_next * self.batch_size
         self._skip_next = 0
         for start in range(first, usable, self.batch_size):
-            yield self.collator(self._batch_samples(order[start : start + self.batch_size]))
+            with trace.span("data.collate", epoch=self._epoch, batch=start // self.batch_size):
+                batch = self.collator(self._batch_samples(order[start : start + self.batch_size]))
+            yield batch
 
     def first_batch(self):
         """One full batch, collated on the calling thread (rows wrap

@@ -87,6 +87,7 @@ from torch import nn
 
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel.mesh import Mesh
+from mca_tpu_torch.utils import trace
 
 #: leaves smaller than this stay replicated under fsdp
 FSDP_MIN_SIZE = 2 ** 14
@@ -417,18 +418,21 @@ class ShardedOptimizer:
         """After the backward (whose per-group scatters averaged the sharded
         leaves' slices over ``data``): sum the partial gradients over
         ``model``, then over ``pipe`` (class docstring), then average the
-        replicated leaves' over ``data`` (one all-reduce)."""
+        replicated leaves' over ``data`` (one all-reduce).  Recorded as
+        ``train.grad_reduce``, timed on a CUDA device."""
         grads = self.gradients()
-        partial = [g for g, s in zip(grads, self.model_partial) if s]
-        if partial:
-            self._all_reduce_flat(partial, self.mesh.model_group)
-        staged = [g for g, s in zip(grads, self.pipe_partial) if s]
-        if staged:
-            self._all_reduce_flat(staged, self.mesh.pipe_group)
-        d = self.mesh.data
-        repl = [g for g, sh in zip(grads, self.sharded) if not sh]
-        if d > 1 and repl:
-            self._all_reduce_flat(repl, self.mesh.data_group, scale=1.0 / d)
+        with trace.span("train.grad_reduce") as sp:
+            sp.device_start(grads[0].device)
+            partial = [g for g, s in zip(grads, self.model_partial) if s]
+            if partial:
+                self._all_reduce_flat(partial, self.mesh.model_group)
+            staged = [g for g, s in zip(grads, self.pipe_partial) if s]
+            if staged:
+                self._all_reduce_flat(staged, self.mesh.pipe_group)
+            d = self.mesh.data
+            repl = [g for g, sh in zip(grads, self.sharded) if not sh]
+            if d > 1 and repl:
+                self._all_reduce_flat(repl, self.mesh.data_group, scale=1.0 / d)
 
     @staticmethod
     def _all_reduce_flat(grads: List[torch.Tensor], group, scale: float = 1.0) -> None:

@@ -53,6 +53,7 @@ import torch
 
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.ops.quant import QUANT_MODES
+from mca_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -106,25 +107,28 @@ class EmbeddingService:
         )
         self._common_init(mods, max_batch, max_wait_ms, device)
         self.config = config
-        if restart:
-            params = checkpoint.load_params(restart)
         mc = get_model_config(config)
-        model = build_model(mc, fused_ff=True)
-        if params is None:
-            model.init_weights(torch.Generator().manual_seed(seed))
-        else:
-            model.load_state_dict(
-                {k: torch.as_tensor(v) for k, v in params.items()},
-                strict=True,
-            )
-        if quantize != "none":
-            # post-training int8 of the fp32 weights, as mca_tpu.serve
-            # quantises its restored tree; the fp model is dropped
-            fp_state = model.state_dict()
-            model = build_model(dict(mc, quant=quantize), fused_ff=True)
-            model.load_state_dict(quantize_state_dict(fp_state), strict=True)
+        with trace.span("build.model"):
+            model = build_model(mc, fused_ff=True)
+        with trace.span("build.weights"):
+            if restart:
+                params = checkpoint.load_params(restart)
+            if params is None:
+                model.init_weights(torch.Generator().manual_seed(seed))
+            else:
+                model.load_state_dict(
+                    {k: torch.as_tensor(v) for k, v in params.items()},
+                    strict=True,
+                )
+            if quantize != "none":
+                # post-training int8 of the fp32 weights, as mca_tpu.serve
+                # quantises its restored tree; the fp model is dropped
+                fp_state = model.state_dict()
+                model = build_model(dict(mc, quant=quantize), fused_ff=True)
+                model.load_state_dict(quantize_state_dict(fp_state), strict=True)
         self.quantize = quantize
-        self.model = model.to(self.device).eval()
+        with trace.span("build.move"):
+            self.model = model.to(self.device).eval()
         self.mask_keys = tuple(sorted(self.model.modality_types))
         self.emb_keys = self.model.loss.output_keys()
         self._fn = lambda batch: pack_outputs(
@@ -157,7 +161,8 @@ class EmbeddingService:
     def _warmup(self) -> None:
         """One padded forward, so that the first request pays neither a
         kernel build nor a schedule upload."""
-        self._materialise(self._dispatch([self._template]), 1)
+        with trace.span("build.warmup"):
+            self._materialise(self._dispatch([self._template]), 1)
 
     @classmethod
     def from_aot(
@@ -232,16 +237,31 @@ class EmbeddingService:
             for m, fields in self.collate(full).items()
         }
 
-    def _dispatch(self, rows: Sequence[Dict[str, Any]]):
+    def _dispatch(self, rows: Sequence[Dict[str, Any]], requests: Sequence[int] = ()):
         """Collate + copy + launch one chunk; returns the device tensors
-        without waiting for them (CUDA launches are asynchronous)."""
-        with torch.inference_mode():
-            return self._fn(self._pad(rows))
+        without waiting for them (CUDA launches are asynchronous).
+
+        Recorded as a ``serve.batch`` span with the counts ``serve.rows``
+        and ``serve.padded_rows``, its forward timed on a CUDA device; the
+        ``requests`` (:meth:`Recorder.request` ids) it carries are stamped
+        as dispatched in it."""
+        with trace.span("serve.batch") as sp:
+            trace.RECORDER.dispatched(requests, sp.seq)
+            batch = self._pad(rows)
+            trace.count("serve.rows", len(rows))
+            trace.count("serve.padded_rows", self.max_batch - len(rows))
+            with torch.inference_mode():
+                sp.device_start(self.device)
+                return self._fn(batch)
 
     @staticmethod
     def _materialise(dev, n: int):
+        """The first ``n`` rows on the host (the copy waits for the
+        forward), then the device times of the forwards that ended."""
         e, m = dev
-        return e[:, :n].cpu().numpy(), m[:, :n].cpu().numpy()
+        out = e[:, :n].cpu().numpy(), m[:, :n].cpu().numpy()
+        trace.RECORDER.settle()
+        return out
 
     def embed(self, rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
         """Synchronous: embeddings + presence masks for ``rows``.
@@ -294,7 +314,7 @@ class EmbeddingService:
         # fail (not strand) anything still queued
         while True:
             try:
-                _, fut = self._queue.get_nowait()
+                _, fut, _ = self._queue.get_nowait()
             except queue.Empty:
                 break
             if not fut.done():
@@ -302,10 +322,12 @@ class EmbeddingService:
 
     def submit(self, row: Dict[str, Any]) -> "Future":
         """Async single-row request, coalesced with concurrent requests
-        into one forward by the batcher thread."""
+        into one forward by the batcher thread.  Its submission, dispatch
+        and answer are stamped in :data:`mca_tpu_torch.utils.trace.RECORDER`'s
+        request records."""
         assert self._batcher is not None, "call start() first"
         fut: Future = Future()
-        self._queue.put((row, fut))
+        self._queue.put((row, fut, trace.RECORDER.request()))
         return fut
 
     def _batch_loop(self) -> None:
@@ -316,7 +338,8 @@ class EmbeddingService:
         def resolve(pending, dev):
             try:
                 e, m = self._materialise(dev, len(pending))
-                for i, (_, fut) in enumerate(pending):
+                trace.RECORDER.answered([rid for _, _, rid in pending])
+                for i, (_, fut, _) in enumerate(pending):
                     fut.set_result(
                         {
                             "embeddings": {
@@ -329,7 +352,7 @@ class EmbeddingService:
                         }
                     )
             except Exception as exc:  # pragma: no cover
-                for _, fut in pending:
+                for _, fut, _ in pending:
                     if not fut.done():
                         fut.set_exception(exc)
 
@@ -354,9 +377,9 @@ class EmbeddingService:
                 except queue.Empty:
                     break
             try:
-                dev = self._dispatch([r for r, _ in pending])
+                dev = self._dispatch([r for r, _, _ in pending], [rid for _, _, rid in pending])
             except Exception as e:  # pragma: no cover
-                for _, fut in pending:
+                for _, fut, _ in pending:
                     if not fut.done():
                         fut.set_exception(e)
                 dev = None

@@ -11,9 +11,13 @@ shaped as the config's modalities (``tools.request_rows``), times the
 host's side of a batch as buckets of its own (collate, and the copy to
 the device, ``tools.host_batch_costs``), warms it up, then runs ``--forwards`` batch-8 forwards
 back to back (each dispatched while the previous one computes, as the
-batcher does) under ``torch.profiler``.  Prints the device time per
-forward by kernel and by kind (the two ported kernels, GEMMs, the rest),
-the device busy share of the wall time, and one JSON summary line.
+batcher does), once unprofiled and once under ``torch.profiler``.
+Prints, for the unprofiled run, the wall time a forward and what the
+recorder holds of it (:mod:`mca_tpu_torch.utils.trace`: host ms a
+``serve.batch``, the forwards' median device ms between their CUDA
+events, and the ``serve.rows`` / ``serve.padded_rows`` counts); for the
+profiled one, the device time per forward by kernel and by kind (the
+two ported kernels, GEMMs, the rest); and one JSON summary line.
 Needs a CUDA device.
 """
 
@@ -26,11 +30,13 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mca_tpu_torch.config import training_config
 from mca_tpu_torch.serve import QUANT_MODES, EmbeddingService
 from mca_tpu_torch.tools import host_batch_costs, request_rows
+from mca_tpu_torch.utils import trace
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
 
@@ -46,6 +52,37 @@ def kind_of(name: str) -> str:
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other (norms, elementwise, pooling)"
+
+
+def run_forwards(svc, rows, n: int) -> float:
+    """``n`` forwards of ``rows``, each dispatched while the previous one
+    computes; returns the wall ms until the last is on the host."""
+    t0 = time.perf_counter()
+    inflight = None
+    for _ in range(n):
+        dev = svc._dispatch(rows)
+        if inflight is not None:
+            svc._materialise(inflight, len(rows))
+        inflight = dev
+    svc._materialise(inflight, len(rows))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def batch_split(records) -> dict:
+    """What ``records`` (:meth:`~mca_tpu_torch.utils.trace.Recorder.records`)
+    hold of their ``serve.batch`` spans: their number, host ms each, the
+    median device ms (None without CUDA events) and the row counters."""
+    batches = records["name"] == "serve.batch"
+    inside = np.isin(records["parent"], records["seq"][batches])
+    dev = records["value"][batches]
+    return {
+        "forwards": int(batches.sum()),
+        "host_ms": float(((records["end"] - records["start"])[batches]).mean()) / 1e6,
+        "device_ms": float(np.median(dev)) / 1e6 if (dev >= 0).all() else None,
+        **{name: int(records["value"][inside & (records["name"] == name)].sum())
+           for name in ("serve.rows", "serve.padded_rows")},
+    }
 
 
 def main(argv=None) -> None:
@@ -71,24 +108,22 @@ def main(argv=None) -> None:
         svc._materialise(svc._dispatch(rows), len(rows))
     torch.cuda.synchronize()
 
+    mark = trace.RECORDER.mark()
+    wall_ms = run_forwards(svc, rows, args.forwards)
+    split = batch_split(trace.RECORDER.records(since=mark))
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        inflight = None
-        for _ in range(args.forwards):
-            dev = svc._dispatch(rows)
-            if inflight is not None:
-                svc._materialise(inflight, len(rows))
-            inflight = dev
-        svc._materialise(inflight, len(rows))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        profiled_ms = run_forwards(svc, rows, args.forwards)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
     per_kernel = defaultdict(float)
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # the recorder's mca.* ranges also appear on the device timeline
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            ev, "is_user_annotation", ev.name.startswith(trace.PREFIX)
+        ):
             per_kernel[ev.name] += ev.device_time_total / 1e3  # ms
     busy_ms = sum(per_kernel.values())
     by_kind = defaultdict(float)
@@ -96,9 +131,14 @@ def main(argv=None) -> None:
         by_kind[kind_of(name)] += ms
     n = args.forwards
     print(card)
-    print(f"quantize {args.quantize}: {n} batch-{svc.max_batch} forwards: {wall_ms / n:.3f} ms wall each, "
-          f"{busy_ms / n:.3f} ms device busy each, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    dev = split["device_ms"]
+    print(f"quantize {args.quantize}: {n} batch-{svc.max_batch} forwards: {wall_ms / n:.3f} ms wall "
+          f"each unprofiled, {profiled_ms / n:.3f} under the profiler, {busy_ms / n:.3f} ms "
+          f"device busy each under the profiler")
+    print(f"recorder, unprofiled run: {split['forwards']} serve.batch spans, host "
+          f"{split['host_ms']:.3f} ms each, device (CUDA events, median) "
+          f"{'not measured' if dev is None else f'{dev:.3f}'} ms; serve.rows "
+          f"{split['serve.rows']}, serve.padded_rows {split['serve.padded_rows']}")
     print(f"host ms per batch (inside the wall above): collate "
           f"{host_batch['collate_ms']:.3f}, host-to-device copy "
           f"{host_batch['fp32']['copy_ms']:.3f} ({host_batch['fp32']['bytes']} bytes)")
@@ -113,8 +153,9 @@ def main(argv=None) -> None:
         "quantize": args.quantize,
         "forwards": n,
         "wall_ms_per_forward": wall_ms / n,
+        "profiled_wall_ms_per_forward": profiled_ms / n,
         "device_ms_per_forward": busy_ms / n,
-        "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "recorder": split,
         "by_kind_ms_per_forward": {k: v / n for k, v in by_kind.items()},
         "host_batch_ms": host_batch,
     }))

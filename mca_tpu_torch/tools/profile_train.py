@@ -13,11 +13,15 @@ with the bytes: ``tools.host_batch_costs``), takes 2 warm-up steps, times three 
 host clock (synchronised, no profiler), then runs ``--steps`` more under
 ``torch.profiler``.  Prints the host (CPU, load, a Python loop probe),
 for each window its wall time, the process's CPU time and the probe
-taken just before it, the wall time of the profiled window (the profiler's own per-launch cost
-slows the host, so the idle share is taken against the unprofiled
-median), the device time per step by kind (K1, K2 or K3a / K3b, GEMMs,
-optimizer, norms / elementwise, copies), the top kernels and host ops,
-and one JSON summary line.  ``--bwd-impl split`` sets
+taken just before it; the recorder's split of the unprofiled windows'
+steps (:mod:`mca_tpu_torch.utils.trace`: host ms a step in the
+forward, the backward, the optimizer and the readback's wait, and the
+step's device ms between its CUDA events); the wall time of the
+profiled window (the profiler's own per-launch cost slows the host);
+how far each ``mca.*`` range of the profiled window starts from the
+recorder's stamp of the same span; the device time per step by kind
+(K1, K2 or K3a / K3b, GEMMs, optimizer, norms / elementwise, copies),
+the top kernels and host ops, and one JSON summary line.  ``--bwd-impl split`` sets
 ``flash_attention.default_bwd_impl`` for the run.
 ``num_warmup_steps`` is set to 2 so that the measured steps run at a
 non-zero learning rate.  Needs a CUDA device.
@@ -32,6 +36,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from mca_tpu_torch.config import training_config
@@ -40,6 +45,9 @@ from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
                                  sample_tokens)
 from mca_tpu_torch.train import build_trainer, synthetic_rows, to_device, train_step
+from mca_tpu_torch.utils import trace
+
+PHASES = ("train.forward", "train.backward", "train.optimizer", "train.readback")
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
 
@@ -61,6 +69,21 @@ def kind_of(name: str) -> str:
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other (norms, elementwise, reductions)"
+
+
+def phase_split(records) -> dict:
+    """Host ms a step in each of :data:`PHASES` and the steps' mean
+    device ms (None without CUDA events), over the ``train.step`` spans
+    of ``records`` (:meth:`~mca_tpu_torch.utils.trace.Recorder.records`)."""
+    steps = records["name"] == "train.step"
+    n = int(steps.sum())
+    ms = (records["end"] - records["start"]) / 1e6
+    inside = np.isin(records["parent"], records["seq"][steps])
+    out = {p: float(ms[inside & (records["name"] == p)].sum()) / n for p in PHASES}
+    dev = records["value"][steps]
+    out["device_step_ms"] = float(dev.mean()) / 1e6 if n and (dev >= 0).all() else None
+    out["step_ms"] = float(ms[steps].mean())
+    return out
 
 
 def main(argv=None) -> None:
@@ -92,6 +115,7 @@ def main(argv=None) -> None:
         train_step(model, opt, sched, batch, clip=clip)
     torch.cuda.synchronize()
     windows, cpu_ms, probes = [], [], []
+    mark = trace.RECORDER.mark()
     for _ in range(3):
         probes.append(host_probe_ms())
         t0, c0 = time.perf_counter(), time.process_time()
@@ -100,8 +124,10 @@ def main(argv=None) -> None:
         windows.append((time.perf_counter() - t0) * 1e3)
         cpu_ms.append((time.process_time() - c0) * 1e3)
     wall_ms = sorted(windows)[1]
+    split = phase_split(trace.RECORDER.records(since=mark))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    mark = trace.RECORDER.mark()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -110,13 +136,15 @@ def main(argv=None) -> None:
         profiled_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    offsets = [d for _, d in trace.kineto_offsets(prof.profiler.kineto_results.events(),
+                                                  trace.RECORDER.records(since=mark))]
 
     per_kernel = defaultdict(float)
     for ev in prof.events():
         # record_function spans (e.g. "Optimizer.step#AdamW.step") also
         # appear on the device timeline; they cover kernels counted anyway
         if ev.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-            ev, "is_user_annotation", "#" in ev.name
+            ev, "is_user_annotation", "#" in ev.name or ev.name.startswith(trace.PREFIX)
         ):
             per_kernel[ev.name] += ev.device_time_total / 1e3  # ms
     busy_ms = sum(per_kernel.values())
@@ -133,8 +161,14 @@ def main(argv=None) -> None:
           f"process CPU {', '.join(f'{c / n:.3f}' for c in cpu_ms)} ms each, "
           f"probe before each window {', '.join(f'{x:.1f}' for x in probes)} ms; "
           f"{profiled_ms / n:.3f} ms wall each under the profiler; "
-          f"{busy_ms / n:.3f} ms device busy each, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f} of the unprofiled median")
+          f"{busy_ms / n:.3f} ms device busy each under the profiler")
+    dev = split["device_step_ms"]
+    print(f"recorder, unprofiled windows, ms a step: step {split['step_ms']:.3f}; "
+          + "; ".join(f"{p[len('train.'):]} {split[p]:.3f}" for p in PHASES)
+          + f"; device (CUDA events) {'not measured' if dev is None else f'{dev:.3f}'}")
+    print(f"shared clock: {len(offsets)} mca.* ranges of the profiled window start "
+          f"{min(offsets, default=0) / 1e3:.1f} to {max(offsets, default=0) / 1e3:.1f} us "
+          f"from the recorder's stamps")
     print(f"host ms per batch (not in the step windows): collate "
           f"{host_batch['collate_ms']:.3f}; " + "; ".join(
               f"{sd} staging: narrow {c['narrow_ms']:.3f}, host-to-device copy "
@@ -163,7 +197,8 @@ def main(argv=None) -> None:
         "probe_ms_windows": probes,
         "profiled_wall_ms_per_step": profiled_ms / n,
         "device_ms_per_step": busy_ms / n,
-        "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "recorder_ms_per_step": split,
+        "clock_offsets_us": [min(offsets, default=0) / 1e3, max(offsets, default=0) / 1e3],
         "tokens_per_s": tokens / wall_ms * n * 1e3,
         "by_kind_ms_per_step": {k: v / n for k, v in by_kind.items()},
         "host_batch_ms": host_batch,

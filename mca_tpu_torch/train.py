@@ -71,7 +71,11 @@ the JAX package dispatches XLA, not what is trained; they have no
 counterpart here and are ignored.  ``trace_dir`` wraps the second step
 of the run in a ``torch.profiler`` window, as the JAX package traces its
 second launch, and writes it there as a Chrome trace
-(``step<N>.rank<r>.json``, :func:`~mca_tpu_torch.utils.logging.trace_context`).
+(``step<N>.rank<r>.json``, :func:`~mca_tpu_torch.utils.trace.trace_context`), where the
+recorder's spans show as ``mca.*`` ranges (:mod:`mca_tpu_torch.utils.trace`:
+``data.collate``, ``data.copy``, ``train.step``, ``train.forward``,
+``train.backward``, ``train.grad_reduce``, ``train.optimizer``,
+``train.readback``).
 A mesh larger than the world, a depth that
 does not divide by ``mesh_pipe``, a batch that does not divide by the
 microbatches and ``seq_shard`` with ``mesh_pipe > 1`` raise
@@ -110,8 +114,8 @@ from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_s
                                               process_index, require_output_dir)
 from mca_tpu_torch.parallel.pipeline import check_pipeline
 from mca_tpu_torch.parallel.sharding import ShardedOptimizer, shard_state_dict
-from mca_tpu_torch.utils.logging import (JSONLLogger, NullLogger, ThroughputMeter,
-                                         trace_context)
+from mca_tpu_torch.utils import trace
+from mca_tpu_torch.utils.logging import JSONLLogger, NullLogger, ThroughputMeter
 
 logger = logging.getLogger(__name__)
 
@@ -499,17 +503,22 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
     for p in leaves:
         p.grad = None
     if n_accum == 1:
-        out = model(batch, no_loss=False,
-                    generator=dropout_generator(dropout_seed, step, None, device, dropout_rank))
-        out["loss"].backward()
+        with trace.span("train.forward", step=step):
+            out = model(batch, no_loss=False,
+                        generator=dropout_generator(dropout_seed, step, None, device, dropout_rank))
+        with trace.span("train.backward", step=step):
+            out["loss"].backward()
         scal = {k: v.detach().float() for k, v in scalar_losses(out).items()}
     else:
         total = count = names = None
         for i in range(n_accum):
-            micro = {m: {k: v[i::n_accum] for k, v in f.items()} for m, f in batch.items()}
-            out = model(micro, no_loss=False,
-                        generator=dropout_generator(dropout_seed, step, i, device, dropout_rank))
-            out["loss"].backward()
+            with trace.span("train.forward", step=step, micro=i):
+                micro = {m: {k: v[i::n_accum] for k, v in f.items()} for m, f in batch.items()}
+                out = model(micro, no_loss=False,
+                            generator=dropout_generator(dropout_seed, step, i, device,
+                                                        dropout_rank))
+            with trace.span("train.backward", step=step, micro=i):
+                out["loss"].backward()
             s = scalar_losses(out)
             names = list(s)
             v = torch.stack([x.detach().float() for x in s.values()])
@@ -542,29 +551,45 @@ def train_step(
     generator is the steps ``schedule`` has taken (restored with it).
     A :class:`ShardedOptimizer` (several ranks) reduces the gradients
     over the mesh first, takes the norms over the whole set and drops
-    the gradients after its step."""
+    the gradients after its step.
+
+    Recorded (:mod:`mca_tpu_torch.utils.trace`): ``train.step`` with the
+    step's index, timed on a CUDA device from its first launch to the
+    launch before the readback; inside it ``train.forward`` and
+    ``train.backward`` (one each a microbatch), ``train.optimizer`` (from
+    the reduced gradients to the metrics' stack) and ``train.readback``
+    (the host's wait for the device)."""
     lr = schedule.get_last_lr()[0]
     sharded = isinstance(optimizer, ShardedOptimizer)
-    scal = forward_backward(model, batch, n_accum, dropout_seed, schedule.last_epoch,
-                            optimizer.mesh.data_rank if sharded else None,
-                            optimizer.opt_params if sharded else None)
-    if sharded:
-        optimizer.reduce_gradients()
-        grads = optimizer.gradients()
-        norm = optimizer.global_norm
-    else:
-        grads = [p.grad for p in model.parameters()]
-        norm = global_norm
-    grad_norm = norm(grads)
-    if clip:
-        clip_by_global_norm(grads, float(clip), grad_norm)
-    optimizer.step()
-    schedule.step()
-    clamp_logit_scale(model)
-    with torch.no_grad():
-        param_norm = norm(optimizer.opt_params if sharded else list(model.parameters()))
-    names = list(scal) + ["param_norm", "grad_norm"]
-    values = torch.stack(list(scal.values()) + [param_norm, grad_norm]).tolist()
+    k = schedule.last_epoch
+    with trace.span("train.step", step=k) as sp:
+        sp.device_start(next(model.parameters()).device)
+        scal = forward_backward(model, batch, n_accum, dropout_seed, k,
+                                optimizer.mesh.data_rank if sharded else None,
+                                optimizer.opt_params if sharded else None)
+        if sharded:
+            optimizer.reduce_gradients()
+        with trace.span("train.optimizer", step=k):
+            if sharded:
+                grads = optimizer.gradients()
+                norm = optimizer.global_norm
+            else:
+                grads = [p.grad for p in model.parameters()]
+                norm = global_norm
+            grad_norm = norm(grads)
+            if clip:
+                clip_by_global_norm(grads, float(clip), grad_norm)
+            optimizer.step()
+            schedule.step()
+            clamp_logit_scale(model)
+            with torch.no_grad():
+                param_norm = norm(optimizer.opt_params if sharded else list(model.parameters()))
+            names = list(scal) + ["param_norm", "grad_norm"]
+            stacked = torch.stack(list(scal.values()) + [param_norm, grad_norm])
+        sp.device_end()
+        with trace.span("train.readback", step=k):
+            values = stacked.tolist()
+        trace.RECORDER.settle()
     return {**dict(zip(names, values)), "lr": lr}
 
 
@@ -610,30 +635,38 @@ def build_trainer(
             f"(batch_size {config.batch_size} over {mesh.data} data ranks)"
         )
     mc = get_model_config(config)
-    model = build_model(mc, fused_ff=False)
-    if params is None:
-        model.init_weights(torch.Generator().manual_seed(int(config.seed)))
-    else:
-        model.load_state_dict(
-            {k: torch.as_tensor(v) for k, v in params.items()}, strict=True
-        )
+    with trace.span("build.model"):
+        model = build_model(mc, fused_ff=False)
+    with trace.span("build.weights"):
+        if params is None:
+            model.init_weights(torch.Generator().manual_seed(int(config.seed)))
+        else:
+            model.load_state_dict(
+                {k: torch.as_tensor(v) for k, v in params.items()}, strict=True
+            )
     if mesh.size == 1:
-        model.to(dev).train()
-        optimizer, schedule = make_optimizer(model, config, num_training_steps)
+        with trace.span("build.move"):
+            model.to(dev).train()
+        with trace.span("build.optimizer"):
+            optimizer, schedule = make_optimizer(model, config, num_training_steps)
         return model, optimizer, schedule
-    whole = model.state_dict()
     seq_shard = bool(mc.get("seq_shard")) and mesh.model > 1
-    model = build_model(dict(mc, data_group=mesh.data_group, model_group=mesh.model_group,
-                             pipe_group=mesh.pipe_group, seq_shard=seq_shard),
-                        fused_ff=False)
-    model.load_state_dict(shard_state_dict(whole, mesh), strict=True)
-    del whole
+    with trace.span("build.model"):
+        whole = model.state_dict()
+        model = build_model(dict(mc, data_group=mesh.data_group, model_group=mesh.model_group,
+                                 pipe_group=mesh.pipe_group, seq_shard=seq_shard),
+                            fused_ff=False)
+    with trace.span("build.weights"):
+        model.load_state_dict(shard_state_dict(whole, mesh), strict=True)
+        del whole
     # sliced on the host, then moved: no whole large leaf reaches the card
-    optimizer = ShardedOptimizer(model, mesh, lambda ps: make_adamw(ps, config),
-                                 fsdp=bool(config.get("fsdp", False)), seq_shard=seq_shard,
-                                 device=dev)
-    model.train()
-    return model, optimizer, make_schedule(optimizer.inner, config, num_training_steps)
+    with trace.span("build.optimizer"):
+        optimizer = ShardedOptimizer(model, mesh, lambda ps: make_adamw(ps, config),
+                                     fsdp=bool(config.get("fsdp", False)), seq_shard=seq_shard,
+                                     device=dev)
+        model.train()
+        schedule = make_schedule(optimizer.inner, config, num_training_steps)
+    return model, optimizer, schedule
 
 
 def load_train_state(saved: Mapping[str, Any], model: MCA, optimizer, schedule) -> None:
@@ -678,13 +711,14 @@ def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
 def to_device(batch: Mapping[str, Mapping[str, Any]], device) -> dict:
     """A collated batch (numpy arrays, or the tensors of
     :func:`narrow_for_staging`) on ``device``; fp16 / bf16 columns are
-    copied narrow and become fp32 there."""
+    copied narrow and become fp32 there.  Recorded as ``data.copy``."""
     out = {}
-    for m, fields in batch.items():
-        out[m] = {}
-        for k, v in fields.items():
-            t = torch.as_tensor(v).to(device)
-            out[m][k] = t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
+    with trace.span("data.copy"):
+        for m, fields in batch.items():
+            out[m] = {}
+            for k, v in fields.items():
+                t = torch.as_tensor(v).to(device)
+                out[m][k] = t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
     return out
 
 
@@ -916,7 +950,7 @@ def train(
                 for batch in stream:
                     staged = narrow_for_staging(stage(batch), stage_dtype, sentinels)
                     steps_run += 1
-                    with trace_context(trace_dir if steps_run == 2 else None,
+                    with trace.trace_context(trace_dir if steps_run == 2 else None,
                                        f"step{step + 1}.rank{process_index()}"):
                         metrics = train_step(model, optimizer, schedule, to_device(staged, dev),
                                              clip=clip, n_accum=n_accum,
