@@ -1,11 +1,12 @@
 """The contrastive pretraining loss graph, ported from ``mca_tpu/losses.py``.
 
 - :func:`clip_contrastive_loss` — CLIP-style symmetric cross-entropy
-  with a learnable clamped temperature: logits are raw dot products (no
-  L2 normalisation, as in the reference) scaled by
+  of one pair with a learnable clamped temperature: logits are raw dot
+  products (no L2 normalisation, as in the reference) scaled by
   ``exp(clip(logit_scale))``; an optional per-sample bool mask selects
   which *rows* contribute (columns, the negatives, always span the
-  batch); an empty mask gives NaN, which the aggregation masks out.
+  batch); an empty mask gives NaN, which the aggregation masks out.  The
+  single-pair formula, which the batched graph below is held against.
 - :class:`MCAPretrainingLoss` — slices the pooled return tokens into the
   named embeddings, then (unless ``no_loss``) computes every configured
   pair loss under its presence mask, the fusion-channel (FCL) losses
@@ -16,6 +17,20 @@
   JAX package (``loss.logit_scale_{name}``, ``name`` the pair's log name
   or ``fcl|{combo}``, the JAX tree's ``loss/logit_scale_{name}``).
 
+The P losses are one batched graph, in a number of ops that does not
+grow with P: a static plan built once from the configuration (each
+loss's two token slots, its row mask as the AND of two OR-terms over the
+modalities, its temperature) is held in non-persistent buffers; each
+call gathers the P pairs' embeddings into ``[P, B, D]`` stacks (fp32),
+takes each direction's ``[P, B, B]`` logits from one ``bmm`` (``a @ b.T``
+and ``b @ a.T``, as the single-pair formula does: the transpose of the
+first holds the second's values summed in another order, so the per-pair
+losses stay those of :func:`clip_contrastive_loss` to the bit on the
+CPU), one log-softmax over both, then the masked row means and the
+aggregates as vectors.  ``outputs["losses"]`` keeps the loop's keys
+in the loop's order: the pairs, then per non-root combo ``fcl_fusion|…``
+and each ``fcl_{mod}|…``.
+
 Over a ``data_group`` of several ranks (:meth:`MCAPretrainingLoss.gather`)
 the pooled tokens and the modality masks are all-gathered before the
 loss, with ``GLOBAL`` backprop by default (``backprop``,
@@ -23,8 +38,9 @@ loss, with ``GLOBAL`` backprop by default (``backprop``,
 computes the loss of the global batch, whose masked row means divide by
 the global count of live rows; that is the JAX package's semantics (the
 loss written on the global batch), not the reference's per-rank labels.
-Per-pair temperatures (``separate_modal_loss_fns``) are not ported yet
-and raise.
+
+Recorded (:mod:`mca_tpu_torch.utils.trace`): the counter ``loss.pairs``,
+P, once a loss forward (none under ``no_loss``).
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ import torch
 from torch import nn
 
 from mca_tpu_torch.parallel.collectives import BackpropType, gather_masks, gather_tensor
+from mca_tpu_torch.utils import trace
 
 LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
 LOGIT_SCALE_MIN = math.log(1.0)
@@ -92,7 +109,8 @@ class _LossFn(nn.Module):
 class MCAPretrainingLoss(nn.Module):
     """Pairwise contrastive loss graph over the pooled return tokens
     ``[B, R, D]``: named embeddings (one per modality, one per fusion
-    combo under FCL, and ``fusion``), then the reference's loss dict."""
+    combo under FCL, and ``fusion``), then the reference's loss dict,
+    all P losses in one batched graph (module docstring)."""
 
     def __init__(
         self,
@@ -122,6 +140,54 @@ class MCAPretrainingLoss(nn.Module):
             self.loss_fn = _LossFn()
         self.data_group = data_group
         self.backprop = BackpropType.GLOBAL
+        self._build_plan()
+
+    def _build_plan(self) -> None:
+        """The static plan of the P losses, in the loop's order: their
+        names (``loss_names``), the pairs' count (``n_pairs``: the FCL
+        losses follow them), and the buffers ``pair_slots`` ``[2P]`` (each
+        loss's a slots, then its b slots, on the pooled-token axis),
+        ``pair_terms`` ``[2, P, M]`` (the row mask's two OR-terms over the
+        modalities, ANDed; a one-term mask repeats its term) and
+        ``pair_scale`` ``[P]`` (each loss's temperature)."""
+        names = list(self.modality_names)
+        mlen = len(names)
+        # the fusion token, or under FCL the root combo's slot (fusion_combos[0])
+        slot = {**{m: i for i, m in enumerate(names)}, "fusion": mlen}
+        scale_of = {n: i for i, n in enumerate(self.scale_names())} if self.separate else {}
+        self._scale_params = [f"logit_scale_{n}" for n in scale_of]
+        plan = []  # (name, slot a, slot b, OR-terms, temperature's name)
+        for a, b in self._pair_list():
+            name = "_".join(sorted((a, b)))
+            terms = [{slot[m]} for m in (a, b) if m != "fusion"]
+            plan.append((name, slot[a], slot[b], terms, name))
+        self.n_pairs = len(plan)
+        if self.do_fcl:
+            root = self.fusion_combos[0]
+            for i, combo in enumerate(self.fusion_combos):
+                if combo == root:
+                    continue
+                cname = combo_log_name(combo, names)
+                members = set(combo)
+                if not self.no_fusion:
+                    plan.append((f"fcl_fusion|{cname}", slot["fusion"], mlen + i, [members],
+                                 f"fcl|{cname}"))
+                if self.non_fusion_fcl:
+                    for j, mod in enumerate(names):
+                        plan.append((f"fcl_{mod}|{cname}", j, mlen + i, [{j}, members],
+                                     f"fcl|{cname}"))
+        self.loss_names = tuple(p[0] for p in plan)
+        terms = torch.zeros(2, len(plan), mlen, dtype=torch.bool)
+        for k, (_, _, _, ors, _) in enumerate(plan):
+            for t, members in enumerate(ors if len(ors) == 2 else ors * 2):
+                terms[t, k, sorted(members)] = True
+        self.register_buffer(
+            "pair_slots", torch.tensor([p[1] for p in plan] + [p[2] for p in plan],
+                                       dtype=torch.long), persistent=False)
+        self.register_buffer("pair_terms", terms, persistent=False)
+        self.register_buffer(
+            "pair_scale", torch.tensor([scale_of.get(p[4], 0) for p in plan], dtype=torch.long),
+            persistent=False)
 
     def gather(self, pooled_tokens: torch.Tensor, sample_mask: Dict[str, torch.Tensor]):
         """The global batch from this rank's rows: ``pooled_tokens`` and
@@ -151,13 +217,6 @@ class MCAPretrainingLoss(nn.Module):
                       for c in self.fusion_combos if c != self.fusion_combos[0]]
         return names
 
-    def scale(self, name: str) -> torch.Tensor:
-        """The temperature of pair or combo ``name`` (the shared one
-        without ``separate_modal_loss_fns``)."""
-        if self.separate:
-            return getattr(self, f"logit_scale_{name}")
-        return self.loss_fn.logit_scale
-
     def _pair_list(self) -> list:
         if self.no_fusion:
             return list(combinations(self.modality_names, r=2))
@@ -185,53 +244,38 @@ class MCAPretrainingLoss(nn.Module):
             outputs["fusion"] = pooled_tokens[:, mlen, :]
         if no_loss:
             return outputs
+        n_loss = len(self.loss_names)
+        trace.count("loss.pairs", n_loss)
 
-        def pair_mask(a: str, b: str) -> torch.Tensor:
-            if a == "fusion":
-                return sample_mask[b].bool()
-            if b == "fusion":
-                return sample_mask[a].bool()
-            return sample_mask[a].bool() & sample_mask[b].bool()
+        # [M, B] presence, then each loss's rows: (OR of term 0) AND (OR of term 1)
+        present = torch.stack([sample_mask[m] for m in names]).bool()
+        row_mask = (self.pair_terms[..., None] & present).any(dim=2).all(dim=0).float()
+        if self.separate:
+            scales = torch.stack([getattr(self, n) for n in self._scale_params])
+        else:
+            scales = self.loss_fn.logit_scale[None]
+        temperature = scales.clamp(LOGIT_SCALE_MIN, LOGIT_SCALE_MAX).exp()[self.pair_scale]
+        emb = pooled_tokens.float().transpose(0, 1)[self.pair_slots]  # [2P, B, D]
+        emb_a, emb_b = emb[:n_loss], emb[n_loss:]
+        # each direction from its own product, as the single-pair formula takes
+        # it: (a @ b.T).T holds b @ a.T's values, rounded in another order
+        logits = torch.stack([torch.bmm(emb_a, emb_b.transpose(1, 2)),
+                              torch.bmm(emb_b, emb_a.transpose(1, 2))])
+        logits = logits * temperature[:, None, None]  # [2, P, B, B]: a->b, b->a
+        # row i against column i
+        row_loss = -logits.log_softmax(dim=-1).diagonal(dim1=-2, dim2=-1)  # [2, P, B]
+        cnt = row_mask.sum(dim=-1)
+        mean = torch.where(cnt > 0, (row_loss * row_mask).sum(dim=-1) / cnt.clamp(min=1.0),
+                           float("nan"))  # NaN where a loss has no live row
+        per_loss = (mean[0] + mean[1]) / 2
 
-        scale = self.scale
-        losses: Dict[str, torch.Tensor] = {}
-        for a, b in self._pair_list():
-            name = "_".join(sorted((a, b)))
-            losses[name] = clip_contrastive_loss(
-                outputs[a], outputs[b], scale(name), mask=pair_mask(a, b)
-            )
+        outputs["losses"] = dict(zip(self.loss_names, per_loss.unbind()))
         if self.do_fcl:
-            root = self.fusion_combos[0]
-            for combo in self.fusion_combos:
-                if combo == root:
-                    continue
-                cname = combo_log_name(combo, names)
-                or_mask = torch.stack(
-                    [sample_mask[names[i]].bool() for i in combo]
-                ).any(dim=0)
-                if not self.no_fusion:
-                    losses[f"fcl_fusion|{cname}"] = clip_contrastive_loss(
-                        outputs["fusion"], outputs[combo_key(combo)],
-                        scale(f"fcl|{cname}"), mask=or_mask,
-                    )
-                if self.non_fusion_fcl:
-                    for mod in names:
-                        losses[f"fcl_{mod}|{cname}"] = clip_contrastive_loss(
-                            outputs[mod], outputs[combo_key(combo)],
-                            scale(f"fcl|{cname}"),
-                            mask=sample_mask[mod].bool() & or_mask,
-                        )
-
-        outputs["losses"] = losses
-        if self.do_fcl:
-            fcl_vals = [v for k, v in losses.items() if "fcl" in k]
-            nofcl_vals = [v for k, v in losses.items() if "fcl" not in k]
-            if fcl_vals:
-                outputs["fcl_loss"] = torch.stack(fcl_vals).nan_to_num().mean()
-            if nofcl_vals:
-                outputs["no-fcl_loss"] = torch.stack(nofcl_vals).nan_to_num().mean()
-        stacked = torch.stack(list(losses.values()))
-        n_finite = torch.isfinite(stacked).sum().float()
+            if n_loss > self.n_pairs:
+                outputs["fcl_loss"] = per_loss[self.n_pairs:].nan_to_num().mean()
+            if self.n_pairs:
+                outputs["no-fcl_loss"] = per_loss[: self.n_pairs].nan_to_num().mean()
+        n_finite = torch.isfinite(per_loss).sum().float()
         # NaN pairs are excluded; an all-NaN batch gives the plain (zero) sum
-        outputs["loss"] = stacked.nan_to_num().sum() / n_finite.clamp(min=1.0)
+        outputs["loss"] = per_loss.nan_to_num().sum() / n_finite.clamp(min=1.0)
         return outputs

@@ -6,6 +6,10 @@ the temperature clamp, and the whole ``MCAPretrainingLoss`` graph at the
 TCGA layout (4 modalities, combos [4, 3, 2], FCL + bimodal + non-fusion
 FCL) with one pair whose joint presence mask is empty, so its NaN must
 be excluded from ``loss`` and zeroed in the aggregates.  fp32 both sides.
+
+Then the batched graph against a loop of ``clip_contrastive_loss`` over
+the same losses at six layouts, the ops it dispatches (as many for 60
+losses as for 14) and its ``loss.pairs`` counter.
 """
 
 import math
@@ -204,3 +208,161 @@ def test_separate_modal_loss_fns_carry_and_clamp():
     init_weights(port)
     assert all(float(p.detach()) == pytest.approx(port_losses.LOGIT_SCALE_INIT)
                for p in port.parameters())
+
+
+# -- the batched graph against the per-pair loop ---------------------------
+
+LAYOUTS = {
+    "tcga": dict(do_fcl=True, bimodal_contrastive=True, non_fusion_fcl=True),
+    "cmu": dict(do_fcl=True),
+    "zorro": dict(do_fcl=False),
+    "no_fusion": dict(do_fcl=False, no_fusion=True),
+    "no_fusion_fcl": dict(do_fcl=True, no_fusion=True, non_fusion_fcl=True),
+    "separate": dict(do_fcl=True, bimodal_contrastive=True, non_fusion_fcl=True,
+                     separate_modal_loss_fns=True),
+}
+
+
+def _loop_losses(mod, tokens, present):
+    """The losses of ``mod``'s configuration as a Python loop of
+    :func:`clip_contrastive_loss`, one call a pair, with the aggregates'
+    NaN rules: the graph before it was batched."""
+    names = list(NAMES)
+    emb = {m: tokens[:, i] for i, m in enumerate(names)}
+    for i, combo in enumerate(mod.fusion_combos if mod.do_fcl else ()):
+        emb[port_losses.combo_key(combo)] = tokens[:, len(names) + i]
+    if not mod.no_fusion:
+        emb["fusion"] = tokens[:, len(names)]
+    mask = {m: torch.from_numpy(present[m]) for m in names}
+
+    def pair_mask(a, b):
+        return mask[b] if a == "fusion" else mask[a] if b == "fusion" else mask[a] & mask[b]
+
+    def scale(name):
+        return getattr(mod, f"logit_scale_{name}") if mod.separate else mod.loss_fn.logit_scale
+
+    losses = {}
+    for a, b in mod._pair_list():
+        name = "_".join(sorted((a, b)))
+        losses[name] = port_losses.clip_contrastive_loss(emb[a], emb[b], scale(name),
+                                                         mask=pair_mask(a, b))
+    if mod.do_fcl:
+        for combo in mod.fusion_combos[1:]:
+            cname = port_losses.combo_log_name(combo, names)
+            either = torch.stack([mask[names[i]] for i in combo]).any(dim=0)
+            key, t = port_losses.combo_key(combo), scale(f"fcl|{cname}")
+            if not mod.no_fusion:
+                losses[f"fcl_fusion|{cname}"] = port_losses.clip_contrastive_loss(
+                    emb["fusion"], emb[key], t, mask=either)
+            if mod.non_fusion_fcl:
+                for m in names:
+                    losses[f"fcl_{m}|{cname}"] = port_losses.clip_contrastive_loss(
+                        emb[m], emb[key], t, mask=mask[m] & either)
+    out = {"losses": losses}
+    fcl = [v for k, v in losses.items() if "fcl" in k]
+    nofcl = [v for k, v in losses.items() if "fcl" not in k]
+    if mod.do_fcl and fcl:
+        out["fcl_loss"] = torch.stack(fcl).nan_to_num().mean()
+    if mod.do_fcl and nofcl:
+        out["no-fcl_loss"] = torch.stack(nofcl).nan_to_num().mean()
+    stacked = torch.stack(list(losses.values()))
+    out["loss"] = stacked.nan_to_num().sum() / torch.isfinite(stacked).sum().float().clamp(min=1.0)
+    return out
+
+
+def _port_module(layout, combos):
+    mod = port_losses.MCAPretrainingLoss(NAMES, fusion_combos=combos, **LAYOUTS[layout])
+    with torch.no_grad():  # every temperature its own value, inside the clamp
+        for i, p in enumerate(mod.parameters()):
+            p.fill_(1.0 + 0.1 * i)
+    return mod
+
+
+@pytest.mark.parametrize("empty_pair", [False, True], ids=["all-live", "empty-pair"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_batched_graph_matches_the_pair_loop(layout, empty_pair):
+    """The batched graph against a loop of ``clip_contrastive_loss`` over
+    the same losses: every per-pair loss, the aggregates, and the
+    gradients of the pooled tokens and of every temperature, fp32; the
+    keys of ``losses`` in the loop's order; the state dict's keys those
+    of the parameters alone (the plan's buffers are not persistent)."""
+    pooled, present, combos = _case(3, empty_pair)
+    mod = _port_module(layout, combos)
+    masks = {k: torch.from_numpy(v) for k, v in present.items()}
+    tokens = torch.from_numpy(pooled).requires_grad_(True)
+    out = mod(tokens, masks)
+    out["loss"].backward()
+    got_grads = [tokens.grad.clone()] + [p.grad.clone() for p in mod.parameters()]
+
+    mod.zero_grad()
+    ref_tokens = torch.from_numpy(pooled).requires_grad_(True)
+    ref = _loop_losses(mod, ref_tokens, present)
+    ref["loss"].backward()
+    ref_grads = [ref_tokens.grad] + [p.grad for p in mod.parameters()]
+
+    assert list(out["losses"]) == list(ref["losses"]) == list(mod.loss_names)
+    assert len(out["losses"]) == mod.pair_slots.numel() // 2
+    for k, v in ref["losses"].items():
+        got, want = float(out["losses"][k].detach()), float(v.detach())
+        if math.isnan(want):
+            assert math.isnan(got), k
+        else:
+            np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, err_msg=k)
+    assert any(math.isnan(float(v.detach())) for v in out["losses"].values()) == empty_pair
+    assert {k for k in out if k not in mod.output_keys()} == set(ref)
+    for k in set(ref) - {"losses"}:
+        np.testing.assert_allclose(float(out[k].detach()), float(ref[k].detach()),
+                                   rtol=GRAD_RTOL, err_msg=k)
+    for name, got, want in zip(["tokens"] + [n for n, _ in mod.named_parameters()],
+                               got_grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * float(want.abs().max()), err_msg=name)
+    want_keys = ([f"logit_scale_{n}" for n in mod.scale_names()]
+                 if LAYOUTS[layout].get("separate_modal_loss_fns") else ["loss_fn.logit_scale"])
+    assert list(mod.state_dict()) == want_keys
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_loss_graph_ops_do_not_grow_with_pairs():
+    """The aten ops that the loss forward and its backward dispatch are as
+    many for TCGA's 60 losses as for CMU's 14, and at most 150: the
+    per-pair loop (about 90 a pair) does not come back."""
+    pooled, present, combos = _case(4, False)
+    counts = {}
+    for layout in ("tcga", "cmu"):
+        mod = _port_module(layout, combos)
+        tokens = torch.from_numpy(pooled).requires_grad_(True)
+        masks = {k: torch.from_numpy(v) for k, v in present.items()}
+        with _CountOps() as fwd:
+            out = mod(tokens, masks)
+        with _CountOps() as bwd:
+            out["loss"].backward()
+        counts[len(out["losses"])] = fwd.n + bwd.n
+    assert set(counts) == {60, 14}
+    assert counts[60] == counts[14] <= 150, counts
+
+
+@pytest.mark.parametrize("layout,pairs", [("tcga", 60), ("cmu", 14)])
+def test_loss_pairs_counter(layout, pairs):
+    """``loss.pairs`` is recorded once a loss forward with the number of
+    losses the batched call carries, and not at all under ``no_loss``."""
+    from mca_tpu_torch.utils import trace
+
+    pooled, present, combos = _case(5, False)
+    mod = _port_module(layout, combos)
+    masks = {k: torch.from_numpy(v) for k, v in present.items()}
+    mark = trace.RECORDER.mark()
+    mod(torch.from_numpy(pooled), masks)
+    assert trace.RECORDER.records("loss.pairs", since=mark)["value"].tolist() == [pairs]
+    mark = trace.RECORDER.mark()
+    mod(torch.from_numpy(pooled), masks, no_loss=True)
+    assert len(trace.RECORDER.records("loss.pairs", since=mark)["seq"]) == 0
