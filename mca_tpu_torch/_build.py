@@ -106,15 +106,17 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C entry point ``mca_<name>`` of ``csrc/<name>.cu``, typed
-    once: it returns a ``cudaError_t`` as int."""
-    if name not in _FUNCS:
-        fn = getattr(library(name), f"mca_{name}")
+def function(name: str, argtypes, entry: str = "") -> ctypes._CFuncPtr:
+    """The C entry point ``mca_<entry>`` (``entry`` defaults to ``name``)
+    of ``csrc/<name>.cu``, typed once: it returns a ``cudaError_t`` as
+    int."""
+    entry = entry or name
+    if entry not in _FUNCS:
+        fn = getattr(library(name), f"mca_{entry}")
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _FUNCS[name] = fn
-    return _FUNCS[name]
+        _FUNCS[entry] = fn
+    return _FUNCS[entry]
 
 
 def check(name: str, err: int) -> None:

@@ -268,4 +268,62 @@ def get_model_config(config: Config) -> Dict[str, Any]:
             config.get("moe_capacity_factor", 2.0)
         ),
         "group_channels": config.get("eao_group_channels", False),
+        "block": block_config(config),
     }
+
+
+#: ``model_type`` of the DeepSeek-V3 decoder block (latent attention,
+#: routed and shared experts) as the MCA fusion stack's block
+DEEPSEEK_V3 = "deepseek_v3"
+
+# the Hugging Face DeepSeek-V3 keys the block reads, and the port's own
+_BLOCK_KEYS = (
+    "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim", "rope_theta",
+    "rms_norm_eps", "intermediate_size", "first_k_dense_replace", "n_routed_experts",
+    "num_experts_per_tok", "moe_intermediate_size", "n_shared_experts",
+    "routed_scaling_factor", "norm_topk_prob", "ep_size",
+    # DeepSeek-V3's training rules (not in a config.json): the
+    # sequence-wise balance loss's weight, the correction bias's step
+    "aux_loss_alpha", "bias_update_speed",
+)
+
+
+def block_config(config: Config):
+    """The ``deepseek_v3`` block's settings (``model_type: deepseek_v3``),
+    or None for the MCA block.  Refuses, with a ``ValueError``, what the
+    port does not run with it: a query low-rank path (``q_lora_rank``),
+    another router (``scoring_func`` other than sigmoid, ``topk_method``
+    other than ``noaux_tc``, expert groups), ``zorro``, ``eao``,
+    ``no_fusion``, tensor parallelism (``mesh_model > 1``),
+    ``seq_shard``, a pipeline (``mesh_pipe > 1``), ``remat``,
+    ``quantize: int8``, ``attention_impl`` other than auto / pallas, and
+    ``bwd_impl: split`` (K3a + K3b have no (192, 128) instantiation)."""
+    if config.get("model_type", "mca") != DEEPSEEK_V3:
+        return None
+    refused = {
+        "q_lora_rank": config.get("q_lora_rank") is not None,
+        "scoring_func": config.get("scoring_func", "sigmoid") != "sigmoid",
+        "topk_method": config.get("topk_method", "noaux_tc") != "noaux_tc",
+        "n_group": int(config.get("n_group", 1) or 1) != 1
+        or int(config.get("topk_group", 1) or 1) != 1,
+        "zorro": bool(config.get("zorro")),
+        "eao": bool(config.get("eao")),
+        "no_fusion": bool(config.get("no_fusion")),
+        "mesh_model": int(config.get("mesh_model", 1) or 1) > 1,
+        "seq_shard": bool(config.get("seq_shard")),
+        "mesh_pipe": int(config.get("mesh_pipe", 1) or 1) > 1,
+        "remat": bool(config.get("remat")),
+        "quantize": config.get("quantize", "none") not in ("none", None),
+        "attention_impl": config.get("attention_impl", "auto") not in ("auto", "pallas"),
+        "bwd_impl": config.get("bwd_impl", "fused") != "fused",
+    }
+    bad = [k for k, v in refused.items() if v]
+    if bad:
+        raise ValueError(
+            f"model_type {DEEPSEEK_V3!r} does not run with {', '.join(bad)} as set "
+            f"({', '.join(f'{k}={config.get(k)!r}' for k in bad)})"
+        )
+    missing = [k for k in _BLOCK_KEYS if config.get(k) is None]
+    if missing:
+        raise ValueError(f"model_type {DEEPSEEK_V3!r} needs {', '.join(missing)}")
+    return {k: config[k] for k in _BLOCK_KEYS}

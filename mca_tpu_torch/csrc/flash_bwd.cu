@@ -25,8 +25,13 @@
 // one: 1.77x the bound's work on the TCGA mask) and adds each live
 // tile's 16 KB fp32 dq partial into device memory.  Measured: 0.4398 ms
 // a layer, 7.4x the bound (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+//
+// mca_flash_bwd_mla is the same backward at latent attention's head
+// dims (q, k 192; v 128): flash_bwd_mla.cuh, whose header says why its
+// body splits each tile's accumulators between the two consumers.
 
 #include "flash_bwd_kv.cuh"
+#include "flash_bwd_mla.cuh"
 
 extern "C" const char* mca_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -51,6 +56,23 @@ extern "C" int mca_flash_bwd(const void* q, const void* k, const void* v, const 
       launch_bwd_kv<true>(q, k, v, dout, lse, delta, pad, pair_ptr, pair_q, pair_flags,
                           pair_bits, pair_order, dq_acc, dk, dv, bh, heads, t, n_pairs, scale_s,
                           scale_dq, stream);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// As mca_flash_bwd at latent attention's head dims: q, k, dk [bh, t, 192]
+// and v, dout, dv [bh, t, 128] bf16, dq_acc [bh, t, 192] fp32.
+extern "C" int mca_flash_bwd_mla(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* pad,
+                                 const void* pair_ptr, const void* pair_q,
+                                 const void* pair_flags, const void* pair_bits,
+                                 const void* pair_order, void* dq_acc, void* dk, void* dv,
+                                 int bh, int heads, int t, int n_pairs, float scale_s,
+                                 float scale_dq, void* stream) {
+  const cudaError_t err =
+      launch_bwd_mla(q, k, v, dout, lse, delta, pad, pair_ptr, pair_q, pair_flags, pair_bits,
+                     pair_order, dq_acc, dk, dv, bh, heads, t, n_pairs, scale_s, scale_dq,
+                     stream);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }

@@ -59,6 +59,22 @@
 // products (24 us at 989 TFLOP/s bf16), while q, k, v and out are 84 MB
 // (25 us at 3.35 TB/s).  chip_smoke.py computes both for its inputs.
 //
+// Head dims.  The body is a template over (d_qk, d_v), the widths of q
+// and k and of v and out, each a multiple of 64 held as 64-column boxes
+// (one TMA box and one 128-byte swizzle atom each).  flash_fwd_kernel is
+// (64, 64), the MCA blocks' heads; flash_fwd_mla_kernel is (192, 128),
+// latent attention's (128 nope + 64 rope dims of q and k, 128 of v).  At
+// 64 q lives in registers as above; at 192 its 48 registers would not
+// fit beside O's 64, so each consumer scales its q tile once in shared
+// memory and reads it there as wgmma's A operand (FlashAttention-3's
+// layout for wide heads); S is then 12 k-steps over three boxes and
+// O += p v two 64-column products a 16-key step.  Shared memory at (192,
+// 128): q 48 KB + 4 stages of k and v 160 KB.  Measured at (192, 128):
+// 0.240 ms a call at B 2, H 16, T 2548 on TCGA_config1's mask with key
+// padding (NVIDIA H100 80GB HBM3, 700.00 W); ptxas: 168 registers, no
+// spill.  The (64, 64) kernel compiles to the same SASS as before the
+// template.
+//
 // Measured (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700.00 W):
 // 0.2834 ms a layer (the mma.sync version before it took 0.646 ms;
 // SDPA under the same mask 0.5647 ms).  SASS (tools/sass_counts.py): 16
@@ -72,30 +88,41 @@
 
 namespace {
 
-// kD, kBlock, the softmax constants (kNegInf, kDeadClamp, kLog2e),
-// quad_max and quad_sum: flash_tile.cuh
+// kD (the 64-column box), kBlock, the softmax constants (kNegInf,
+// kDeadClamp, kLog2e), quad_max and quad_sum: flash_tile.cuh
 constexpr int kStages = 4;           // k / v ring depth
 constexpr int kBlockThreads = 384;   // producer + two consumer warpgroups
 
-constexpr uint32_t kBox = kBlock * kD * 2;  // one 64 x 64 bf16 tile, 8 KB
-constexpr uint32_t kQOff = 0;
-constexpr uint32_t kKOff = 2 * kBox;
-constexpr uint32_t kVOff = kKOff + kStages * kBox;
-constexpr uint32_t kBarOff = kVOff + kStages * kBox;
-constexpr uint32_t kSmemBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
+constexpr uint32_t kBox = kBlock * kD * 2;  // one 64 x 64 bf16 box, 8 KB
 
-__global__ void __launch_bounds__(kBlockThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ pad,
-                 const int* __restrict__ pair_ptr, const int* __restrict__ pair_kv,
-                 const int* __restrict__ pair_flags, const uint64_t* __restrict__ pair_bits,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int t,
-                 float scale) {
+// shared memory of the (d_qk, d_v) body, from a 1024-byte aligned base:
+// the pair's q tiles (box c of tile h at box h * kQBoxes + c), the k and
+// v ring, the mbarriers
+template <int kDqk, int kDv>
+struct FwdSmem {
+  static constexpr int kQBoxes = kDqk / kD;
+  static constexpr int kVBoxes = kDv / kD;
+  static constexpr uint32_t kQOff = 0;
+  static constexpr uint32_t kKOff = 2 * kQBoxes * kBox;
+  static constexpr uint32_t kVOff = kKOff + kStages * kQBoxes * kBox;
+  static constexpr uint32_t kBarOff = kVOff + kStages * kVBoxes * kBox;
+  static constexpr uint32_t kSmemBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <int kDqk, int kDv>
+__device__ __forceinline__ void flash_fwd_body(
+    const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const uint8_t* __restrict__ pad, const int* __restrict__ pair_ptr,
+    const int* __restrict__ pair_kv, const int* __restrict__ pair_flags,
+    const uint64_t* __restrict__ pair_bits, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int heads, int t, float scale) {
+  using L = FwdSmem<kDqk, kDv>;
+  constexpr int kQBoxes = L::kQBoxes, kVBoxes = L::kVBoxes;
+  static_assert(kDqk % kD == 0 && kDv % kD == 0, "head dims are multiples of 64");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + kStages;
@@ -118,16 +145,29 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       const bool second = 2 * pr * kBlock + kBlock < t;  // q tile 2i + 1 exists
-      mbar_expect_tx(q_full, second ? 2 * kBox : kBox);
-      tma_load_3d(smem + kQOff, &map_q, q_full, 0, 2 * pr * kBlock, bh);
-      if (second) tma_load_3d(smem + kQOff + kBox, &map_q, q_full, 0, (2 * pr + 1) * kBlock, bh);
+      mbar_expect_tx(q_full, second ? 2 * kQBoxes * kBox : kQBoxes * kBox);
+#pragma unroll
+      for (int c = 0; c < kQBoxes; ++c)
+        tma_load_3d(smem + L::kQOff + c * kBox, map_q, q_full, c * kD, 2 * pr * kBlock, bh);
+      if (second) {
+#pragma unroll
+        for (int c = 0; c < kQBoxes; ++c)
+          tma_load_3d(smem + L::kQOff + (kQBoxes + c) * kBox, map_q, q_full, c * kD,
+                      (2 * pr + 1) * kBlock, bh);
+      }
       for (int n = n0; n < n1; ++n) {
         const int it = n - n0, st = it % kStages;
         mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * kBox);
+        mbar_expect_tx(full + st, (kQBoxes + kVBoxes) * kBox);
         const int k0 = pair_kv[n] * kBlock;
-        tma_load_3d(smem + kKOff + st * kBox, &map_k, full + st, 0, k0, bh);
-        tma_load_3d(smem + kVOff + st * kBox, &map_v, full + st, 0, k0, bh);
+#pragma unroll
+        for (int c = 0; c < kQBoxes; ++c)
+          tma_load_3d(smem + L::kKOff + (st * kQBoxes + c) * kBox, map_k, full + st, c * kD, k0,
+                      bh);
+#pragma unroll
+        for (int c = 0; c < kVBoxes; ++c)
+          tma_load_3d(smem + L::kVOff + (st * kVBoxes + c) * kBox, map_v, full + st, c * kD, k0,
+                      bh);
       }
     }
   } else {
@@ -139,16 +179,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int g = lane >> 2, c2 = 2 * (lane & 3);
     const int r0 = 16 * wl + g;             // this thread's rows: r0, r0 + 8
     const int q0 = (2 * pr + h) * kBlock;
-    const size_t head_off = size_t(bh) * t * kD;
+    const size_t head_off = size_t(bh) * t * kDv;
     const uint8_t* pad_b = pad ? pad + size_t(bh / heads) * t : nullptr;
-    const uint32_t k_a = smem_u32(smem + kKOff), v_a = smem_u32(smem + kVOff);
+    const uint32_t k_a = smem_u32(smem + L::kKOff), v_a = smem_u32(smem + L::kVOff);
+    const uint32_t q_a = smem_u32(smem + L::kQOff + h * kQBoxes * kBox);
 
-    // q as wgmma A fragments (one per 16-wide step of the head dim),
-    // times the scale in bf16
     mbar_wait(q_full, 0);
-    uint32_t qa[kD / 16][4];
-    {
-      const uint32_t q_a = smem_u32(smem + kQOff + h * kBox);
+    // q times the scale in bf16: at 64 as wgmma A fragments (one per
+    // 16-wide step of the head dim), wider in place in shared memory
+    uint32_t qa[kQBoxes == 1 ? kD / 16 : 1][4];
+    if constexpr (kQBoxes == 1) {
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
         qa[kk][0] = scale_bf16x2(ld_shared_u32(q_a + swz128(r0, 16 * kk + c2)), scale);
@@ -156,15 +196,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         qa[kk][2] = scale_bf16x2(ld_shared_u32(q_a + swz128(r0, 16 * kk + 8 + c2)), scale);
         qa[kk][3] = scale_bf16x2(ld_shared_u32(q_a + swz128(r0 + 8, 16 * kk + 8 + c2)), scale);
       }
+    } else {
+      // an elementwise pass: the swizzle only permutes a box's words
+      const int tid = threadIdx.x % 128;
+      for (int w = tid; w < kQBoxes * int(kBox / 4); w += 128)
+        st_shared_u32(q_a + 4 * w, scale_bf16x2(ld_shared_u32(q_a + 4 * w), scale));
+      fence_async_smem();
+      named_barrier(1 + h, 128);
     }
 
     // rows r0 and r0 + 8: running max, this thread's share of the running
-    // sum, and O (8 column blocks of 8, accumulator layout)
+    // sum, and O (kVBoxes boxes of 8 column blocks of 8, accumulator layout)
     float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-    float o[32], s[32], p[32], corr[2];
+    float o[kVBoxes][32], s[32], p[32], corr[2];
     uint32_t pa[kBlock / 16][4];  // p in bf16: the A fragments of O += p v
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
 
     auto active = [&](int n) { return (pair_flags[n] >> h) & 1; };
     auto wait_full = [&](int n) {
@@ -189,24 +238,39 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     };
     // S = (scale q) k^T of item n into s, issued, not waited for
     auto issue_s = [&](int n) {
-      const uint32_t kb = k_a + ((n - n0) % kStages) * kBox;
+      const uint32_t kb = k_a + ((n - n0) % kStages) * kQBoxes * kBox;
       wgmma_fence();
+      if constexpr (kQBoxes == 1) {
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_m64n64k16_rs<0>(s, qa[kk], wgmma_desc(kb + 32 * kk), kk != 0);
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_m64n64k16_rs<0>(s, qa[kk], wgmma_desc(kb + 32 * kk), kk != 0);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kQBoxes; ++c)
+#pragma unroll
+          for (int kk = 0; kk < kD / 16; ++kk)
+            wgmma_m64n64k16_ss(s, wgmma_desc(q_a + c * kBox + 32 * kk),
+                               wgmma_desc(kb + c * kBox + 32 * kk), (c | kk) != 0);
+      }
       wgmma_commit();
     };
     // O += p v of item n from pa, issued, not waited for: the
     // probabilities of key blocks 2j and 2j + 1 are the A fragment of the
     // j-th 16-key step; v's 16 rows of that step are an MN-major B
-    // (transpose bit set)
+    // (transpose bit set), one product per 64-column box of v
     auto issue_pv = [&](int n) {
-      const uint32_t vb = v_a + ((n - n0) % kStages) * kBox;
+      const uint32_t vb = v_a + ((n - n0) % kStages) * kVBoxes * kBox;
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kBlock / 16; ++j)
-        wgmma_m64n64k16_rs<1>(o, pa[j], wgmma_desc(vb + 2048 * j), 1);
+      for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+        for (int j = 0; j < kBlock / 16; ++j)
+          wgmma_m64n64k16_rs<1>(o[c], pa[j], wgmma_desc(vb + c * kBox + 2048 * j), 1);
       wgmma_commit();
+    };
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int c = 0; c < kVBoxes; ++c) fence_regs(o[c]);
     };
     // masks and the online softmax of item n's scores (s is only read):
     // p, the running max and sum, and corr, by which O is to be rescaled
@@ -253,7 +317,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     // O rescaled by corr, p rounded to bf16 into pa (no p v in flight)
     auto rescale_pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i >> 1) & 1];
 #pragma unroll
       for (int j = 0; j < kBlock / 16; ++j) {
         pa[j][0] = pack_bf16x2(p[8 * j + 0], p[8 * j + 1]);
@@ -287,14 +353,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(s);
         softmax(nxt);
         wgmma_wait<0>();
-        fence_regs(o);
+        fence_o();
         release(cur);
         rescale_pack();
         cur = nxt;
       }
       issue_pv(cur);
       wgmma_wait<0>();
-      fence_regs(o);
+      fence_o();
       release(cur);
       cur = skip(nxt, -1);
     }
@@ -304,16 +370,66 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const int qrow = q0 + r0 + 8 * hh;
       const float l = quad_sum(l_run[hh]);
       if (qrow >= t) continue;
-      __nv_bfloat16* orow = out + head_off + size_t(qrow) * kD;
+      __nv_bfloat16* orow = out + head_off + size_t(qrow) * kDv;
 #pragma unroll
-      for (int nb = 0; nb < kD / 8; ++nb) {
-        const float x0 = l > 0.f ? o[4 * nb + 2 * hh] / l : 0.f;
-        const float x1 = l > 0.f ? o[4 * nb + 2 * hh + 1] / l : 0.f;
-        *reinterpret_cast<uint32_t*>(orow + 8 * nb + c2) = pack_bf16x2(x0, x1);
-      }
+      for (int c = 0; c < kVBoxes; ++c)
+#pragma unroll
+        for (int nb = 0; nb < kD / 8; ++nb) {
+          const float x0 = l > 0.f ? o[c][4 * nb + 2 * hh] / l : 0.f;
+          const float x1 = l > 0.f ? o[c][4 * nb + 2 * hh + 1] / l : 0.f;
+          *reinterpret_cast<uint32_t*>(orow + c * kD + 8 * nb + c2) = pack_bf16x2(x0, x1);
+        }
       if ((lane & 3) == 0) lse[size_t(bh) * t + qrow] = l > 0.f ? m_run[hh] + logf(l) : kNegInf;
     }
   }
+}
+
+#define MCA_FLASH_FWD_KERNEL(NAME, DQK, DV)                                                      \
+  __global__ void __launch_bounds__(kBlockThreads, 1)                                           \
+  NAME(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,   \
+       const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ pad,             \
+       const int* __restrict__ pair_ptr, const int* __restrict__ pair_kv,                      \
+       const int* __restrict__ pair_flags, const uint64_t* __restrict__ pair_bits,             \
+       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads, int t,             \
+       float scale) {                                                                          \
+    flash_fwd_body<DQK, DV>(&map_q, &map_k, &map_v, pad, pair_ptr, pair_kv, pair_flags,        \
+                            pair_bits, out, lse, heads, t, scale);                             \
+  }
+
+MCA_FLASH_FWD_KERNEL(flash_fwd_kernel, 64, 64)
+MCA_FLASH_FWD_KERNEL(flash_fwd_mla_kernel, 192, 128)
+
+using FwdKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, const uint8_t*, const int*,
+                           const int*, const int*, const uint64_t*, __nv_bfloat16*, float*, int,
+                           int, float);
+
+// Encodes the three tensor maps (q and k [bh, t, d_qk], v [bh, t, d_v],
+// 64 x 64 boxes) and launches `kernel` on `stream`.
+template <int kDqk, int kDv>
+int launch_fwd(FwdKernel kernel, const void* q, const void* k, const void* v, const void* pad,
+               const void* pair_ptr, const void* pair_kv, const void* pair_flags,
+               const void* pair_bits, void* out, void* lse, int bh, int heads, int t,
+               int n_pairs, float scale, void* stream) {
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int widths[3] = {kDqk, kDqk, kDv};
+  const uint32_t box[3] = {kD, kBlock, 1};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t dims[3] = {uint64_t(widths[i]), uint64_t(t), uint64_t(bh)};
+    const uint64_t strides[2] = {uint64_t(widths[i]) * 2, uint64_t(t) * widths[i] * 2};
+    if (!make_map(&maps[i], bases[i], 3, dims, strides, box)) return int(cudaErrorInvalidValue);
+  }
+  constexpr uint32_t smem = FwdSmem<kDqk, kDv>::kSmemBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(n_pairs, bh);
+  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(pad),
+      static_cast<const int*>(pair_ptr), static_cast<const int*>(pair_kv),
+      static_cast<const int*>(pair_flags), static_cast<const uint64_t*>(pair_bits),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), heads, t, scale);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -333,21 +449,17 @@ extern "C" int mca_flash_fwd(const void* q, const void* k, const void* v, const 
                              const void* pair_ptr, const void* pair_kv, const void* pair_flags,
                              const void* pair_bits, void* out, void* lse, int bh, int heads,
                              int t, int n_pairs, float scale, void* stream) {
-  CUtensorMap maps[3];
-  const void* bases[3] = {q, k, v};
-  const uint64_t dims[3] = {uint64_t(kD), uint64_t(t), uint64_t(bh)};
-  const uint64_t strides[2] = {kD * 2, uint64_t(t) * kD * 2};
-  const uint32_t box[3] = {kD, kBlock, 1};
-  for (int i = 0; i < 3; ++i)
-    if (!make_map(&maps[i], bases[i], 3, dims, strides, box)) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(n_pairs, bh);
-  flash_fwd_kernel<<<grid, kBlockThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(pad),
-      static_cast<const int*>(pair_ptr), static_cast<const int*>(pair_kv),
-      static_cast<const int*>(pair_flags), static_cast<const uint64_t*>(pair_bits),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), heads, t, scale);
-  return int(cudaGetLastError());
+  return launch_fwd<64, 64>(flash_fwd_kernel, q, k, v, pad, pair_ptr, pair_kv, pair_flags,
+                            pair_bits, out, lse, bh, heads, t, n_pairs, scale, stream);
+}
+
+// As mca_flash_fwd at latent attention's head dims: q, k [bh, t, 192],
+// v, out [bh, t, 128] bf16.
+extern "C" int mca_flash_fwd_mla(const void* q, const void* k, const void* v, const void* pad,
+                                 const void* pair_ptr, const void* pair_kv,
+                                 const void* pair_flags, const void* pair_bits, void* out,
+                                 void* lse, int bh, int heads, int t, int n_pairs, float scale,
+                                 void* stream) {
+  return launch_fwd<192, 128>(flash_fwd_mla_kernel, q, k, v, pad, pair_ptr, pair_kv, pair_flags,
+                              pair_bits, out, lse, bh, heads, t, n_pairs, scale, stream);
 }

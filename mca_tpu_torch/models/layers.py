@@ -26,6 +26,12 @@
   :class:`~mca_tpu_torch.models.moe.MoEFeedForward`, routed under the
   padding mask (its experts split over ``model`` where they divide).
 
+- :class:`DecoderBlock` — DeepSeek-V3's decoder block (the ``deepseek_v3``
+  block of the MCA stack, no JAX counterpart): two RMSNorms and
+  residuals around the sublayers on the fp32 stream, latent attention
+  (:mod:`mca_tpu_torch.models.mla`) and a SwiGLU or the routed and
+  shared experts (:mod:`mca_tpu_torch.models.routed_moe`).
+
 dtype chain (as in the JAX package): the norm returns fp32; attention
 and FF cast their input to the compute dtype; their outputs are cast
 back to the residual's dtype.  Parameters stay fp32 and are cast at use.
@@ -314,3 +320,35 @@ class MCALayer(nn.Module):
         ff_out = self.ff(x, padding_mask) if self.moe else self.ff(x)
         x = ff_out.to(x.dtype) + x
         return (x, attn) if return_attn else x
+
+
+class DecoderBlock(nn.Module):
+    """A DeepSeek-V3 decoder block as the fusion stack's block (the
+    ``deepseek_v3`` block of :class:`~mca_tpu_torch.models.mca.MCA`):
+    two RMSNorms (``attn_norm``, ``ff_norm``) and residuals around the
+    sublayers on the fp32 stream, ``x = x + attn(attn_norm(x)); x = x +
+    ff(ff_norm(x))``, where :class:`MCALayer` shares one LayerNorm and
+    adds the normed activations.  ``attn`` is latent attention
+    (:class:`~mca_tpu_torch.models.mla.MLAttention`); ``ff`` a SwiGLU of
+    ``dense_inner`` (``moe=None``) or the routed and shared experts
+    (:class:`~mca_tpu_torch.models.routed_moe.RoutedMoE` built from the
+    ``moe`` keyword arguments), which see the padding."""
+
+    def __init__(self, dim: int, attn: nn.Module, dense_inner: int, moe: Optional[dict],
+                 eps: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from mca_tpu_torch.models.mla import RMSNorm
+        from mca_tpu_torch.models.routed_moe import RoutedMoE, SwiGLU
+
+        self.attn_norm = RMSNorm(dim, eps)
+        self.attn = attn
+        self.ff_norm = RMSNorm(dim, eps)
+        self.moe = moe is not None
+        self.ff = RoutedMoE(dim, dtype=dtype, **moe) if self.moe else SwiGLU(dim, dense_inner, dtype)
+
+    def forward(self, x: torch.Tensor, attn_mask=None,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x.float()
+        x = x + self.attn(self.attn_norm(x), attn_mask, padding_mask).float()
+        h = self.ff_norm(x)
+        return x + (self.ff(h, padding_mask) if self.moe else self.ff(h)).float()

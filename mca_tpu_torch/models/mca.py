@@ -32,6 +32,18 @@ instead of keeping its activations.
 ``moe_experts > 0`` puts the expert-choice mixture of experts
 (:mod:`mca_tpu_torch.models.moe`) in every block's feed-forward.
 
+``block`` (``model_type: deepseek_v3``, :func:`mca_tpu_torch.config.block_config`)
+replaces the MCA block by DeepSeek-V3's decoder block
+(:class:`~mca_tpu_torch.models.layers.DecoderBlock`): latent attention
+through the flash kernels at head dims (192, 128), a dense SwiGLU in the
+first ``first_k_dense_replace`` layers and the routed experts this
+process holds (the first of ``ep_size`` shares) with the shared experts
+in the rest, and a final RMSNorm.  The encoders, fusion tokens, masks,
+pool and loss are the MCA ones.  In training the forward also returns
+``balance_loss``, the routed layers' balance losses summed, which the
+training step adds to the loss.  It runs on one process (no mesh of
+several ranks), without ``remat``, int8 or ``return_attn``.
+
 ``quant="int8"`` runs the blocks' five projections on int8 weights
 (:mod:`mca_tpu_torch.ops.quant`, serving only); the attentive pool
 stays float.
@@ -65,7 +77,8 @@ from torch.utils.checkpoint import checkpoint
 from mca_tpu_torch import masks as masks_lib
 from mca_tpu_torch.encoders import build_encoder
 from mca_tpu_torch.losses import LOGIT_SCALE_INIT, MCAPretrainingLoss
-from mca_tpu_torch.models.layers import Attention, LayerNorm, MCALayer
+from mca_tpu_torch.models.layers import Attention, DecoderBlock, LayerNorm, MCALayer
+from mca_tpu_torch.models.mla import MLAttention, RMSNorm
 from mca_tpu_torch.models.pool import MeanTokenProjectionPool
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel.pipeline import pipeline_layers
@@ -104,11 +117,21 @@ class MCA(nn.Module):
         moe_capacity_factor: float = 2.0,
         remat: bool = False,
         fused_ff: bool = True,
+        block: Optional[Dict[str, Any]] = None,
         data_group=None,
         model_group=None,
         pipe_group=None,
     ):
         super().__init__()
+        if block is not None:
+            # what config.block_config cannot see: the mesh and the
+            # service's quantisation
+            several = [n for n, g in (("data", data_group), ("model", model_group),
+                                      ("pipe", pipe_group)) if coll.group_size(g) > 1]
+            if several or quant != "none":
+                raise ValueError(
+                    "the deepseek_v3 block runs on one process without int8 (mesh axes "
+                    f"over one rank: {several}, quant={quant!r})")
         if mean_pool and fcl and not zorro:
             # as the JAX package asserts: one mean over all fusion tokens
             # leaves no per-combo pooled token
@@ -148,19 +171,28 @@ class MCA(nn.Module):
                 for name, cfg in encoder_configs.items()
             }
         )
-        self.layers = nn.ModuleList(
-            [
-                MCALayer(
-                    dim, dim_head, heads, ff_mult, dtype=self.dtype,
-                    attn_impl=attention_impl, quant=quant,
-                    moe_experts=moe_experts,
-                    moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
-                    model_group=model_group, seq_shard=self.seq_group is not None,
-                )
-                for _ in range(depth)
-            ]
-        )
-        self.norm = LayerNorm(dim)
+        if block is not None:
+            self.layers = nn.ModuleList(
+                [decoder_block(dim, heads, block, i, self.mask_set.seq_len, self.dtype,
+                               attention_impl) for i in range(depth)])
+            self.norm = RMSNorm(dim, float(block["rms_norm_eps"]))
+            # the routed layers, whose balance losses the forward returns
+            self._routed = tuple(layer.ff for layer in self.layers if layer.moe)
+        else:
+            self._routed = ()
+            self.layers = nn.ModuleList(
+                [
+                    MCALayer(
+                        dim, dim_head, heads, ff_mult, dtype=self.dtype,
+                        attn_impl=attention_impl, quant=quant,
+                        moe_experts=moe_experts,
+                        moe_capacity_factor=moe_capacity_factor, fused_ff=fused_ff,
+                        model_group=model_group, seq_shard=self.seq_group is not None,
+                    )
+                    for _ in range(depth)
+                ]
+            )
+            self.norm = LayerNorm(dim)
         if not no_fusion:
             self.fusion_tokens = nn.Parameter(
                 torch.zeros(self.mask_set.num_fusion_tokens, dim)
@@ -264,6 +296,9 @@ class MCA(nn.Module):
         pooled, sample_mask = self.loss.gather(pooled, sample_mask)
         outputs = self.loss(pooled, sample_mask, no_loss=no_loss)
         outputs["modality_sample_mask"] = sample_mask
+        balance = [b for b in (m.take_balance_loss() for m in self._routed) if b is not None]
+        if balance:
+            outputs["balance_loss"] = torch.stack(balance).sum()
         return outputs
 
     def attention_maps(self, batch: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -272,6 +307,8 @@ class MCA(nn.Module):
         T]}`` and, with the attentive pool, ``"pool": [B, H, R, T]``.
         Every block takes the dense path here (the flash kernels never
         materialise probabilities); the sequential stack, without groups."""
+        if not isinstance(self.layers[0], MCALayer):
+            raise NotImplementedError("attention_maps covers the MCA block only")
         x, padding, _ = self.pack_sequence(batch)
         bsz = x.shape[0]
         attn_mask = self.mask_set.attn_mask
@@ -290,6 +327,32 @@ class MCA(nn.Module):
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """Random weights from ``generator`` (:func:`init_weights`)."""
         return init_weights(self, generator)
+
+
+def decoder_block(dim: int, heads: int, block: Dict[str, Any], index: int, seq_len: int,
+                  dtype: torch.dtype, attention_impl: str) -> DecoderBlock:
+    """Layer ``index`` of the ``deepseek_v3`` stack: latent attention, then
+    a dense SwiGLU below ``first_k_dense_replace``, else the first of the
+    routed experts' ``ep_size`` shares (an expert-parallel rank's, the
+    only rank here) and the shared experts."""
+    eps = float(block["rms_norm_eps"])
+    attn = MLAttention(
+        dim, heads, int(block["kv_lora_rank"]), int(block["qk_nope_head_dim"]),
+        int(block["qk_rope_head_dim"]), int(block["v_head_dim"]), float(block["rope_theta"]),
+        seq_len, eps, dtype, "pallas" if attention_impl == "auto" else attention_impl)
+    moe = None
+    if index >= int(block["first_k_dense_replace"]):
+        experts, ep = int(block["n_routed_experts"]), int(block["ep_size"])
+        if experts % ep:
+            raise ValueError(f"ep_size={ep} does not divide n_routed_experts={experts}")
+        moe = dict(experts=experts, top_k=int(block["num_experts_per_tok"]),
+                   inner=int(block["moe_intermediate_size"]),
+                   n_shared=int(block["n_shared_experts"]), held=(0, experts // ep),
+                   scaling=float(block["routed_scaling_factor"]),
+                   norm_topk_prob=bool(block["norm_topk_prob"]),
+                   aux_loss_alpha=float(block["aux_loss_alpha"]),
+                   bias_update_speed=float(block["bias_update_speed"]))
+    return DecoderBlock(dim, attn, int(block["intermediate_size"]), moe, eps, dtype)
 
 
 def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
@@ -315,6 +378,8 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None):
                     bound = p.shape[0] ** -0.5  # [in, E]
                 elif name.split(".")[-2] == "experts":
                     bound = p.shape[-2] ** -0.5  # [E, in, out]
+                elif p.ndim == 3:
+                    bound = p.shape[-1] ** -0.5  # routed experts [held, out, in]
                 else:
                     bound = p.shape[1] ** -0.5  # [out, in]: fan-in
                 p.copy_(

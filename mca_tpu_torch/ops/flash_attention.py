@@ -20,6 +20,10 @@ Semantics (shared by the kernels and the plain versions
 - scale folded into q in the input dtype, fp32 scores and softmax
   statistics, p (and in the backward ds) rounded to the input dtype for
   the products that take them, fp32 accumulation;
+- head dims ``(d_qk, d_v)``: q and k share one width, v and the output
+  another; the kernels take :data:`HEAD_DIMS`, (64, 64) for the MCA
+  blocks and (192, 128) for latent attention (K1 and K2 only: the split
+  backward K3a + K3b stays at 64), the plain versions any;
 - a fully masked query row returns **zeros** and lse ``NEG_INF`` (the
   dense oracle gives a uniform average there; such rows only occur at
   padded positions, whose outputs are never consumed); its dq is 0, and
@@ -52,6 +56,8 @@ NEG_INF = -1e30
 DEAD_CLAMP = -1e29
 BLOCK = 64
 HEAD_DIM = 64
+#: the ``(d_qk, d_v)`` pairs the kernels are compiled for
+HEAD_DIMS = ((64, 64), (192, 128))
 BWD_IMPLS = ("fused", "split")
 
 #: the backward of a :func:`flash_attention` call that names none:
@@ -207,15 +213,16 @@ def flash_attention_reference(
     key_padding_mask: Optional[torch.Tensor],
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``[B, H, Tq, D]`` q and
-    ``[B, H, Tk, D]`` k, v -> ``(out [B, H, Tq, D], lse [B, H, Tq])``.
+    """Plain PyTorch version of the kernel: ``[B, H, Tq, Dqk]`` q,
+    ``[B, H, Tk, Dqk]`` k and ``[B, H, Tk, Dv]`` v -> ``(out [B, H, Tq,
+    Dv], lse [B, H, Tq])``.
 
     Walks the same CSR schedule as the kernel, one q tile at a time:
     the keys of the tile's visited kv tiles are gathered and softmaxed
     at once (the online softmax of the kernel computes the same value).
     """
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
+    b, h, tq, _ = q.shape
+    tk, d = k.shape[2], v.shape[-1]
     if attn_mask is None:
         attn_mask = np.zeros((tq, tk), bool)
     attn_mask = np.asarray(attn_mask, bool)
@@ -302,7 +309,7 @@ def flash_attention_bwd_reference(
     lse_c = lse.clamp(min=DEAD_CLAMP)
     dq = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((b, h, tk, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, h, tk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
     for i in range(len(row_ptr) - 1):
         q0, q1 = i * BLOCK, min((i + 1) * BLOCK, tq)
         tiles = col_idx[row_ptr[i] : row_ptr[i + 1]]
@@ -373,14 +380,28 @@ def _check_cuda(t: torch.Tensor, name: str, shape, dtype) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _head_dims(q, v) -> Tuple[int, int]:
+    """``(d_qk, d_v)`` of a kernel call, refused unless in :data:`HEAD_DIMS`."""
+    dims = (q.shape[-1], v.shape[-1])
+    if dims not in HEAD_DIMS:
+        raise ValueError(
+            f"the kernels take head dims (d_qk, d_v) in {HEAD_DIMS}, got {dims}"
+        )
+    return dims
+
+
+def _check_qkv(q, k, v) -> None:
+    b, h, t, _ = q.shape
+    dqk, dv = _head_dims(q, v)
+    for name, x, d in (("q", q, dqk), ("k", k, dqk), ("v", v, dv)):
+        _check_cuda(x, name, (b, h, t, d), torch.bfloat16)
+
+
 def _kernel_args(q, k, v, attn_mask, key_padding_mask):
     """Check the kernels' inputs; returns ``(mask, pad)`` with the mask
     as a static numpy array and the padding as contiguous bool or None."""
-    b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(x, name, (b, h, t, d), torch.bfloat16)
+    b, h, t, _ = q.shape
+    _check_qkv(q, k, v)
     if attn_mask is None:
         attn_mask = all_live_mask(t)
     if not isinstance(attn_mask, np.ndarray) or attn_mask.shape != (t, t):
@@ -461,25 +482,23 @@ def flash_fwd_op(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
 def _flash_fwd_fake(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
                     pair_bits, scale):
     b, h, t, _ = q.shape
-    return torch.empty_like(q), q.new_empty((b, h, t), dtype=torch.float32)
+    return v.new_empty((b, h, t, v.shape[-1])), q.new_empty((b, h, t), dtype=torch.float32)
 
 
 @flash_fwd_op.register_kernel("cuda")
 def _flash_fwd_kernel(q, k, v, key_padding_mask, pair_ptr, pair_kv, pair_flags,
                       pair_bits, scale):
-    b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(x, name, (b, h, t, d), torch.bfloat16)
+    b, h, t, _ = q.shape
+    _check_qkv(q, k, v)
     if key_padding_mask is not None:
         _check_cuda(key_padding_mask, "key_padding_mask", (b, t), torch.bool)
-    out = torch.empty_like(q)
+    out = v.new_empty((b, h, t, v.shape[-1]))
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = _build.function(
         "flash_fwd",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p],
+        entry="flash_fwd" if q.shape[-1] == HEAD_DIM else "flash_fwd_mla",
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
@@ -498,8 +517,8 @@ def _bwd_common(q, k, v, do, lse, delta, attn_mask, key_padding_mask):
     """Checks shared by the three backward entry points; returns the
     mask's schedules on the device and the key padding (or None)."""
     attn_mask, pad = _kernel_args(q, k, v, attn_mask, key_padding_mask)
-    b, h, t, d = q.shape
-    _check_cuda(do, "do", (b, h, t, d), torch.bfloat16)
+    b, h, t, _ = q.shape
+    _check_cuda(do, "do", v.shape, torch.bfloat16)
     _check_cuda(lse, "lse", (b, h, t), torch.float32)
     _check_cuda(delta, "delta", (b, h, t), torch.float32)
     return _schedule_on(attn_mask, q.device), pad
@@ -515,21 +534,23 @@ def _ptr(x: Optional[torch.Tensor]):
 
 def flash_bwd(q, k, v, do, lse, delta, attn_mask, key_padding_mask, scale,
               dq_acc, dk, dv) -> None:
-    """Launch K2: dk, dv written, dq added into the fp32 ``dq_acc``
-    (zeroed by the caller).  CUDA tensors only."""
+    """Launch K2 (at either of :data:`HEAD_DIMS`): dk, dv written, dq
+    added into the fp32 ``dq_acc`` (zeroed by the caller).  CUDA tensors
+    only."""
     sched, pad = _bwd_common(
         q, k, v, do, lse, delta, attn_mask, key_padding_mask
     )
-    b, h, t, d = q.shape
-    _check_cuda(dq_acc, "dq_acc", (b, h, t, d), torch.float32)
-    _check_cuda(dk, "dk", (b, h, t, d), torch.bfloat16)
-    _check_cuda(dv, "dv", (b, h, t, d), torch.bfloat16)
+    _check_cuda(dq_acc, "dq_acc", q.shape, torch.float32)
+    _check_cuda(dk, "dk", k.shape, torch.bfloat16)
+    _check_cuda(dv, "dv", v.shape, torch.bfloat16)
     q_in, scale_s = _q_operand(q, scale)
     fn = _build.function(
         "flash_bwd",
         [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
         + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+        entry="flash_bwd" if q.shape[-1] == HEAD_DIM else "flash_bwd_mla",
     )
+    b, h, t, _ = q.shape
     err = fn(
         q_in.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(pad),
@@ -592,6 +613,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, attn_mask, key_padding_mask,
     bwd_launches["flash_bwd_dkv"] += 1
 
 
+def check_bwd_impl(bwd_impl: str, d_qk: int, d_v: int) -> None:
+    """Refuse the split backward (K3a + K3b) where q's and v's head dims
+    differ: only K2 has the (192, 128) instantiation."""
+    if bwd_impl == "split" and d_qk != d_v:
+        raise ValueError(
+            f"bwd_impl='split' (K3a + K3b) takes one head dim for q, k and v, got "
+            f"(d_qk, d_v) = ({d_qk}, {d_v}); use bwd_impl='fused' (K2)"
+        )
+
+
 def flash_attention_backward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -609,6 +640,7 @@ def flash_attention_backward(
     version for CPU tensors (both impls compute the same function)."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
+    check_bwd_impl(bwd_impl, q.shape[-1], v.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, attn_mask, key_padding_mask, out, lse, do, scale
@@ -693,8 +725,9 @@ def flash_attention(
     bwd_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked attention ``(out, lse)`` through the Hopper kernels for
-    CUDA tensors (bf16, head dim 64, contiguous ``[B, H, T, 64]``
-    self-attention), the plain versions for CPU tensors; differentiable
+    CUDA tensors (bf16, contiguous ``[B, H, T, d]`` self-attention at
+    head dims ``(d_qk, d_v)`` in :data:`HEAD_DIMS`), the plain versions
+    for CPU tensors; differentiable
     in q, k and v, with the backward chosen by ``bwd_impl`` (``None``:
     ``default_bwd_impl``)."""
     if bwd_impl is None:

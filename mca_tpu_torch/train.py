@@ -108,6 +108,7 @@ from mca_tpu_torch.data.synthetic import make_cmu_like, make_tcga_like
 from mca_tpu_torch.eval_metrics import epoch_metrics
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
 from mca_tpu_torch.models import MCA, build_model
+from mca_tpu_torch.models.routed_moe import routed_layers
 from mca_tpu_torch.parallel import collectives as coll
 from mca_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
@@ -351,10 +352,21 @@ def make_schedule(optimizer: torch.optim.Optimizer, config, num_training_steps: 
     )
 
 
+def training_loss(out: Mapping[str, Any]) -> torch.Tensor:
+    """The loss a step descends: the contrastive loss graph's, plus the
+    routed experts' balance loss where the model returned one."""
+    if "balance_loss" in out:
+        return out["loss"] + out["balance_loss"]
+    return out["loss"]
+
+
 def scalar_losses(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """``total_loss``, the per-pair losses whose names have no ``|`` (the
-    reference's logging filter) and the FCL aggregates."""
-    scal = {"total_loss": out["loss"]}
+    """``total_loss`` (:func:`training_loss`), the per-pair losses whose
+    names have no ``|`` (the reference's logging filter), the FCL
+    aggregates and, where the routed experts gave one, ``balance_loss``."""
+    scal = {"total_loss": training_loss(out)}
+    if "balance_loss" in out:
+        scal["balance_loss"] = out["balance_loss"]
     scal.update({k: v for k, v in out["losses"].items() if "|" not in k})
     for k in ("fcl_loss", "no-fcl_loss"):
         if k in out:
@@ -506,9 +518,10 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
         with trace.span("train.forward", step=step):
             out = model(batch, no_loss=False,
                         generator=dropout_generator(dropout_seed, step, None, device, dropout_rank))
+        scal = scalar_losses(out)
         with trace.span("train.backward", step=step):
-            out["loss"].backward()
-        scal = {k: v.detach().float() for k, v in scalar_losses(out).items()}
+            scal["total_loss"].backward()
+        scal = {k: v.detach().float() for k, v in scal.items()}
     else:
         total = count = names = None
         for i in range(n_accum):
@@ -517,9 +530,9 @@ def forward_backward(model: MCA, batch, n_accum: int = 1, dropout_seed: int = 0,
                 out = model(micro, no_loss=False,
                             generator=dropout_generator(dropout_seed, step, i, device,
                                                         dropout_rank))
-            with trace.span("train.backward", step=step, micro=i):
-                out["loss"].backward()
             s = scalar_losses(out)
+            with trace.span("train.backward", step=step, micro=i):
+                s["total_loss"].backward()
             names = list(s)
             v = torch.stack([x.detach().float() for x in s.values()])
             finite = torch.isfinite(v)
@@ -580,17 +593,33 @@ def train_step(
             if clip:
                 clip_by_global_norm(grads, float(clip), grad_norm)
             optimizer.step()
+            routed = routed_layers(model)
+            for m in routed:
+                m.update_bias()
             schedule.step()
             clamp_logit_scale(model)
             with torch.no_grad():
                 param_norm = norm(optimizer.opt_params if sharded else list(model.parameters()))
             names = list(scal) + ["param_norm", "grad_norm"]
+            stats = [st for st in (m.take_stats() for m in routed) if st is not None]
             stacked = torch.stack(list(scal.values()) + [param_norm, grad_norm])
+            if stats:
+                stacked = torch.cat([stacked, *stats])
         sp.device_end()
         with trace.span("train.readback", step=k):
             values = stacked.tolist()
         trace.RECORDER.settle()
+        record_routing(values[len(names):])
     return {**dict(zip(names, values)), "lr": lr}
+
+
+def record_routing(values: Sequence[float]) -> None:
+    """The routed layers' statistics of a step, two a layer (held
+    assignments, the most on one held expert), as the counters
+    ``moe.held_tokens`` and ``moe.held_max``."""
+    for held, most in zip(*[iter(values)] * 2):
+        trace.count("moe.held_tokens", int(held))
+        trace.count("moe.held_max", int(most))
 
 
 def require_device(device: str) -> torch.device:
