@@ -18,18 +18,23 @@
 
 The first two pad through the C++ collate (:mod:`mca_tpu_torch.native`,
 built with ``g++`` at first use; its numpy plain versions give the same
-bits).  A missing modality (value ``None``) collates to a fully padded
-row, which downstream becomes an absent-sample mask.
+bits).  Every column is written into
+:func:`mca_tpu_torch.data.pinned.empty`'s host memory: pinned blocks
+under ``BatchedLoader`` once CUDA is initialised, numpy arrays
+elsewhere.  A missing modality (value ``None``) collates to a fully
+padded row, which downstream becomes an absent-sample mask.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from mca_tpu_torch import native
+from mca_tpu_torch.data import pinned
 
 
 def _to_numpy(x: Any) -> Optional[np.ndarray]:
@@ -40,6 +45,14 @@ def _to_numpy(x: Any) -> Optional[np.ndarray]:
     if hasattr(x, "numpy"):  # torch tensor
         return x.numpy()
     return np.asarray(x)
+
+
+def _stacked(values: List[Any]) -> np.ndarray:
+    """``np.stack(values)`` into :func:`pinned.empty`'s memory."""
+    arrays = [np.asanyarray(v) for v in values]
+    dtype = functools.reduce(np.promote_types, [a.dtype for a in arrays])
+    dst = pinned.empty((len(arrays),) + arrays[0].shape, dtype)
+    return np.stack(arrays, out=dst)
 
 
 class SequenceCollator:
@@ -148,7 +161,8 @@ class MatrixCollator:
     ) -> Dict[str, np.ndarray]:
         rows = [_to_numpy(x) for x in data["values"]]
         width = next((r.shape[1] for r in rows if r is not None), self.max_channels)
-        out = np.full((len(rows), self.pad_len, width), self.pad_token, dtype=np.float32)
+        out = pinned.empty((len(rows), self.pad_len, width), np.float32)
+        out.fill(self.pad_token)
         for i, r in enumerate(rows):
             if r is None:
                 continue
@@ -203,9 +217,7 @@ class MultimodalCollator:
             for sample in batch:
                 for field, fv in sample[self.labels].items():
                     label_fields[field].append(_to_numpy(fv))
-            out[self.labels] = {
-                k: np.stack(v) for k, v in label_fields.items()
-            }
+            out[self.labels] = {k: _stacked(v) for k, v in label_fields.items()}
         return out
 
     def _group_fields(

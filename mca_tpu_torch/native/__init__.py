@@ -13,6 +13,11 @@ output: there is no quiet numpy fallback.
 the same functions in numpy, the reference the tests hold the C entries
 to, bit for bit.
 
+The C entries write into :func:`mca_tpu_torch.data.pinned.empty`'s
+arrays: pinned blocks under ``BatchedLoader`` once CUDA is initialised,
+plain numpy arrays elsewhere.  :func:`pad_seq2d` splits its rows over
+:func:`seq2d_threads` threads, by the bytes it writes.
+
 Both paths of :func:`pad_seq2d` refuse what the C code would read past
 or cut silently: a row longer than ``pad_len`` (the collator truncates
 first unless ``truncate: false``) and a non-empty row whose width is not
@@ -32,9 +37,18 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mca_tpu_torch.data import pinned
+
 SRC = Path(__file__).resolve().parent / "fastcollate.cc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+#: bytes of output a thread of :func:`pad_seq2d` takes at least (a CMU
+#: batch's COVAREP and OpenFace columns are 28 and 82 MB)
+THREAD_BYTES = 2 << 20
+#: a CMU batch's collate on one H100 machine's 8-core host read 13.0 ms
+#: at 4 threads, 15.2 at 2 and 17.7 at 8; on another 7.9-9.0 at 4 and
+#: 8.6-8.8 at 8: more than 4 gained nothing
+MAX_THREADS = 4
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -79,7 +93,7 @@ def library() -> ctypes.CDLL:
         pp = ctypes.POINTER(vp)
         lib.pad_rows_f32.argtypes = [pp, vp, i64, i64, f32, vp, vp]
         lib.pad_rows_fill_f32.argtypes = [pp, vp, i64, i64, f32, vp]
-        lib.pad_seq2d_f32.argtypes = [pp, vp, i64, i64, i64, f32, ctypes.c_int, vp, vp]
+        lib.pad_seq2d_f32.argtypes = [pp, vp, i64, i64, i64, f32, ctypes.c_int, vp, vp, i64]
         for fn in (lib.pad_rows_f32, lib.pad_rows_fill_f32, lib.pad_seq2d_f32):
             fn.restype = None
         _LIB = lib
@@ -110,8 +124,8 @@ def pad_rows(rows: Sequence, pad_len: int, pad_value: float,
     ``out == pad_value`` (None without ``with_mask``)."""
     flat = _flat_rows(rows)
     ptrs, lens = _pointers(flat)
-    out = np.empty((len(flat), pad_len), np.float32)
-    mask = np.empty((len(flat), pad_len), np.int64) if with_mask else None
+    out = pinned.empty((len(flat), pad_len), np.float32)
+    mask = pinned.empty((len(flat), pad_len), np.int64) if with_mask else None
     library().pad_rows_f32(ptrs, lens.ctypes.data, len(flat), pad_len, float(pad_value),
                            out.ctypes.data, None if mask is None else mask.ctypes.data)
     return out, mask
@@ -121,7 +135,7 @@ def pad_rows_fill(rows: Sequence, pad_len: int, fill: float) -> np.ndarray:
     """1-D rows -> ``[n, pad_len]`` f32 padded with ``fill``, no mask."""
     flat = _flat_rows(rows)
     ptrs, lens = _pointers(flat)
-    out = np.empty((len(flat), pad_len), np.float32)
+    out = pinned.empty((len(flat), pad_len), np.float32)
     library().pad_rows_fill_f32(ptrs, lens.ctypes.data, len(flat), pad_len, float(fill),
                                 out.ctypes.data)
     return out
@@ -148,6 +162,13 @@ def _seq2d_rows(rows: Sequence, pad_len: int, width: int) -> List[Optional[np.nd
     return out
 
 
+def seq2d_threads(nbytes: int) -> int:
+    """Threads for a :func:`pad_seq2d` call that writes ``nbytes``: one
+    a :data:`THREAD_BYTES`, at most :data:`MAX_THREADS` and the cores
+    this process may run on; one under twice :data:`THREAD_BYTES`."""
+    return max(1, min(MAX_THREADS, len(os.sched_getaffinity(0)), nbytes // THREAD_BYTES))
+
+
 def pad_seq2d(rows: Sequence, pad_len: int, width: int, fill: float,
               clean: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """``[T_i, width]`` rows -> ``[n, pad_len, width]`` f32 padded with
@@ -155,10 +176,11 @@ def pad_seq2d(rows: Sequence, pad_len: int, width: int, fill: float,
     NaN -> 0 and +-Inf -> +-FLT_MAX."""
     checked = _seq2d_rows(rows, pad_len, width)
     ptrs, lens = _pointers(checked)
-    out = np.empty((len(checked), pad_len, width), np.float32)
-    mask = np.empty((len(checked), pad_len), np.bool_)
+    out = pinned.empty((len(checked), pad_len, width), np.float32)
+    mask = pinned.empty((len(checked), pad_len), np.bool_)
     library().pad_seq2d_f32(ptrs, lens.ctypes.data, len(checked), pad_len, width,
-                            float(fill), int(bool(clean)), out.ctypes.data, mask.ctypes.data)
+                            float(fill), int(bool(clean)), out.ctypes.data, mask.ctypes.data,
+                            seq2d_threads(out.nbytes))
     return out, mask
 
 

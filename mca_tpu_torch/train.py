@@ -102,6 +102,7 @@ import torch
 
 from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
+from mca_tpu_torch.data import pinned
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
 from mca_tpu_torch.data.synthetic import make_cmu_like, make_tcga_like
@@ -740,14 +741,31 @@ def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
 def to_device(batch: Mapping[str, Mapping[str, Any]], device) -> dict:
     """A collated batch (numpy arrays, or the tensors of
     :func:`narrow_for_staging`) on ``device``; fp16 / bf16 columns are
-    copied narrow and become fp32 there.  Recorded as ``data.copy``."""
+    copied narrow and become fp32 there.  A column held in a pinned host
+    block (:mod:`mca_tpu_torch.data.pinned`) goes to a CUDA device
+    without blocking the host, issued on the block's own tensor on the
+    current stream: the step's kernels follow the copy in stream order,
+    and the allocator keeps the block until the copy has read it.  Other
+    columns are copied pageable.  Recorded as ``data.copy``, with the
+    counters ``data.copied_bytes`` and ``data.pinned_bytes`` (of them,
+    those copied from pinned blocks)."""
+    cuda = torch.device(device).type == "cuda"
     out = {}
+    copied = from_pinned = 0
     with trace.span("data.copy"):
         for m, fields in batch.items():
             out[m] = {}
             for k, v in fields.items():
-                t = torch.as_tensor(v).to(device)
+                src = pinned.pinned_tensor(v) if cuda else None
+                if src is not None:
+                    t = src.to(device, non_blocking=True)
+                    from_pinned += t.nbytes
+                else:
+                    t = torch.as_tensor(v).to(device)
+                copied += t.nbytes
                 out[m][k] = t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
+        trace.count("data.copied_bytes", copied)
+        trace.count("data.pinned_bytes", from_pinned)
     return out
 
 

@@ -7,17 +7,21 @@ epoch from the same seed and collate it; every batch must be equal bit
 for bit: for epochs 0 and 1, with the rows preloaded or read from the
 arrow buffers of the index-mapped split, after ``skip_batches`` and for
 ``first_batch``.  The port's split of rows held in memory must give the
-rows the HF split gives.
+rows the HF split gives.  An epoch of CMU-shaped rows collated into host
+blocks, as under CUDA, equals the collator's numpy output.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from mca_tpu.data import dataset as jax_ds
 from mca_tpu.data.collators import MultimodalCollator as JaxCollator
 from mca_tpu.data.synthetic import make_tcga_like, tiny_config, to_hf_dataset
 from mca_tpu_torch.data import dataset as port_ds
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.synthetic import make_cmu_like
+from tests.test_torch_pinned import unpinned_cuda_blocks  # noqa: F401 (fixture)
 
 WIDTHS = {"gene": 12, "protein": 8, "methylation": 10, "mirna": 6}
 MODALITIES = tiny_config("tcga", widths=WIDTHS)["modality_config"]
@@ -120,6 +124,35 @@ def test_prefetch_gives_the_same_batches(ds_path):
     _, pl = loaders(ds_path, True)
     _, pf = loaders(ds_path, True, prefetch=2)
     assert_batches_equal(list(pf), list(pl))
+
+
+CMU_SHAPES = {"COVAREP": (74, 30), "FACET": (35, 9), "OpenFace": (713, 9),
+              "glove_vectors": (300, 5)}  # CMU-MOSEI's widths, short pad lengths
+CMU_MODALITIES = {m: {"type": "embedded_sequence", "pad_len": n, "data_col_name": "data",
+                      "pad_token": -10000, "embedding_size": w}
+                  for m, (w, n) in CMU_SHAPES.items()}
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_cmu_epoch_in_host_blocks_equals_the_collators_output(prefetch, unpinned_cuda_blocks):
+    """With CUDA initialised the loader collates into host blocks
+    (``pinned.empty``; stubbed unpinned here): every batch of an epoch at
+    CMU's widths, all held to the end, equals the collator's numpy output
+    on the same rows, and no two batches share memory."""
+    rows = make_cmu_like(40, shapes={m: (w, n + 3) for m, (w, n) in CMU_SHAPES.items()},
+                         p_missing=0.3, seed=5)
+    collator = MultimodalCollator(CMU_MODALITIES, labels="Labels")
+    order = np.arange(len(rows))
+    np.random.default_rng(SEED).shuffle(order)
+    want = [collator([rows[i] for i in order[k * BS:(k + 1) * BS]])
+            for k in range(len(rows) // BS)]
+    loader = port_ds.BatchedLoader(rows, collator, BS, shuffle=True, seed=SEED, prefetch=prefetch)
+    got = list(loader)
+    assert_batches_equal(got, want)
+    cols = [v for b in got for f in b.values() for v in f.values()]
+    assert len(unpinned_cuda_blocks) == len(cols) == len(got) * (2 * len(CMU_SHAPES) + 1)
+    assert all(isinstance(v.base, torch.Tensor) for v in cols)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(cols) for b in cols[i + 1:])
 
 
 def test_prefetch_reraises_the_producers_error(rows):

@@ -17,6 +17,7 @@ from mca_tpu import native as jax_native
 from mca_tpu.data.collators import MultimodalCollator as JaxCollator
 from mca_tpu.data.synthetic import make_cmu_like, make_tcga_like, tiny_config
 from mca_tpu_torch import native
+from mca_tpu_torch.data import pinned
 from mca_tpu_torch.data.collators import EmbeddedSequenceCollator, MultimodalCollator
 
 PAD = -10000.0
@@ -84,16 +85,67 @@ def _rows_2d(rng, width=4):
     ]
 
 
-@pytest.mark.parametrize("clean", [True, False])
-@pytest.mark.parametrize("fill", [0.0, -1.5])
-def test_pad_seq2d_matches_plain_and_jax_native(clean, fill):
-    rows = _rows_2d(np.random.default_rng(2))
-    tokens, mask = native.pad_seq2d(rows, 6, 4, fill, clean=clean)
-    plain_tokens, plain_mask = native.pad_seq2d_plain(rows, 6, 4, fill, clean=clean)
-    jax_tokens, jax_mask = jax_native.pad_seq2d(rows, 6, 4, fill, clean=clean)
+def _specials(width):
+    """NaN of both signs, +-Inf, -0.0, float32's extremes and denormals
+    of both signs, each row a rotation of them."""
+    vals = np.array([np.nan, np.inf, -np.inf, -0.0, 1e-40, -1e-45,
+                     np.finfo(np.float32).max, -np.finfo(np.float32).max, 0.0], np.float32)
+    vals = np.concatenate([vals, np.array([0xFFC00000], np.uint32).view(np.float32)])  # -NaN
+    return [np.roll(np.resize(vals, (t, width)), i, axis=1) for i, t in enumerate((4, 6, 2))]
+
+
+def _seq2d_case(name, rng):
+    """``(rows, pad_len, width)`` of a case of
+    :func:`test_pad_seq2d_matches_plain_and_jax_native`."""
+    if name == "mixed":
+        return _rows_2d(rng), 6, 4
+    if name == "specials":
+        return _specials(5), 6, 5
+    if name == "edges":  # missing, empty and full-length rows, one token
+        return [None, np.zeros((0, 3), np.float32), rng.normal(size=(7, 3)).astype(np.float32),
+                rng.normal(size=(1, 3)).astype(np.float32), None], 7, 3
+    if name == "few_rows":  # fewer rows than threads
+        return [rng.normal(size=(2, 3)).astype(np.float32), _specials(3)[0]], 5, 3
+    width = int(name[len("cmu"):])  # CMU-MOSEI's widths, ragged rows, one of them cut
+    rows = [None if i % 4 == 1 else rng.normal(size=(int(t), width)).astype(np.float32)
+            for i, t in enumerate(rng.integers(0, 13, size=11))]
+    rows[2] = np.concatenate([_specials(width)[0], rng.normal(size=(8, width))]).astype(np.float32)
+    return rows, 12, width
+
+
+def _nan_filled(shape, dtype):
+    """An output buffer the pass must overwrite everywhere: NaN floats,
+    True masks."""
+    return np.full(shape, np.nan if np.dtype(dtype) == np.float32 else True, dtype)
+
+
+SEQ2D_CASES = ["mixed", "specials", "edges", "few_rows", "cmu35", "cmu74", "cmu300", "cmu713"]
+# the first four keep their ids: "mixed" at the thread count the size gives;
+# every case also with the pass kept single and with 8 threads forced
+SEQ2D_PARAMS = [pytest.param(clean, fill, "mixed", None, id=f"{fill}-{clean}")
+                for fill in (0.0, -1.5) for clean in (True, False)] + [
+    pytest.param(clean, fill, case, threads,
+                 id=f"{fill}-{clean}-{case}-{'single' if threads == 1 else 'threaded'}")
+    for case in SEQ2D_CASES for threads in (1, 8) for fill in (0.0, -1.5)
+    for clean in (True, False)]
+
+
+@pytest.mark.parametrize("clean, fill, case, threads", SEQ2D_PARAMS)
+def test_pad_seq2d_matches_plain_and_jax_native(clean, fill, case, threads, monkeypatch):
+    rows, pad_len, width = _seq2d_case(case, np.random.default_rng(2))
+    if threads is not None:
+        monkeypatch.setattr(native, "seq2d_threads", lambda nbytes: threads)
+    monkeypatch.setattr(pinned, "empty", _nan_filled)
+    tokens, mask = native.pad_seq2d(rows, pad_len, width, fill, clean=clean)
+    plain_tokens, plain_mask = native.pad_seq2d_plain(rows, pad_len, width, fill, clean=clean)
+    jax_tokens, jax_mask = jax_native.pad_seq2d(rows, pad_len, width, fill, clean=clean)
     for want_tokens, want_mask in ((plain_tokens, plain_mask), (jax_tokens, jax_mask)):
         assert_bitwise(tokens, want_tokens)
         assert_bitwise(mask, want_mask)
+    if clean:
+        assert not np.isnan(tokens).any()
+    if case != "mixed":
+        return
     np.testing.assert_array_equal(mask.sum(1), [3, 6, 3, 6, 0, 5])
     if clean:
         fmax = np.finfo(np.float32).max
@@ -101,6 +153,15 @@ def test_pad_seq2d_matches_plain_and_jax_native(clean, fill):
     else:
         assert np.isnan(tokens[2, 0, 1]) and np.isinf(tokens[2, 1, 2])
     assert (tokens[1] == np.float32(fill)).all()
+
+
+@pytest.mark.parametrize("nbytes, cores, want", [
+    (0, 8, 1), (4 << 20, 8, 2), (12 << 20, 8, 4), (28 << 20, 8, 4), (82 << 20, 8, 4),
+    (82 << 20, 3, 3)])
+def test_seq2d_threads_follow_the_bytes_and_the_cores(nbytes, cores, want, monkeypatch):
+    monkeypatch.setattr(native.os, "sched_getaffinity", lambda pid: set(range(cores)))
+    assert native.seq2d_threads(nbytes) == want
+    assert native.seq2d_threads((2 << 20) - 1) == 1  # a few MB stay on one thread
 
 
 def _tcga_case():
