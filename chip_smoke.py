@@ -2495,11 +2495,13 @@ def check_host_staging(cfg, device, params, rows) -> None:
         return {m: {k: t.to(device, non_blocking=True) for k, t in f.items()}
                 for m, f in batch.items()}
 
-    held = pinned(native_batch)
+    # the collator wrote into pinned blocks (CUDA is initialised): numpy's own copy is pageable
+    pageable = {m: {k: np.array(v) for k, v in f.items()} for m, f in native_batch.items()}
+    held = pinned(pageable)
     n_bytes = sum(v.nbytes for f in native_batch.values() for v in f.values())
     copy_ms = {"pageable": [], "pin + async": [], "pinned async": []}
-    arms = {"pageable": lambda: to_device(native_batch, device),
-            "pin + async": lambda: copy_async(pinned(native_batch)),
+    arms = {"pageable": lambda: to_device(pageable, device),
+            "pin + async": lambda: copy_async(pinned(pageable)),
             "pinned async": lambda: copy_async(held)}
     for arm in (*arms, *reversed(arms)):
         copy_ms[arm].append(median_host_ms(arms[arm], sync))

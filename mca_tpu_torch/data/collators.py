@@ -19,10 +19,10 @@
 The first two pad through the C++ collate (:mod:`mca_tpu_torch.native`,
 built with ``g++`` at first use; its numpy plain versions give the same
 bits).  Every column is written into
-:func:`mca_tpu_torch.data.pinned.empty`'s host memory: pinned blocks
-under ``BatchedLoader`` once CUDA is initialised, numpy arrays
-elsewhere.  A missing modality (value ``None``) collates to a fully
-padded row, which downstream becomes an absent-sample mask.
+:func:`mca_tpu_torch.data.staging.empty`'s host memory: pinned blocks
+once CUDA is initialised, numpy arrays elsewhere.  A missing modality
+(value ``None``) collates to a fully padded row, which downstream
+becomes an absent-sample mask.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from mca_tpu_torch import native
-from mca_tpu_torch.data import pinned
+from mca_tpu_torch.data import staging
 
 
 def _to_numpy(x: Any) -> Optional[np.ndarray]:
@@ -48,10 +48,10 @@ def _to_numpy(x: Any) -> Optional[np.ndarray]:
 
 
 def _stacked(values: List[Any]) -> np.ndarray:
-    """``np.stack(values)`` into :func:`pinned.empty`'s memory."""
+    """``np.stack(values)`` into :func:`staging.empty`'s memory."""
     arrays = [np.asanyarray(v) for v in values]
     dtype = functools.reduce(np.promote_types, [a.dtype for a in arrays])
-    dst = pinned.empty((len(arrays),) + arrays[0].shape, dtype)
+    dst = staging.empty((len(arrays),) + arrays[0].shape, dtype)
     return np.stack(arrays, out=dst)
 
 
@@ -161,7 +161,7 @@ class MatrixCollator:
     ) -> Dict[str, np.ndarray]:
         rows = [_to_numpy(x) for x in data["values"]]
         width = next((r.shape[1] for r in rows if r is not None), self.max_channels)
-        out = pinned.empty((len(rows), self.pad_len, width), np.float32)
+        out = staging.empty((len(rows), self.pad_len, width), np.float32)
         out.fill(self.pad_token)
         for i, r in enumerate(rows):
             if r is None:

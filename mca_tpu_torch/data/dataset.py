@@ -29,7 +29,6 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from mca_tpu_torch.data import pinned
 from mca_tpu_torch.utils import trace
 
 
@@ -354,9 +353,7 @@ class BatchedLoader:
     rows are decoded from the arrow buffers when it is drawn.
     ``prefetch > 0`` collates that many batches ahead on a thread.
     Each batch's collation is recorded as ``data.collate``
-    (:mod:`mca_tpu_torch.utils.trace`), on the thread that collates it,
-    and runs under :func:`pinned.collating`: once CUDA is initialised the
-    collators write each batch into pinned host blocks of its own.
+    (:mod:`mca_tpu_torch.utils.trace`), on the thread that collates it.
     """
 
     def __init__(
@@ -403,10 +400,6 @@ class BatchedLoader:
             return _arrow_take_rows(self.dataset, idx)
         return [self.dataset[int(i)] for i in idx]
 
-    def _collate(self, idx):
-        with pinned.collating():
-            return self.collator(self._batch_samples(idx))
-
     def _produce(self):
         n = len(self.dataset)
         order = np.arange(n)
@@ -417,14 +410,14 @@ class BatchedLoader:
         self._skip_next = 0
         for start in range(first, usable, self.batch_size):
             with trace.span("data.collate", epoch=self._epoch, batch=start // self.batch_size):
-                batch = self._collate(order[start : start + self.batch_size])
+                batch = self.collator(self._batch_samples(order[start : start + self.batch_size]))
             yield batch
 
     def first_batch(self):
         """One full batch, collated on the calling thread (rows wrap
         when the split is smaller than a batch), for model init."""
         idx = np.arange(self.batch_size) % max(len(self.dataset), 1)
-        return self._collate(idx)
+        return self.collator(self._batch_samples(idx))
 
     def __iter__(self):
         if self.prefetch > 0:

@@ -57,11 +57,12 @@ from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
+from mca_tpu_torch.data.staging import to_device
 from mca_tpu_torch.models import build_model
 from mca_tpu_torch.parallel.mesh import SINGLE, Mesh, make_mesh
 from mca_tpu_torch.parallel.multihost import (init_multihost, is_primary, make_stager,
                                               require_output_dir)
-from mca_tpu_torch.train import plain, require_device, synthetic_rows, to_device
+from mca_tpu_torch.train import plain, require_device, synthetic_rows
 
 logger = logging.getLogger(__name__)
 

@@ -38,9 +38,6 @@ loss, with ``GLOBAL`` backprop by default (``backprop``,
 computes the loss of the global batch, whose masked row means divide by
 the global count of live rows; that is the JAX package's semantics (the
 loss written on the global batch), not the reference's per-rank labels.
-
-Recorded (:mod:`mca_tpu_torch.utils.trace`): the counter ``loss.pairs``,
-P, once a loss forward (none under ``no_loss``).
 """
 
 from __future__ import annotations
@@ -53,7 +50,6 @@ import torch
 from torch import nn
 
 from mca_tpu_torch.parallel.collectives import BackpropType, gather_masks, gather_tensor
-from mca_tpu_torch.utils import trace
 
 LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
 LOGIT_SCALE_MIN = math.log(1.0)
@@ -245,7 +241,6 @@ class MCAPretrainingLoss(nn.Module):
         if no_loss:
             return outputs
         n_loss = len(self.loss_names)
-        trace.count("loss.pairs", n_loss)
 
         # [M, B] presence, then each loss's rows: (OR of term 0) AND (OR of term 1)
         present = torch.stack([sample_mask[m] for m in names]).bool()

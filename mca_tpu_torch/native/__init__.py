@@ -13,9 +13,9 @@ output: there is no quiet numpy fallback.
 the same functions in numpy, the reference the tests hold the C entries
 to, bit for bit.
 
-The C entries write into :func:`mca_tpu_torch.data.pinned.empty`'s
-arrays: pinned blocks under ``BatchedLoader`` once CUDA is initialised,
-plain numpy arrays elsewhere.  :func:`pad_seq2d` splits its rows over
+The C entries write into :func:`mca_tpu_torch.data.staging.empty`'s
+arrays: pinned blocks once CUDA is initialised, plain numpy arrays
+elsewhere.  :func:`pad_seq2d` splits its rows over
 :func:`seq2d_threads` threads, by the bytes it writes.
 
 Both paths of :func:`pad_seq2d` refuse what the C code would read past
@@ -37,7 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mca_tpu_torch.data import pinned
+from mca_tpu_torch.data import staging
 
 SRC = Path(__file__).resolve().parent / "fastcollate.cc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -124,8 +124,8 @@ def pad_rows(rows: Sequence, pad_len: int, pad_value: float,
     ``out == pad_value`` (None without ``with_mask``)."""
     flat = _flat_rows(rows)
     ptrs, lens = _pointers(flat)
-    out = pinned.empty((len(flat), pad_len), np.float32)
-    mask = pinned.empty((len(flat), pad_len), np.int64) if with_mask else None
+    out = staging.empty((len(flat), pad_len), np.float32)
+    mask = staging.empty((len(flat), pad_len), np.int64) if with_mask else None
     library().pad_rows_f32(ptrs, lens.ctypes.data, len(flat), pad_len, float(pad_value),
                            out.ctypes.data, None if mask is None else mask.ctypes.data)
     return out, mask
@@ -135,7 +135,7 @@ def pad_rows_fill(rows: Sequence, pad_len: int, fill: float) -> np.ndarray:
     """1-D rows -> ``[n, pad_len]`` f32 padded with ``fill``, no mask."""
     flat = _flat_rows(rows)
     ptrs, lens = _pointers(flat)
-    out = pinned.empty((len(flat), pad_len), np.float32)
+    out = staging.empty((len(flat), pad_len), np.float32)
     library().pad_rows_fill_f32(ptrs, lens.ctypes.data, len(flat), pad_len, float(fill),
                                 out.ctypes.data)
     return out
@@ -176,8 +176,8 @@ def pad_seq2d(rows: Sequence, pad_len: int, width: int, fill: float,
     NaN -> 0 and +-Inf -> +-FLT_MAX."""
     checked = _seq2d_rows(rows, pad_len, width)
     ptrs, lens = _pointers(checked)
-    out = pinned.empty((len(checked), pad_len, width), np.float32)
-    mask = pinned.empty((len(checked), pad_len), np.bool_)
+    out = staging.empty((len(checked), pad_len, width), np.float32)
+    mask = staging.empty((len(checked), pad_len), np.bool_)
     library().pad_seq2d_f32(ptrs, lens.ctypes.data, len(checked), pad_len, width,
                             float(fill), int(bool(clean)), out.ctypes.data, mask.ctypes.data,
                             seq2d_threads(out.nbytes))

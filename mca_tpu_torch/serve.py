@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.staging import to_device
 from mca_tpu_torch.ops.quant import QUANT_MODES
 from mca_tpu_torch.utils import trace
 
@@ -226,16 +227,12 @@ class EmbeddingService:
 
     def _pad(self, rows: Sequence[Dict[str, Any]]):
         """Collate ``rows`` padded to ``max_batch`` with template rows
-        and copy the batch to the device."""
+        and copy the batch to the device
+        (:func:`~mca_tpu_torch.data.staging.to_device`: from pinned host
+        blocks without blocking, once CUDA is initialised)."""
         assert 0 < len(rows) <= self.max_batch, len(rows)
         full = list(rows) + [self._template] * (self.max_batch - len(rows))
-        return {
-            m: {
-                k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in fields.items()
-            }
-            for m, fields in self.collate(full).items()
-        }
+        return to_device(self.collate(full), self.device)
 
     def _dispatch(self, rows: Sequence[Dict[str, Any]], requests: Sequence[int] = ()):
         """Collate + copy + launch one chunk; returns the device tensors

@@ -81,11 +81,12 @@ def host_batch_costs(config, rows: list, device, stage_dtypes=("fp32", "bf16"),
                      repeats: int = 5) -> dict:
     """The host's side of one batch of ``rows``, median ms of ``repeats``:
     ``collate_ms`` (``MultimodalCollator``), and for each of
-    ``stage_dtypes`` ``narrow_ms`` (:func:`train.narrow_for_staging`),
-    ``copy_ms`` (:func:`train.to_device`, host to device and the upcast,
+    ``stage_dtypes`` ``narrow_ms`` (:func:`staging.narrow_for_staging`),
+    ``copy_ms`` (:func:`staging.to_device`, host to device and the upcast,
     synchronised) and ``bytes`` copied."""
     from mca_tpu_torch.data.collators import MultimodalCollator
-    from mca_tpu_torch.train import narrow_for_staging, plain, staging_sentinels, to_device
+    from mca_tpu_torch.data.staging import narrow_for_staging, staging_sentinels, to_device
+    from mca_tpu_torch.train import plain
 
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)

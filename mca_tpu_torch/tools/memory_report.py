@@ -28,6 +28,7 @@ import torch
 
 from mca_tpu_torch import train as train_lib
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.staging import to_device
 from mca_tpu_torch.parallel.multihost import init_multihost, make_stager
 from mca_tpu_torch.parallel.sharding import ShardedOptimizer
 
@@ -126,7 +127,7 @@ def step_memory(config, batch=None, grad_accum: int = 1, remat: Optional[bool] =
     model, opt, sched = train_lib.build_trainer(cfg, device, num_training_steps=2)
     sharded = isinstance(opt, ShardedOptimizer)
     stage = make_stager(opt.mesh, int(cfg.batch_size)) if sharded else (lambda b: b)
-    local = train_lib.to_device(stage(batch if batch is not None else synthetic_batch(cfg)), dev)
+    local = to_device(stage(batch if batch is not None else synthetic_batch(cfg)), dev)
     batch_bytes = tensor_bytes(t for f in local.values() for t in f.values())
     leaves = list(opt.opt_params) if sharded else list(model.parameters())
 

@@ -70,8 +70,9 @@ def extract_moe_stats(config, split: str = "train",
     from mca_tpu_torch.config import get_model_config
     from mca_tpu_torch.data.collators import MultimodalCollator
     from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
+    from mca_tpu_torch.data.staging import to_device
     from mca_tpu_torch.models import build_model
-    from mca_tpu_torch.train import plain, require_device, to_device
+    from mca_tpu_torch.train import plain, require_device
 
     model_config = get_model_config(config)
     if int(model_config.get("moe_experts", 0) or 0) <= 0:

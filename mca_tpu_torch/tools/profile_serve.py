@@ -36,22 +36,10 @@ import torch
 from mca_tpu_torch.config import training_config
 from mca_tpu_torch.serve import QUANT_MODES, EmbeddingService
 from mca_tpu_torch.tools import host_batch_costs, request_rows
+from mca_tpu_torch.tools.profile_train import kind_of
 from mca_tpu_torch.utils import trace
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yaml"
-
-
-def kind_of(name: str) -> str:
-    if "flash_fwd" in name:
-        return "flash_fwd (K1)"
-    if "geglu_ff" in name:
-        return "geglu_ff (K5)"
-    low = name.lower()
-    if "gemm" in low or "xmma" in low or "cutlass" in low or "sm90" in low:
-        return "gemm (projections, encoders)"
-    if "memcpy" in low or "memset" in low:
-        return "copies"
-    return "other (norms, elementwise, pooling)"
 
 
 def run_forwards(svc, rows, n: int) -> float:

@@ -41,10 +41,11 @@ import torch
 
 from mca_tpu_torch.config import training_config
 from mca_tpu_torch.data.collators import MultimodalCollator
+from mca_tpu_torch.data.staging import to_device
 from mca_tpu_torch.ops import flash_attention as flash
 from mca_tpu_torch.tools import (host_batch_costs, host_description, host_probe_ms,
                                  sample_tokens)
-from mca_tpu_torch.train import build_trainer, synthetic_rows, to_device, train_step
+from mca_tpu_torch.train import build_trainer, synthetic_rows, train_step
 from mca_tpu_torch.utils import trace
 
 PHASES = ("train.forward", "train.backward", "train.optimizer", "train.readback")
@@ -53,11 +54,15 @@ DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "tcga_mca.yam
 
 
 def kind_of(name: str) -> str:
+    """The kind a device kernel's time is summed under, by the kernel's
+    name (``tools.profile_serve`` sorts by it too)."""
     for kernel, label in (
         ("flash_fwd", "flash_fwd (K1)"),
         ("flash_bwd_dq", "flash_bwd_dq (K3a)"),
         ("flash_bwd_kv_kernel<false>", "flash_bwd_dkv (K3b)"),
         ("flash_bwd_kv_kernel<true>", "flash_bwd (K2)"),
+        ("flash_bwd_mla", "flash_bwd_mla (K2 at 192/128)"),
+        ("geglu_ff", "geglu_ff (K5)"),
     ):
         if kernel in name:
             return label

@@ -30,7 +30,7 @@ feed-forward, as the JAX package trains (``MCA_FUSED_FF=0``).
 Parameters are fp32; ``precision: bf16`` runs the blocks in bf16.
 ``stage_dtype: fp16 | bf16`` narrows each training batch's float
 columns on the host before the copy to the device and restores fp32
-there (:func:`narrow_for_staging`, :func:`to_device`).  Encoder dropout
+there (:mod:`mca_tpu_torch.data.staging`).  Encoder dropout
 draws from one ``torch.Generator`` a step (and microbatch) derived from
 ``seed`` (:func:`dropout_generator`); eval, ``infer`` and ``serve``
 never draw.
@@ -102,9 +102,10 @@ import torch
 
 from mca_tpu_torch import checkpoint
 from mca_tpu_torch.config import get_model_config
-from mca_tpu_torch.data import pinned
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader, setup_data
+from mca_tpu_torch.data.staging import (STAGE_DTYPES, narrow_for_staging, staging_sentinels,
+                                        to_device)
 from mca_tpu_torch.data.synthetic import make_cmu_like, make_tcga_like
 from mca_tpu_torch.eval_metrics import epoch_metrics
 from mca_tpu_torch.losses import LOGIT_SCALE_MAX, LOGIT_SCALE_MIN
@@ -145,13 +146,6 @@ class PreemptedError(RuntimeError):
 
 def plain(c) -> Dict[str, Any]:
     return c.to_plain() if hasattr(c, "to_plain") else dict(c)
-
-
-#: ``stage_dtype`` values: fp32 copies the batches as collated
-STAGE_DTYPES = ("fp32", "", None, "fp16", "bf16")
-_NARROW = {"fp16": torch.float16, "bf16": torch.bfloat16}
-# the reference's pad / missing marker, where a modality_config names none
-_DEFAULT_PAD_TOKEN = -10000.0
 
 
 def check_mesh_keys(config) -> None:
@@ -373,104 +367,6 @@ def scalar_losses(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if k in out:
             scal[k] = out[k]
     return scal
-
-
-def staging_sentinels(config) -> Dict[str, Optional[float]]:
-    """Per modality, the float value that the model re-detects by exact
-    equality on the device (so narrowing must keep it and must not round
-    a live value onto it), or None where narrowing is always safe
-    (``mca_tpu.train.staging_sentinels``): a ``matrix`` modality's
-    ``pad_token`` (the PatchEncoder's patch mask); a ``sequence``
-    modality's ``float(padding_idx)`` under a Tabular (-1) or
-    SparseTabular (0) encoder (the value encoder's zeroing); None for
-    ``embedded_sequence`` (an explicit attention mask) and token-id
-    sequences."""
-    enc = plain(config.encoder_configs)
-    out: Dict[str, Optional[float]] = {}
-    for m, c in plain(config.modality_config).items():
-        typ, e = c.get("type"), enc.get(m, {})
-        if typ == "matrix":
-            out[m] = float(e.get("pad_token", c.get("pad_token", _DEFAULT_PAD_TOKEN)))
-        elif typ == "sequence" and e.get("type") == "TabularEncoder":
-            out[m] = float(e.get("padding_idx", -1))
-        elif typ == "sequence" and e.get("type") == "SparseTabularEncoder":
-            out[m] = float(e.get("padding_idx", 0))
-        else:
-            out[m] = None
-    return out
-
-
-def _narrowed(x: float, dtype: torch.dtype) -> float:
-    """``x`` as fp32, rounded to ``dtype`` and back."""
-    return float(torch.tensor(x, dtype=torch.float32).to(dtype).float())
-
-
-def _pad_representable(pad: float, dtype: torch.dtype) -> bool:
-    return _narrowed(pad, dtype) == float(np.float32(pad))
-
-
-def _nearest_distinct(pad: float, dtype: torch.dtype) -> float:
-    """The closest ``dtype`` value that is not ``pad``, toward zero and of
-    its sign: where a live value that narrowing rounds onto the sentinel
-    is moved to."""
-    p32 = np.float32(pad)
-    if p32 == 0:
-        return float(torch.finfo(dtype).smallest_normal)
-    pn = _narrowed(p32, dtype)
-    for k in range(12, 5, -1):  # finest first: the nearest distinct value
-        c = _narrowed(p32 * np.float32(1 - 2.0**-k), dtype)
-        if c != pn:
-            return c
-    raise ValueError(f"no {dtype} neighbour for pad {pad}")
-
-
-def narrow_for_staging(batch, stage_dtype, sentinels=None):
-    """The host's narrowing of a collated batch before its copy to the
-    device (``mca_tpu.train.narrow_for_staging``); :func:`to_device`
-    restores fp32 there.  ``fp32`` (or empty) returns ``batch`` as it is.
-
-    ``fp16`` / ``bf16``: float32 columns become that type and int64
-    columns int32 (torch tensors on the host); other columns pass.
-    ``sentinels`` maps a modality to the float its device path detects
-    by equality, or None (:func:`staging_sentinels`); without it every
-    modality gets the reference's -10000.  Per modality, and the same
-    for every batch: where the narrow type cannot hold the sentinel
-    exactly (bf16 rounds -10000 to -9984), its float columns stay fp32;
-    otherwise a live value that rounds onto the sentinel is moved one
-    step toward zero (:func:`_nearest_distinct`), so no live entry
-    becomes padding."""
-    if stage_dtype in ("fp32", "", None):
-        return batch
-    nd = _NARROW[stage_dtype]
-    out = {}
-    for mod, cols in batch.items():
-        pad = _DEFAULT_PAD_TOKEN if sentinels is None else sentinels.get(mod)
-        if pad is None:
-            pad_ok, bump = True, None  # no float equality on the device
-        else:
-            pad = float(np.float32(pad))
-            pad_ok = _pad_representable(pad, nd)
-            bump = _nearest_distinct(pad, nd) if pad_ok else None
-        ncols = {}
-        for name, x in cols.items():
-            x = np.asarray(x)
-            if x.dtype == np.float32:
-                if not pad_ok:
-                    ncols[name] = x  # never narrows
-                    continue
-                xt = torch.from_numpy(x)
-                xn = xt.to(nd)
-                if bump is not None:
-                    collided = (xn.float() == pad) & (xt != pad)
-                    if bool(collided.any()):
-                        xn[collided] = bump
-                ncols[name] = xn
-            elif x.dtype == np.int64:
-                ncols[name] = torch.from_numpy(x).to(torch.int32)
-            else:
-                ncols[name] = x
-        out[mod] = ncols
-    return out
 
 
 def dropout_generator(seed: int, step: int, micro: Optional[int], device,
@@ -736,37 +632,6 @@ def synthetic_rows(config, n: int, seed: int = 0) -> List[Dict[str, Any]]:
         widths = {m: int(c["pad_len"]) for m, c in mods.items()}
         return make_tcga_like(n, widths=widths, p_missing=0.25, seed=seed)
     raise ValueError(f"no synthetic rows for modality types {sorted(types)}")
-
-
-def to_device(batch: Mapping[str, Mapping[str, Any]], device) -> dict:
-    """A collated batch (numpy arrays, or the tensors of
-    :func:`narrow_for_staging`) on ``device``; fp16 / bf16 columns are
-    copied narrow and become fp32 there.  A column held in a pinned host
-    block (:mod:`mca_tpu_torch.data.pinned`) goes to a CUDA device
-    without blocking the host, issued on the block's own tensor on the
-    current stream: the step's kernels follow the copy in stream order,
-    and the allocator keeps the block until the copy has read it.  Other
-    columns are copied pageable.  Recorded as ``data.copy``, with the
-    counters ``data.copied_bytes`` and ``data.pinned_bytes`` (of them,
-    those copied from pinned blocks)."""
-    cuda = torch.device(device).type == "cuda"
-    out = {}
-    copied = from_pinned = 0
-    with trace.span("data.copy"):
-        for m, fields in batch.items():
-            out[m] = {}
-            for k, v in fields.items():
-                src = pinned.pinned_tensor(v) if cuda else None
-                if src is not None:
-                    t = src.to(device, non_blocking=True)
-                    from_pinned += t.nbytes
-                else:
-                    t = torch.as_tensor(v).to(device)
-                copied += t.nbytes
-                out[m][k] = t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
-        trace.count("data.copied_bytes", copied)
-        trace.count("data.pinned_bytes", from_pinned)
-    return out
 
 
 def make_wandb_config(config) -> Optional[Dict[str, Any]]:

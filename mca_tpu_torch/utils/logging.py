@@ -7,8 +7,6 @@
 - :class:`NullLogger`: the stand-in that logs nothing.
 - :class:`ThroughputMeter`: tokens/s and ms per step over a sliding
   window of step stamps.
-- :func:`trace_context`: the ``torch.profiler`` window of ``trace_dir``,
-  re-exported from :mod:`mca_tpu_torch.utils.trace`, the port's tracing.
 """
 
 from __future__ import annotations
@@ -19,8 +17,6 @@ import os
 import time
 from collections import deque
 from typing import Any, Dict, Optional
-
-from mca_tpu_torch.utils.trace import trace_context  # noqa: F401  (the callers' import path)
 
 _log = logging.getLogger(__name__)
 

@@ -21,7 +21,7 @@ from mca_tpu.data.synthetic import make_tcga_like, tiny_config, to_hf_dataset
 from mca_tpu_torch.data import dataset as port_ds
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.synthetic import make_cmu_like
-from tests.test_torch_pinned import unpinned_cuda_blocks  # noqa: F401 (fixture)
+from tests.test_torch_staging import unpinned_cuda_blocks  # noqa: F401 (fixture)
 
 WIDTHS = {"gene": 12, "protein": 8, "methylation": 10, "mirna": 6}
 MODALITIES = tiny_config("tcga", widths=WIDTHS)["modality_config"]
@@ -134,9 +134,10 @@ CMU_MODALITIES = {m: {"type": "embedded_sequence", "pad_len": n, "data_col_name"
 
 
 @pytest.mark.parametrize("prefetch", [0, 2])
-def test_cmu_epoch_in_host_blocks_equals_the_collators_output(prefetch, unpinned_cuda_blocks):
+def test_cmu_epoch_in_host_blocks_equals_the_collators_output(prefetch, unpinned_cuda_blocks,
+                                                              monkeypatch):
     """With CUDA initialised the loader collates into host blocks
-    (``pinned.empty``; stubbed unpinned here): every batch of an epoch at
+    (``staging.empty``; stubbed unpinned here): every batch of an epoch at
     CMU's widths, all held to the end, equals the collator's numpy output
     on the same rows, and no two batches share memory."""
     rows = make_cmu_like(40, shapes={m: (w, n + 3) for m, (w, n) in CMU_SHAPES.items()},
@@ -144,8 +145,10 @@ def test_cmu_epoch_in_host_blocks_equals_the_collators_output(prefetch, unpinned
     collator = MultimodalCollator(CMU_MODALITIES, labels="Labels")
     order = np.arange(len(rows))
     np.random.default_rng(SEED).shuffle(order)
-    want = [collator([rows[i] for i in order[k * BS:(k + 1) * BS]])
-            for k in range(len(rows) // BS)]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_initialized", lambda: False)  # numpy's own memory
+        want = [collator([rows[i] for i in order[k * BS:(k + 1) * BS]])
+                for k in range(len(rows) // BS)]
     loader = port_ds.BatchedLoader(rows, collator, BS, shuffle=True, seed=SEED, prefetch=prefetch)
     got = list(loader)
     assert_batches_equal(got, want)

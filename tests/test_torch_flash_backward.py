@@ -219,11 +219,21 @@ def test_dq_kernel_walks_the_pair_schedule_longest_first(monkeypatch):
          "unsigned long const*, __nv_bfloat16*, float*, int, int, float)",
          "flash_fwd (K1)"),
         ("nvjet_tst_128x64_64x8_1x2_h_bz_TNT", "gemm (projections, FF, encoders, loss)"),
+        ("void (anonymous namespace)::flash_bwd_mla_kernel(CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+         "unsigned char const*, int const*, int const*, int const*, unsigned long const*, "
+         "int const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, float)",
+         "flash_bwd_mla (K2 at 192/128)"),
+        ("void (anonymous namespace)::geglu_ff_kernel(CUtensorMap_st, CUtensorMap_st, "
+         "CUtensorMap_st, __nv_bfloat16*, int, int)", "geglu_ff (K5)"),
+        ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT", "gemm (projections, FF, encoders, loss)"),
     ],
 )
 def test_profile_train_attributes_the_flash_kernels(name, kind):
-    """``tools/profile_train`` sorts device time by kernel name: the
-    kv-major template's two instances are K2 (with dq) and K3b."""
+    """``tools/profile_train`` (and ``tools/profile_serve``, which imports
+    it) sorts device time by kernel name: the kv-major template's two
+    instances are K2 (with dq) and K3b, the latent-attention backward is
+    K2 at head dims 192/128, and serving's bf16 GEMM is a GEMM."""
     from mca_tpu_torch.tools.profile_train import kind_of
 
     assert kind_of(name) == kind

@@ -8,8 +8,8 @@ FCL) with one pair whose joint presence mask is empty, so its NaN must
 be excluded from ``loss`` and zeroed in the aggregates.  fp32 both sides.
 
 Then the batched graph against a loop of ``clip_contrastive_loss`` over
-the same losses at six layouts, the ops it dispatches (as many for 60
-losses as for 14) and its ``loss.pairs`` counter.
+the same losses at six layouts, and the ops it dispatches (as many for 60
+losses as for 14).
 """
 
 import math
@@ -349,20 +349,3 @@ def test_loss_graph_ops_do_not_grow_with_pairs():
         counts[len(out["losses"])] = fwd.n + bwd.n
     assert set(counts) == {60, 14}
     assert counts[60] == counts[14] <= 150, counts
-
-
-@pytest.mark.parametrize("layout,pairs", [("tcga", 60), ("cmu", 14)])
-def test_loss_pairs_counter(layout, pairs):
-    """``loss.pairs`` is recorded once a loss forward with the number of
-    losses the batched call carries, and not at all under ``no_loss``."""
-    from mca_tpu_torch.utils import trace
-
-    pooled, present, combos = _case(5, False)
-    mod = _port_module(layout, combos)
-    masks = {k: torch.from_numpy(v) for k, v in present.items()}
-    mark = trace.RECORDER.mark()
-    mod(torch.from_numpy(pooled), masks)
-    assert trace.RECORDER.records("loss.pairs", since=mark)["value"].tolist() == [pairs]
-    mark = trace.RECORDER.mark()
-    mod(torch.from_numpy(pooled), masks, no_loss=True)
-    assert len(trace.RECORDER.records("loss.pairs", since=mark)["seq"]) == 0

@@ -17,7 +17,7 @@ from mca_tpu import native as jax_native
 from mca_tpu.data.collators import MultimodalCollator as JaxCollator
 from mca_tpu.data.synthetic import make_cmu_like, make_tcga_like, tiny_config
 from mca_tpu_torch import native
-from mca_tpu_torch.data import pinned
+from mca_tpu_torch.data import staging
 from mca_tpu_torch.data.collators import EmbeddedSequenceCollator, MultimodalCollator
 
 PAD = -10000.0
@@ -135,7 +135,7 @@ def test_pad_seq2d_matches_plain_and_jax_native(clean, fill, case, threads, monk
     rows, pad_len, width = _seq2d_case(case, np.random.default_rng(2))
     if threads is not None:
         monkeypatch.setattr(native, "seq2d_threads", lambda nbytes: threads)
-    monkeypatch.setattr(pinned, "empty", _nan_filled)
+    monkeypatch.setattr(staging, "empty", _nan_filled)
     tokens, mask = native.pad_seq2d(rows, pad_len, width, fill, clean=clean)
     plain_tokens, plain_mask = native.pad_seq2d_plain(rows, pad_len, width, fill, clean=clean)
     jax_tokens, jax_mask = jax_native.pad_seq2d(rows, pad_len, width, fill, clean=clean)

@@ -41,7 +41,7 @@ def test_no_jax_or_jax_package_imports():
     for module in ("data/dataset.py", "utils/logging.py", "eval_metrics.py",
                    "checkpoint.py", "train.py", "infer.py", "probe.py", "metrics.py",
                    "models/pool.py", "models/eao.py", "encoders.py", "data/collators.py",
-                   "data/synthetic.py", "serve.py", "tools/__init__.py",
+                   "data/synthetic.py", "data/staging.py", "serve.py", "tools/__init__.py",
                    "tools/profile_train.py", "tools/profile_serve.py", "models/moe.py",
                    "tools/moe_stats.py", "native/__init__.py", "parallel/__init__.py",
                    "parallel/multihost.py", "parallel/mesh.py", "parallel/collectives.py",
@@ -58,6 +58,23 @@ def test_no_jax_or_jax_package_imports():
         if mod.split(".")[0] in FORBIDDEN
     ]
     assert bad == []
+
+
+def test_only_staging_copies_to_the_device_without_blocking():
+    """No module of the port but ``data/staging.py`` calls ``.to(...,
+    non_blocking=...)``: a host-to-device copy that does not block reads
+    its source after the call returns, so only the module that owns the
+    pinned blocks may issue one (``copy_`` back to the host is not such a
+    call)."""
+    files = sorted((ROOT / "mca_tpu_torch").rglob("*.py"))
+    found = [
+        (f.relative_to(ROOT).as_posix(), node.lineno)
+        for f in files
+        for node in ast.walk(ast.parse(f.read_text()))
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+        and node.func.attr == "to" and any(k.arg == "non_blocking" for k in node.keywords)
+    ]
+    assert [path for path, _ in found] == ["mca_tpu_torch/data/staging.py"], found
 
 
 def _module_level_imports(tree):

@@ -1,14 +1,14 @@
-"""Pinned host blocks for collated batches (``mca_tpu_torch.data.pinned``),
-the copy from them (``train.to_device``) and the metric that reads its
-counters (``portbench/metrics/pinned_copy_share.train.py``).
+"""A collated batch's way to the card (``mca_tpu_torch.data.staging``):
+pinned host blocks, the copy from them (``to_device``) and the metric
+that reads its counters (``portbench/metrics/pinned_copy_share.train.py``).
 
-On the CPU: :func:`pinned.empty` asks for a pinned block only inside
-:func:`pinned.collating` and only once CUDA is initialised (both
-stubbed, since this build has no pinned allocator);
-:func:`pinned.pinned_tensor` finds the block under a column and under a
-row slice of it, and nothing under other memory; a label whose dtype
-torch lacks (strings, bytes, objects) stays ``np.stack``'s array;
-``to_device`` counts the bytes it copies, none of them pinned here; the
+On the CPU: :func:`staging.empty` asks for a pinned block on any thread
+once CUDA is initialised, and not before (both stubbed, since this build
+has no pinned allocator); :func:`staging.pinned_tensor` finds the block
+under a column and under a row slice of it, and nothing under other
+memory; a label whose dtype torch lacks (strings, bytes, objects) stays
+``np.stack``'s array; ``to_device`` counts the bytes it copies, none of
+them pinned here; the trainer's staging names are this module's; the
 reader gives 100, 0 and nothing on hand-made records.
 
 On the card only (``-m card``; this file imports no JAX, so it runs
@@ -16,7 +16,8 @@ there with ``--noconftest``): a block is not handed to the next batch
 while a copy from a view into it is still queued, and at CMU's shapes
 every byte copied comes from a pinned block.  A planted fault, the copy
 issued on a ``torch.from_numpy`` alias of the view, must show as a
-corrupted batch.
+corrupted batch.  Serving copies every byte of its batches from pinned
+blocks.
 """
 
 import json
@@ -28,10 +29,10 @@ import numpy as np
 import pytest
 import torch
 
-from mca_tpu_torch.data import pinned
+from mca_tpu_torch.data import staging
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader
-from mca_tpu_torch.train import to_device
+from mca_tpu_torch.data.staging import to_device
 from mca_tpu_torch.utils import trace
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -41,7 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def unpinned_cuda_blocks(monkeypatch):
     """CUDA reported initialised, and ``torch.empty(..., pin_memory=True)``
     made as a plain CPU tensor (a CPU build has no pinned allocator), so
-    that ``mca_tpu_torch.data.pinned`` takes its block path; returns the
+    that ``mca_tpu_torch.data.staging`` takes its block path; returns the
     blocks handed out.  ``tests/test_torch_dataset.py`` imports it."""
     handed = []
     real = torch.empty
@@ -57,28 +58,23 @@ def unpinned_cuda_blocks(monkeypatch):
     return handed
 
 
-def test_empty_pins_only_inside_collating_once_cuda_is_initialised(unpinned_cuda_blocks,
-                                                                   monkeypatch):
+def test_empty_pins_on_any_thread_once_cuda_is_initialised(unpinned_cuda_blocks,
+                                                            monkeypatch):
     handed = unpinned_cuda_blocks
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_initialized", lambda: False)
-        with pinned.collating():
-            assert pinned.empty((2, 3), np.float32).base is None  # no CUDA context
-    assert pinned.empty((2, 3), np.float32).base is None and not handed
+        assert staging.empty((2, 3), np.float32).base is None  # no CUDA context
+        assert not handed
     seen = []
-    with pinned.collating():
-        block = pinned.empty((2, 3), np.bool_)
-        worker = threading.Thread(target=lambda: seen.append(pinned.empty((4,), np.int64)))
-        worker.start()
-        worker.join(timeout=10)
-        assert not worker.is_alive()
-        with pinned.collating():
-            pass
-        inner = pinned.empty((5,), np.int64)  # still on after a nested block
-    assert pinned.empty((2, 3), np.float32).base is None
-    assert len(handed) == 2 and seen[0].base is None  # another thread is not collating
+    block = staging.empty((2, 3), np.bool_)
+    worker = threading.Thread(target=lambda: seen.append(staging.empty((4,), np.int64)))
+    worker.start()
+    worker.join(timeout=10)
+    assert not worker.is_alive()
+    assert len(handed) == 2 and isinstance(seen[0].base, torch.Tensor)  # the worker pins too
+    assert seen[0].dtype == np.int64 and seen[0].shape == (4,)
     assert isinstance(block.base, torch.Tensor) and block.dtype == np.bool_
-    assert block.shape == (2, 3) and inner.dtype == np.int64
+    assert block.shape == (2, 3)
 
 
 @pytest.mark.parametrize("tags", [["a", "bcd"], [b"a", b"bcd"], [None, 3]],
@@ -103,18 +99,17 @@ def test_a_label_torch_has_no_dtype_for_is_stacked_by_numpy(tags, unpinned_cuda_
 
 def test_pinned_tensor_finds_the_block_under_a_column(unpinned_cuda_blocks, monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: True)
-    with pinned.collating():
-        col = pinned.empty((6, 4, 3), np.float32)
+    col = staging.empty((6, 4, 3), np.float32)
     col[...] = np.arange(col.size, dtype=np.float32).reshape(col.shape)
     for x in (col, col[2:5], col[3]):
-        t = pinned.pinned_tensor(x)
+        t = staging.pinned_tensor(x)
         assert t.shape == x.shape and t.data_ptr() == x.ctypes.data
         np.testing.assert_array_equal(t.numpy(), x)
-    assert pinned.pinned_tensor(col[:, 1]) is None  # not contiguous
-    assert pinned.pinned_tensor(col.view(np.int32)) is None  # another dtype than the block's
-    assert pinned.pinned_tensor(np.zeros((6, 4), np.float32)) is None  # numpy's own memory
-    assert pinned.pinned_tensor(col[:0]) is None
-    assert pinned.pinned_tensor(torch.from_numpy(col)) is None  # narrowed columns are tensors
+    assert staging.pinned_tensor(col[:, 1]) is None  # not contiguous
+    assert staging.pinned_tensor(col.view(np.int32)) is None  # another dtype than the block's
+    assert staging.pinned_tensor(np.zeros((6, 4), np.float32)) is None  # numpy's own memory
+    assert staging.pinned_tensor(col[:0]) is None
+    assert staging.pinned_tensor(torch.from_numpy(col)) is None  # narrowed columns are tensors
 
 
 def test_to_device_counts_the_bytes_it_copies():
@@ -130,6 +125,16 @@ def test_to_device_counts_the_bytes_it_copies():
                        ("data.pinned_bytes", 0)):
         rec = trace.RECORDER.records(name, since=mark)
         assert list(rec["value"]) == [want] and list(rec["parent"]) == copy["seq"].tolist()
+
+
+def test_the_trainer_stages_through_this_module():
+    """``mca_tpu_torch.train`` holds the staging module's own objects: the
+    benchmark's drivers import them from the trainer and its fault
+    control patches ``train.to_device``."""
+    from mca_tpu_torch import train
+
+    for name in ("to_device", "narrow_for_staging", "staging_sentinels", "STAGE_DTYPES"):
+        assert getattr(train, name) is getattr(staging, name), name
 
 
 @pytest.mark.parametrize("pinned_of, want", [((100, 100, 100), 100.0), ((0, 0, 0), 0.0),
@@ -189,8 +194,8 @@ def test_a_block_is_not_reused_while_its_copy_is_in_flight(card, copy_from, monk
     want_b = collator(rows[64:])
     torch.zeros(1, device=card)  # CUDA initialised: the loader pins
     if copy_from == "planted alias":
-        block_of = pinned.pinned_tensor
-        monkeypatch.setattr(pinned, "pinned_tensor", lambda x: None if block_of(x) is None
+        block_of = staging.pinned_tensor
+        monkeypatch.setattr(staging, "pinned_tensor", lambda x: None if block_of(x) is None
                             else torch.from_numpy(x))
     loader_a, loader_b = (BatchedLoader(part, collator, 64) for part in (rows[:64], rows[64:]))
     for _ in range(3):  # the allocator's cache holds blocks of these sizes
@@ -200,7 +205,7 @@ def test_a_block_is_not_reused_while_its_copy_is_in_flight(card, copy_from, monk
         del warm
     batch_a = loader_a.first_batch()  # no generator frame keeps it alive
     staged = {m: {k: v[16:] for k, v in f.items()} for m, f in batch_a.items()}
-    assert all(pinned.pinned_tensor(v) is not None for f in staged.values() for v in f.values())
+    assert all(staging.pinned_tensor(v) is not None for f in staged.values() for v in f.values())
     torch.cuda._sleep(2_000_000_000)  # about a second of the card's clock
     mark = trace.RECORDER.mark()
     t0 = time.perf_counter()
@@ -225,3 +230,29 @@ def test_a_block_is_not_reused_while_its_copy_is_in_flight(card, copy_from, monk
     copied = trace.RECORDER.records("data.copied_bytes", since=mark)["value"]
     from_blocks = trace.RECORDER.records("data.pinned_bytes", since=mark)["value"]
     assert copied.sum() == from_blocks.sum() > 118_000_000 * 48 // 64
+
+
+@pytest.mark.card
+def test_serving_copies_its_batches_from_pinned_blocks(card):
+    """TCGA_config1's service at batch 32 on the card: every byte of
+    every served batch, the warm-up's included, is copied from a pinned
+    block, one ``data.copy`` inside each ``serve.batch``."""
+    from mca_tpu_torch.config import training_config
+    from mca_tpu_torch.serve import EmbeddingService
+    from mca_tpu_torch.tools import request_rows
+
+    config = training_config(str(ROOT / "configs/tcga_mca.yaml"))
+    mark = trace.RECORDER.mark()
+    svc = EmbeddingService(config, max_batch=32, device="cuda", seed=0)
+    rows = request_rows(config, 40)
+    got = svc.embed(rows)
+    assert all(np.isfinite(e).all() for e in got["embeddings"].values())
+    t = trace.RECORDER.records(since=mark)
+    batches = t["seq"][t["name"] == "serve.batch"]
+    copies = t["seq"][(t["name"] == "data.copy") & np.isin(t["parent"], batches)]
+    assert len(batches) == 3 and len(copies) == 3  # the warm-up and two chunks
+    inside = np.isin(t["parent"], copies)
+    copied = t["value"][inside & (t["name"] == "data.copied_bytes")]
+    from_blocks = t["value"][inside & (t["name"] == "data.pinned_bytes")]
+    assert len(copied) == 3 and (copied > 0).all()
+    np.testing.assert_array_equal(from_blocks, copied)

@@ -19,7 +19,6 @@ from mca_tpu_torch.config import training_config_from_dict
 from mca_tpu_torch.data.collators import MultimodalCollator
 from mca_tpu_torch.data.dataset import BatchedLoader
 from mca_tpu_torch.serve import EmbeddingService
-from mca_tpu_torch.utils import logging as port_logging
 from mca_tpu_torch.utils import trace
 
 STEP_SPANS = ("train.forward", "train.backward", "train.optimizer", "train.readback")
@@ -232,7 +231,6 @@ def test_train_step_records_its_spans_each_step(n_accum):
 
 
 def test_trace_context_writes_mca_ranges(tmp_path):
-    assert port_logging.trace_context is trace.trace_context
     cfg = _config()
     rows = port_train.synthetic_rows(cfg, 4)
     model, opt, sched = port_train.build_trainer(cfg, "cpu", num_training_steps=10)
@@ -291,6 +289,30 @@ def test_the_service_stamps_every_request():
     all_rows = t["value"][t["name"] == "serve.rows"].sum()
     all_padded = t["value"][t["name"] == "serve.padded_rows"].sum()
     assert all_rows + all_padded == len(batches) * svc.max_batch
+
+
+@pytest.mark.parametrize("kind", ["tcga", "cmu"])
+def test_a_served_batch_is_copied_once_through_staging(kind):
+    """Each ``serve.batch`` holds exactly one ``data.copy``
+    (``data.staging.to_device``), which counts the bytes of the collated,
+    padded batch."""
+    cfg = training_config_from_dict(tiny_config(kind, batch_size=4))
+    svc = EmbeddingService(cfg, max_batch=4, device="cpu")
+    rows = port_train.synthetic_rows(cfg, 7)
+    mark = trace.RECORDER.mark()
+    svc.embed(rows)  # two chunks: 4 rows, then 3 padded to 4
+    t = trace.RECORDER.records(since=mark)
+    batches = t["seq"][t["name"] == "serve.batch"]
+    is_copy = t["name"] == "data.copy"
+    assert len(batches) == 2 and is_copy.sum() == 2
+    assert sorted(t["parent"][is_copy]) == sorted(batches)
+    copied = t["value"][t["name"] == "data.copied_bytes"]
+    assert (t["value"][t["name"] == "data.pinned_bytes"] == 0).all()
+    want = []
+    for chunk in (rows[:4], rows[4:]):
+        full = chunk + [svc._template] * (4 - len(chunk))
+        want.append(sum(v.nbytes for f in svc.collate(full).values() for v in f.values()))
+    assert copied.tolist() == want
 
 
 def test_the_profiling_tools_read_the_recorder():
