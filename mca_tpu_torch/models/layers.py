@@ -8,8 +8,9 @@
   the Hopper kernel on CUDA, its plain version on the CPU) and refuses
   to run where autograd would need its weights' gradients;
   ``fused=False`` (training) is the differentiable linear -> gelu ->
-  linear chain; ``quant="int8"`` (serving) the same chain over int8
-  weights (:mod:`mca_tpu_torch.ops.quant`).
+  linear chain, run at the inner width padded to a multiple of 64;
+  ``quant="int8"`` (serving) the unpadded chain over int8 weights
+  (:mod:`mca_tpu_torch.ops.quant`).
 - :class:`Attention` — MHA with a fused ``to_kv`` projection (k the
   first half), cross-attention through ``context`` (the attentive
   pool), and the static / dynamic mask pair; int8 projections with
@@ -51,7 +52,12 @@ from torch import nn
 from mca_tpu_torch.encoders import LN_EPS
 from mca_tpu_torch.models.moe import MoEFeedForward
 from mca_tpu_torch.ops.attention import dense_masked_attention, masked_attention
-from mca_tpu_torch.ops.fused_ff import geglu_ff, prepare_geglu_weights
+from mca_tpu_torch.ops.fused_ff import (
+    geglu_ff,
+    padded_columns,
+    padded_halves,
+    prepare_geglu_weights,
+)
 from mca_tpu_torch.ops.quant import QUANT_MODES, QuantLinear
 from mca_tpu_torch.parallel import collectives as coll
 
@@ -81,10 +87,20 @@ class FeedForward(nn.Module):
     stand by a traced one (``torch.export``), so they must have been
     made by one eager call before tracing.  They are detached, so that
     path raises when grad mode is on and a weight requires grad, instead
-    of leaving the weights without gradients.  ``quant="int8"`` holds
-    the two matrices as :class:`~mca_tpu_torch.ops.quant.QuantLinear`
-    (``weight_q`` / ``scale``) and runs the unfused chain over them, as
-    the JAX package does.
+    of leaving the weights without gradients.  The unfused path casts
+    the weights into zero-padded copies at the inner width rounded up to
+    a multiple of 64 (1365 -> 1408), with ``prepare_geglu_weights``' own
+    padding, and runs u and the gate as two products: every product's
+    operands then have leading dimensions that are multiples of 64
+    (cuBLAS's Hopper kernels need 16-byte-aligned strides), and the
+    gate's GELU and the product run on contiguous halves.  The padded
+    columns are exact zeros (u = g = 0, GELU(0) * 0 = 0, and W2's zero
+    columns meet them), the parameters keep their shapes, and autograd
+    carries the gradients back through the pad as a slice.
+    ``quant="int8"`` holds the two matrices as
+    :class:`~mca_tpu_torch.ops.quant.QuantLinear` (``weight_q`` /
+    ``scale``) and runs the unpadded chain over them, as the JAX package
+    does.
     """
 
     def __init__(
@@ -146,9 +162,11 @@ class FeedForward(nn.Module):
             return geglu_ff(x.contiguous(), *self._weights())
         w1 = self.feedforward[0].weight
         w2 = self.feedforward[2].weight
-        h, gate = F.linear(x, w1.to(self.dtype)).chunk(2, dim=-1)
+        w1p = padded_halves(w1, self.dtype)
+        u = F.linear(x, w1p[0])
+        g = F.linear(x, w1p[1])
         return F.linear(
-            F.gelu(gate, approximate="none") * h, w2.to(self.dtype)
+            F.gelu(g, approximate="none") * u, padded_columns(w2, self.dtype)
         )
 
 

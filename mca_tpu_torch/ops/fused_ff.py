@@ -46,6 +46,26 @@ def _pad_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def padded_halves(w1: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """W1 ``[2*inner, D]`` (the u rows, then the gate rows) as
+    ``[2, inner_p, D]`` in ``dtype``: each half with its inner width
+    rounded up to a multiple of ``INNER_MULTIPLE``, the extra rows zero.
+    Cast and pad are one copy, which autograd carries back as a slice."""
+    inner = w1.shape[0] // 2
+    out = w1.new_zeros((2, _pad_to(inner, INNER_MULTIPLE), w1.shape[1]), dtype=dtype)
+    out[:, :inner].copy_(w1.unflatten(0, (2, inner)))
+    return out
+
+
+def padded_columns(w2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """W2 ``[D_out, inner]`` as ``[D_out, inner_p]`` in ``dtype``, the extra
+    columns zero (``inner_p`` as in :func:`padded_halves`)."""
+    inner = w2.shape[1]
+    out = w2.new_zeros((w2.shape[0], _pad_to(inner, INNER_MULTIPLE)), dtype=dtype)
+    out[:, :inner].copy_(w2)
+    return out
+
+
 def prepare_geglu_weights(
     w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,18 +74,13 @@ def prepare_geglu_weights(
     interleaved in runs of 32 (``u[0:32], g[0:32], u[32:64], g[32:64],
     ...``), and ``w2t`` [D_out, inner_p], W2 transposed; ``inner_p`` is
     inner rounded up to a multiple of 64, the extra rows and columns
-    zero."""
+    zero (:func:`padded_halves`, :func:`padded_columns`)."""
     d, two_inner = w1.shape
-    inner = two_inner // 2
-    assert w2.shape[0] == inner, (w1.shape, w2.shape)
-    ip = _pad_to(inner, INNER_MULTIPLE)
-    halves = w1.new_zeros((2, ip, d), dtype=dtype)
-    halves[0, :inner] = w1[:, :inner].t()
-    halves[1, :inner] = w1[:, inner:].t()
+    assert w2.shape[0] == two_inner // 2, (w1.shape, w2.shape)
+    halves = padded_halves(w1.t(), dtype)
+    ip = halves.shape[1]
     w1t = halves.reshape(2, ip // HALF_CHUNK, HALF_CHUNK, d).transpose(0, 1)
-    w2t = w2.new_zeros((w2.shape[1], ip), dtype=dtype)
-    w2t[:, :inner] = w2.t()
-    return w1t.reshape(2 * ip, d).contiguous(), w2t.contiguous()
+    return w1t.reshape(2 * ip, d).contiguous(), padded_columns(w2.t(), dtype)
 
 
 def split_geglu_weights(
